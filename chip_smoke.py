@@ -1,0 +1,393 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch + CUDA port (vs_seg_tpu_torch) on one NVIDIA GPU.
+
+Run from the repo root with no arguments:
+
+    python3 chip_smoke.py
+
+Phases (any failure raises and exits non-zero; there is no CPU path):
+  1. The card's name and power limit (nvidia-smi), torch/CUDA versions, and
+     the nvcc build of every kernel from vs_seg_tpu_torch/ops/csrc/ into
+     build/vs_seg_tpu_torch/.
+  2. Each hand-written kernel against its plain PyTorch twin on the card, at
+     the flagship shapes of the whole-volume path (batch of 8 windows of
+     384x384x64, D-first): conv333 single and pair+residual, attgate,
+     ru_block at down_2/down_3, l2_block at up_2/up_3, and the blend over
+     the full 448x448x80 volume with its 8 overlapping windows. Kernel and
+     plain times come from CUDA events.
+  3. The flagship UNet2d5_spvPA (channels 16..96) at full width from a seeded
+     init with randomised BatchNorm statistics, over one seeded 448x448x80x1
+     volume staged as uint8: sliding_window_inference (ROI 384x384x64,
+     overlap 0.25, sw_batch_size 8, gaussian, D-first) through the kernels,
+     with every launch counter reset just before and read just after; then
+     the same volume through the all-plain path, compared in the bf16 band
+     and by argmax agreement.
+  4. ms/volume of both paths, each beside the card's name and power limit.
+
+The last stdout line is {"ok": true, "device": {...}}; the line before it is
+the per-kernel JSON record.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+SEED = 0
+# bf16 tolerance, kernel vs plain twin on the same inputs: both round to
+# bf16 (the plain twin rounds each conv output before its f32 epilogue, the
+# kernel rounds once after it) and sum in another order, so they differ by a
+# few bf16 ulps (2^-8 relative) of the largest outputs.
+KERNEL_TOL = 2e-2        # max|kernel - plain| / max|plain|
+BLEND_TOL = 0.0          # same f32 operation order in both: bit for bit
+LOGIT_TOL = 3e-2         # whole path: max|kernel - plain| / max|plain| logits
+ARGMAX_MIN = 0.995       # voxelwise argmax agreement, kernel vs plain path
+ROI = (384, 384, 64)     # (H, W, D)
+VOLUME = (448, 448, 80)  # (H, W, D)
+SW_BATCH = 8
+REPS = 5
+
+REPO = Path(__file__).resolve().parent
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, reps: int = REPS) -> float:
+    """Mean device time of fn() over `reps` launches after one warm-up."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def compare(name: str, got, ref, tol: float) -> float:
+    """Raise unless max|got - ref| <= tol * max|ref|; return max|got - ref|.
+    """
+    import torch
+    got = got.float()
+    ref = ref.float()
+    if got.shape != ref.shape:
+        raise AssertionError(f"{name}: shape {tuple(got.shape)} vs "
+                             f"{tuple(ref.shape)}")
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: kernel output is not finite")
+    err = float((got - ref).abs().max())
+    scale = float(ref.abs().max())
+    log(f"  {name}: max_abs_err {err!r} max|plain| {scale!r} "
+        f"rel {err / max(scale, 1e-30)!r} (tol {tol!r})")
+    if err > tol * scale:
+        raise AssertionError(f"{name}: kernel disagrees with its plain twin: "
+                             f"{err} > {tol} * {scale}")
+    return err
+
+
+def kernel_checks(dev, gen):
+    """Phase 2: each kernel vs its plain twin at the flagship shapes."""
+    import numpy as np
+    import torch
+
+    from vs_seg_tpu_torch.infer.sliding_window import (
+        dense_patch_starts, gaussian_importance_map)
+    from vs_seg_tpu_torch.ops import blend, conv333, l2block, rublock
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen).to(dev, torch.bfloat16)
+
+    def weight(k, cin, cout):
+        b = 1.0 / np.sqrt(cin * int(np.prod(k)))
+        return ((torch.rand((*k, cin, cout), generator=gen) * 2 - 1) * b
+                ).to(dev)
+
+    def vec(c, lo, hi):
+        return (torch.rand(c, generator=gen) * (hi - lo) + lo).to(dev)
+
+    def ru_args(cin, cout):
+        return dict(w0=weight((3, 3, 3), cin, cout),
+                    bn0_scale=vec(cout, .5, 1.5),
+                    bn0_shift=vec(cout, -.2, .2), alpha0=vec(1, .1, .3),
+                    w1=weight((3, 3, 3), cout, cout),
+                    bn1_scale=vec(cout, .5, 1.5),
+                    bn1_shift=vec(cout, -.2, .2), alpha1=vec(1, .1, .3),
+                    wr=weight((1, 1, 1), cin, cout), br=vec(cout, -.2, .2))
+
+    def l2_args(c):
+        return dict(w1=weight((3, 3, 3), 2 * c, c), b1=vec(c, -.2, .2),
+                    w2=weight((3, 3, 3), c, 1), b2=vec(1, -.2, .2),
+                    w0=weight((3, 3, 3), 2 * c, c), bn_scale=vec(c, .5, 1.5),
+                    bn_shift=vec(c, -.2, .2), alpha=vec(1, .1, .3),
+                    wr=weight((1, 1, 1), 2 * c, c), br=vec(c, -.2, .2))
+
+    rec = {}
+    B = SW_BATCH
+    # conv333, single input + epilogue, at down_2 unit0 (32 -> 48)
+    x = randn(B, 64, 96, 96, 32)
+    w = weight((3, 3, 3), 32, 48)
+    s, h, a = vec(48, .5, 1.5), vec(48, -.2, .2), vec(1, .1, .3)
+    e1 = compare("conv333 down_2 unit0 (8,64,96,96,32)->48",
+                 conv333.conv333(x, w, s, h, a),
+                 conv333.conv333_plain(x, w, s, h, a), KERNEL_TOL)
+    k_ms = cuda_ms(lambda: conv333.conv333(x, w, s, h, a))
+    p_ms = cuda_ms(lambda: conv333.conv333_plain(x, w, s, h, a))
+    # pair input + fused pair residual, at up_2 unit0 (48+48 -> 48)
+    ga, gb = randn(B, 64, 96, 96, 48), randn(B, 64, 96, 96, 48)
+    w = weight((3, 3, 3), 96, 48)
+    res = ((ga, gb), weight((1, 1, 1), 96, 48), vec(48, -.2, .2))
+    e2 = compare("conv333 up_2 unit0 pair+residual (8,64,96,96,48)x2->48",
+                 conv333.conv333((ga, gb), w, s, h, a, residual=res),
+                 conv333.conv333_plain((ga, gb), w, s, h, a, residual=res),
+                 KERNEL_TOL)
+    rec["conv333"] = dict(max_abs_err=max(e1, e2), ms=k_ms, plain_ms=p_ms,
+                          shape="down_2 unit0 (8,64,96,96,32)->48")
+
+    # attgate at up_2 (C = 48)
+    a1 = randn(B, 64, 96, 96, 48).abs()
+    w2, b2 = weight((3, 3, 3), 48, 1), vec(1, -.2, .2)
+    got = l2block.attgate(a1, w2, b2, ga, gb)
+    ref = l2block.attgate_plain(a1, w2, b2, ga, gb)
+    e = max(compare(f"attgate up_2 {n} (8,64,96,96,48)", g, r, KERNEL_TOL)
+            for n, g, r in zip(("att", "ga", "gb"), got, ref))
+    rec["attgate"] = dict(
+        max_abs_err=e, shape="up_2 (8,64,96,96,48)",
+        ms=cuda_ms(lambda: l2block.attgate(a1, w2, b2, ga, gb)),
+        plain_ms=cuda_ms(lambda: l2block.attgate_plain(a1, w2, b2, ga, gb)))
+    del a1
+
+    # ru_block at down_2 (32 -> 48, 64x96x96) and down_3 (48 -> 64, 32x48x48)
+    errs = []
+    for name, shape, cin, cout in (("down_2", (B, 64, 96, 96), 32, 48),
+                                   ("down_3", (B, 32, 48, 48), 48, 64)):
+        xr = randn(*shape, cin)
+        kw = ru_args(cin, cout)
+        errs.append(compare(f"ru_block {name} {shape}x{cin}->{cout}",
+                            rublock.ru_block(xr, **kw),
+                            rublock.ru_block_plain(xr, **kw), KERNEL_TOL))
+        if name == "down_2":
+            rec["ru_block"] = dict(
+                shape=f"down_2 {shape}x{cin}->{cout}",
+                ms=cuda_ms(lambda: rublock.ru_block(xr, **kw)),
+                plain_ms=cuda_ms(lambda: rublock.ru_block_plain(xr, **kw)))
+    rec["ru_block"]["max_abs_err"] = max(errs)
+
+    # l2_block at up_2 (C = 48, 64x96x96) and up_3 (C = 64, 32x48x48)
+    errs = []
+    for name, shape, c in (("up_2", (B, 64, 96, 96), 48),
+                           ("up_3", (B, 32, 48, 48), 64)):
+        xa, xb = randn(*shape, c), randn(*shape, c)
+        kw = l2_args(c)
+        got = l2block.l2_block(xa, xb, **kw)
+        ref = l2block.l2_block_plain(xa, xb, **kw)
+        errs.append(max(
+            compare(f"l2_block {name} {part} {shape}x{c}x2", g, r, KERNEL_TOL)
+            for part, g, r in zip(("out", "att"), got, ref)))
+        if name == "up_2":
+            rec["l2_block"] = dict(
+                shape=f"up_2 {shape}x{c}x2",
+                ms=cuda_ms(lambda: l2block.l2_block(xa, xb, **kw)),
+                plain_ms=cuda_ms(lambda: l2block.l2_block_plain(xa, xb, **kw)))
+    rec["l2_block"]["max_abs_err"] = max(errs)
+    del xa, xb, ga, gb, x
+
+    # blend over the full volume (D-first) with its 8 overlapping windows
+    vol = (VOLUME[2], VOLUME[0], VOLUME[1])
+    roi = (ROI[2], ROI[0], ROI[1])
+    starts = dense_patch_starts(vol, roi, 0.25)
+    assert len(starts) == SW_BATCH, starts
+    mask = np.ones(len(starts), np.float32)
+    imp = torch.from_numpy(gaussian_importance_map(roi)).to(dev)
+    preds = randn(len(starts), *roi, 2)
+    out0 = torch.rand((*vol, 2), generator=gen).to(dev)
+    w0 = torch.rand((*vol, 1), generator=gen).to(dev)
+    ko, kwt = blend.blend_scatter(out0.clone(), w0.clone(), preds, starts,
+                                  mask, imp)
+    po, pw = blend.blend_scatter_plain(out0.clone(), w0.clone(), preds,
+                                       starts, mask, imp)
+    e = max(compare("blend out_acc (80,448,448,2) 8 windows", ko, po,
+                    BLEND_TOL),
+            compare("blend w_acc (80,448,448,1) 8 windows", kwt, pw,
+                    BLEND_TOL))
+    oa, wa = out0.clone(), w0.clone()
+    rec["blend_scatter"] = dict(
+        max_abs_err=e, shape="(80,448,448,2) <- 8 x (64,384,384,2)",
+        ms=cuda_ms(lambda: blend.blend_scatter(oa, wa, preds, starts, mask,
+                                               imp)),
+        plain_ms=cuda_ms(lambda: blend.blend_scatter_plain(
+            oa, wa, preds, starts, mask, imp)))
+    torch.cuda.synchronize()
+    return rec
+
+
+def reset_counts():
+    from vs_seg_tpu_torch.ops import blend, conv333, l2block, rublock
+    for fn in (conv333.conv333, l2block.attgate, rublock.ru_block,
+               l2block.l2_block, blend.blend_scatter):
+        fn.launches = 0
+
+
+def read_counts():
+    from vs_seg_tpu_torch.ops import blend, conv333, l2block, rublock
+    return {"conv333": conv333.conv333.launches,
+            "attgate": l2block.attgate.launches,
+            "ru_block": rublock.ru_block.launches,
+            "l2_block": l2block.l2_block.launches,
+            "blend_scatter": blend.blend_scatter.launches}
+
+
+def model_run(dev, gen, card: str):
+    """Phase 3-4: the flagship whole-volume path, kernels vs plain."""
+    import numpy as np
+    import torch
+
+    from vs_seg_tpu_torch.infer.engine import make_predictor
+    from vs_seg_tpu_torch.infer.sliding_window import (
+        sliding_window_inference, stage_volume)
+    from vs_seg_tpu_torch.models import UNet2d5_spvPA
+    from vs_seg_tpu_torch.nn.layers import BatchNorm
+
+    model = UNet2d5_spvPA(dtype=torch.bfloat16, device=dev, generator=gen)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, BatchNorm):
+                c = m.mean.numel()
+                m.mean.copy_(torch.randn(c, generator=gen) * 0.1)
+                m.var.copy_(torch.rand(c, generator=gen) + 0.5)
+    rng = np.random.default_rng(SEED)
+    volume = rng.normal(size=(*VOLUME, 1)).astype(np.float32)
+    t0 = time.perf_counter()
+    staged = stage_volume(volume, ROI, device=dev, overlap=0.25,
+                          sw_batch_size=SW_BATCH, quantize=True)
+    torch.cuda.synchronize()
+    stage_ms = (time.perf_counter() - t0) * 1e3
+    assert len(staged.starts_padded) == SW_BATCH
+    # the model's own sites: 4 encoder units (down_2, down_3, down_4,
+    # bottom), 3 decoder levels (up_2, up_3, up_4), 1 window batch
+    expect = {"ru_block": 4, "l2_block": 3, "attgate": 3,
+              "conv333": 4 * 2 + 3 * 2, "blend_scatter": 1}
+
+    def run(use_kernels: bool):
+        pred = make_predictor(model, torch.bfloat16, use_kernels=use_kernels)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = sliding_window_inference(
+            staged, ROI, pred, overlap=0.25, sw_batch_size=SW_BATCH,
+            use_kernels=use_kernels)
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t) * 1e3
+
+    run(True)      # warm-up: first launches, cuDNN algorithm choice
+    run(False)
+    times = {True: [], False: []}
+    counts = None
+    outs = {}
+    for use_kernels in (False, True, True, False):
+        if use_kernels and counts is None:
+            reset_counts()
+            outs[True], ms = run(True)
+            counts = read_counts()
+        else:
+            outs[use_kernels], ms = run(use_kernels)
+        times[use_kernels].append(ms)
+    log(f"  launch counts in the counted kernel-path run: {counts}")
+    for k, n in expect.items():
+        if counts[k] != n:
+            raise AssertionError(f"{k}: {counts[k]} launches in the main "
+                                 f"path, expected {n} (one per site)")
+    ko, po = outs[True], outs[False]
+    if tuple(ko.shape) != (*VOLUME, 2):
+        raise AssertionError(f"output shape {tuple(ko.shape)}")
+    if not torch.isfinite(ko).all() or not torch.isfinite(po).all():
+        raise AssertionError("non-finite logits")
+    compare("whole-volume logits, kernel path vs plain path", ko, po,
+            LOGIT_TOL)
+    agree = float((ko.argmax(-1) == po.argmax(-1)).float().mean())
+    log(f"  argmax agreement {agree!r} (min {ARGMAX_MIN})")
+    if agree < ARGMAX_MIN:
+        raise AssertionError(f"argmax agreement {agree} < {ARGMAX_MIN}")
+    k_ms = sum(times[True]) / len(times[True])
+    p_ms = sum(times[False]) / len(times[False])
+    log(f"staging (host prep + upload) {stage_ms:.1f} ms; card: {card}")
+    log(f"kernel path: {k_ms:.1f} ms/volume {times[True]} on {card}")
+    log(f"plain path: {p_ms:.1f} ms/volume {times[False]} on {card}")
+    log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+        f"GiB on {card}")
+    return counts
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available; nothing was run",
+              file=sys.stderr)
+        return 1
+    if not (REPO / "vs_seg_tpu_torch" / "ops" / "csrc").is_dir():
+        print(f"chip_smoke: no vs_seg_tpu_torch package beside {__file__}",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(REPO))
+    from vs_seg_tpu_torch.core.device import resolve_device
+    from vs_seg_tpu_torch.ops import _build
+
+    # plain float32 convs/matmuls in full f32 (cuDNN would use TF32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = resolve_device("cuda:0")
+    card = card_line()
+    log(card)
+    log(f"python {sys.version.split()[0]} torch {torch.__version__} "
+        f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
+    t0 = time.perf_counter()
+    for name in ("conv333", "attgate", "blend"):
+        _build.load(name)
+    log(f"kernel build+load {time.perf_counter() - t0:.1f} s "
+        f"(nvcc seconds {_build.BUILD_SECONDS})")
+
+    gen = torch.Generator().manual_seed(SEED)
+    log("phase 2: kernels vs plain twins at flagship shapes")
+    rec = kernel_checks(dev, gen)
+    for k, r in rec.items():
+        log(f"  {k} [{r['shape']}]: kernel {r['ms']:.3f} ms, plain "
+            f"{r['plain_ms']:.3f} ms on {card}")
+    log("phase 3: flagship whole-volume inference")
+    counts = model_run(dev, gen, card)
+
+    pkg = "vs_seg_tpu_torch/ops/"
+    meta = {
+        "conv333": ("csrc/conv333.cu", "vs_seg_tpu/ops/pallas_conv333.py:208"),
+        "attgate": ("csrc/attgate.cu", "vs_seg_tpu/ops/pallas_l2block.py:271"),
+        "ru_block": ("rublock.py", "vs_seg_tpu/ops/pallas_rublock.py:183"),
+        "l2_block": ("l2block.py", "vs_seg_tpu/ops/pallas_l2block.py:391"),
+        "blend_scatter": ("csrc/blend.cu",
+                          "vs_seg_tpu/ops/pallas_blend.py:107"),
+    }
+    kernels = [{"name": k, "route": "cuda", "source": pkg + meta[k][0],
+                "replaces": meta[k][1], "launches": counts[k],
+                "max_abs_err": rec[k]["max_abs_err"], "ms": rec[k]["ms"],
+                "plain_ms": rec[k]["plain_ms"]} for k in meta]
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

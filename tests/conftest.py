@@ -40,3 +40,8 @@ def synthetic_root(tmp_path_factory):
     root = tmp_path_factory.mktemp("vsdata")
     generate_dataset(str(root), n_train=2, n_val=2, n_test=2, shape=(48, 48, 16))
     return str(root)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs an NVIDIA GPU and nvcc; skips without CUDA")

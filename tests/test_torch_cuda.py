@@ -1,0 +1,135 @@
+"""The port's hand-written CUDA kernels against their plain PyTorch twins on
+the card, at small and ragged shapes that the flagship path does not reach
+(channel counts that are not multiples of 8 or 16, W not a multiple of 16,
+H not a multiple of 8, more than 64 output channels).
+
+These tests need an NVIDIA GPU and nvcc: they carry the `gpu` marker and
+skip without CUDA. They import no JAX, so on the GPU machine they run
+without the JAX test setup:
+
+    python -m pytest --noconftest -m gpu tests/test_torch_cuda.py -q
+
+Tolerance: bf16 kernel vs plain twin, max|diff| <= 2e-2 * max|plain| (both
+round to bf16 at different points and sum in different orders); the blend
+is exact (same f32 operation order).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from vs_seg_tpu_torch.ops import blend, conv333, l2block, rublock
+
+TOL = 2e-2
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc (run on the GPU machine)")
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _g():
+    return torch.Generator().manual_seed(0)
+
+
+def _x(g, dev, *shape):
+    return torch.randn(shape, generator=g).to(dev, torch.bfloat16)
+
+
+def _w(g, dev, k, cin, cout):
+    b = 1.0 / np.sqrt(cin * int(np.prod(k)))
+    return ((torch.rand((*k, cin, cout), generator=g) * 2 - 1) * b).to(dev)
+
+
+def _v(g, dev, c, lo, hi):
+    return (torch.rand(c, generator=g) * (hi - lo) + lo).to(dev)
+
+
+def _check(got, ref, tol=TOL):
+    got, ref = got.float(), ref.float()
+    assert got.shape == ref.shape
+    assert torch.isfinite(got).all()
+    err = float((got - ref).abs().max())
+    assert err <= tol * float(ref.abs().max()), err
+
+
+@pytest.mark.parametrize("shape,cins,cout,res", [
+    ((2, 3, 9, 13), (5,), 7, False),          # nothing aligned
+    ((1, 4, 16, 16), (24, 40), 80, True),     # pair, two Cout tiles
+    ((1, 2, 12, 20), (3,), 130, False),       # > 2 Cout tiles
+    ((2, 1, 8, 16), (16,), 16, True),         # single depth plane
+])
+def test_conv333_kernel_matches_plain(dev, shape, cins, cout, res):
+    g = _g()
+    xs = tuple(_x(g, dev, *shape, c) for c in cins)
+    x = xs if len(xs) > 1 else xs[0]
+    w = _w(g, dev, (3, 3, 3), sum(cins), cout)
+    args = (w, _v(g, dev, cout, .5, 1.5), _v(g, dev, cout, -.2, .2),
+            _v(g, dev, 1, .1, .3))
+    residual = ((x, _w(g, dev, (1, 1, 1), sum(cins), cout),
+                 _v(g, dev, cout, -.2, .2)) if res else None)
+    n0 = conv333.conv333.launches
+    got = conv333.conv333(x, *args, residual=residual)
+    assert conv333.conv333.launches == n0 + 1
+    _check(got, conv333.conv333_plain(x, *args, residual=residual))
+
+
+def test_conv333_kernel_rejects_float32(dev):
+    x = torch.zeros((1, 1, 8, 16, 4), device=dev)
+    with pytest.raises(TypeError, match="bfloat16"):
+        conv333.conv333(x, torch.zeros((3, 3, 3, 4, 4), device=dev))
+
+
+@pytest.mark.parametrize("shape,c", [((1, 3, 7, 9), 5), ((2, 2, 8, 16), 24)])
+def test_attgate_kernel_matches_plain(dev, shape, c):
+    g = _g()
+    a1, xa, xb = (_x(g, dev, *shape, c) for _ in range(3))
+    w2, b2 = _w(g, dev, (3, 3, 3), c, 1), _v(g, dev, 1, -.2, .2)
+    for got, ref in zip(l2block.attgate(a1.abs(), w2, b2, xa, xb),
+                        l2block.attgate_plain(a1.abs(), w2, b2, xa, xb)):
+        _check(got, ref)
+
+
+def test_ru_block_and_l2_block_kernels_match_plain(dev):
+    g = _g()
+    x = _x(g, dev, 2, 3, 10, 12, 12)
+    kw = dict(w0=_w(g, dev, (3, 3, 3), 12, 20),
+              bn0_scale=_v(g, dev, 20, .5, 1.5),
+              bn0_shift=_v(g, dev, 20, -.2, .2), alpha0=_v(g, dev, 1, .1, .3),
+              w1=_w(g, dev, (3, 3, 3), 20, 20),
+              bn1_scale=_v(g, dev, 20, .5, 1.5),
+              bn1_shift=_v(g, dev, 20, -.2, .2), alpha1=_v(g, dev, 1, .1, .3),
+              wr=_w(g, dev, (1, 1, 1), 12, 20), br=_v(g, dev, 20, -.2, .2))
+    _check(rublock.ru_block(x, **kw), rublock.ru_block_plain(x, **kw))
+    c = 20
+    xa, xb = _x(g, dev, 1, 3, 10, 12, c), _x(g, dev, 1, 3, 10, 12, c)
+    kw = dict(w1=_w(g, dev, (3, 3, 3), 2 * c, c), b1=_v(g, dev, c, -.2, .2),
+              w2=_w(g, dev, (3, 3, 3), c, 1), b2=_v(g, dev, 1, -.2, .2),
+              w0=_w(g, dev, (3, 3, 3), 2 * c, c),
+              bn_scale=_v(g, dev, c, .5, 1.5),
+              bn_shift=_v(g, dev, c, -.2, .2), alpha=_v(g, dev, 1, .1, .3),
+              wr=_w(g, dev, (1, 1, 1), 2 * c, c), br=_v(g, dev, c, -.2, .2))
+    for got, ref in zip(l2block.l2_block(xa, xb, **kw),
+                        l2block.l2_block_plain(xa, xb, **kw)):
+        _check(got, ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_blend_kernel_matches_plain_exactly(dev, dtype):
+    g = _g()
+    starts = np.array([[0, 0, 0], [4, 8, 8], [2, 4, 2], [4, 8, 8]], np.int32)
+    mask = np.array([1.0, 1.0, 1.0, 0.0], np.float32)
+    preds = torch.randn((4, 4, 8, 8, 3), generator=g).to(dev, dtype)
+    imp = (torch.rand((4, 8, 8), generator=g) + 0.1).to(dev)
+    out0 = torch.randn((12, 16, 16, 3), generator=g).to(dev)
+    w0 = torch.rand((12, 16, 16, 1), generator=g).to(dev)
+    ko, kw = blend.blend_scatter(out0.clone(), w0.clone(), preds, starts,
+                                 mask, imp)
+    po, pw = blend.blend_scatter_plain(out0.clone(), w0.clone(), preds,
+                                       starts, mask, imp)
+    assert torch.equal(ko, po) and torch.equal(kw, pw)

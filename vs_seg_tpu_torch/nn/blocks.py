@@ -1,0 +1,204 @@
+"""Composite eval blocks mirroring vs_seg_tpu/nn/blocks.py.
+
+  Convolution     conv (or transpose conv) -> folded BatchNorm -> act,
+                  or conv_only
+  ResidualUnit    `subunits` Convolutions + residual (1x1 conv when the
+                  channels change); the conv-only logit head folds its
+                  residual into the conv (the JAX `_headfold_apply` algebra);
+                  the (3,3,3) two-subunit encoder units dispatch to
+                  ops/rublock.py
+  AttentionBlock1 conv(C -> C/2, ReLU) -> conv(C/2 -> 1, sigmoid), with the
+                  residual gate att*x + x (`attention_gate`)
+
+Module and parameter names follow the JAX package (unit0, conv, norm, act,
+residual, conv1, conv2, kernel, bias, scale, mean, var, alpha), so a JAX
+variables tree maps onto the state_dict key for key (compat/from_jax.py).
+Eval only: Dropout is the identity and BatchNorm is folded.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from vs_seg_tpu_torch.nn.layers import (
+    BatchNorm, Conv3d, ConvTranspose3d, Dropout, PReLU, _triple, conv3d,
+    same_padding,
+)
+from vs_seg_tpu_torch.ops import rublock
+
+
+def folded_conv_affine(unit: "Convolution"):
+    """Eval BatchNorm folded into a post-conv affine INCLUDING the conv bias:
+    conv(x) * scale + shift (vs_seg_tpu/nn/blocks.py:folded_conv_affine)."""
+    inv, shift = unit.norm.fold()
+    return inv, shift + unit.conv.bias * inv
+
+
+class Convolution(nn.Module):
+    """Conv -> BatchNorm -> Dropout -> Activation, or conv_only."""
+
+    def __init__(self, in_features: int, features: int, kernel_size,
+                 strides=(1, 1, 1), act: Optional[str] = "prelu",
+                 norm: Optional[str] = "batch",
+                 dropout: Optional[float] = None, conv_only: bool = False,
+                 is_transposed: bool = False, dtype=torch.bfloat16,
+                 device="cpu", generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if act not in ("prelu", "relu", "sigmoid", None):
+            raise ValueError(f"unsupported act {act}")
+        if norm not in ("batch", None):
+            raise ValueError(f"unsupported norm {norm}")
+        conv_cls = ConvTranspose3d if is_transposed else Conv3d
+        self.conv = conv_cls(in_features, features, kernel_size, strides,
+                             dtype=dtype, device=device, generator=generator)
+        self.conv_only = conv_only
+        self.act_name = None if conv_only else act
+        self.norm = (BatchNorm(features, device=device)
+                     if norm == "batch" and not conv_only else None)
+        self.dropout = (Dropout(dropout) if dropout and not conv_only
+                        else None)
+        self.act = PReLU(device=device) if self.act_name == "prelu" else None
+
+    def forward(self, x):
+        if self.conv_only:
+            return self.conv(x)
+        y = self.conv(x, affine=None if self.norm is None
+                      else self.norm.fold())
+        if self.dropout is not None:
+            y = self.dropout(y)
+        if self.act_name == "prelu":
+            y = self.act(y)
+        elif self.act_name == "relu":
+            y = torch.relu(y)
+        elif self.act_name == "sigmoid":
+            y = torch.sigmoid(y)
+        return y
+
+
+class ResidualUnit(nn.Module):
+    """`subunits` Convolutions + additive residual.
+
+    Residual branch: identity if same channels and stride 1; otherwise a
+    conv (1x1x1 when stride is 1). `last_conv_only` strips norm/act from
+    the final subunit (the logit head)."""
+
+    def __init__(self, in_features: int, features: int, kernel_size,
+                 strides=(1, 1, 1), subunits: int = 2,
+                 act: Optional[str] = "prelu", norm: Optional[str] = "batch",
+                 dropout: Optional[float] = None,
+                 last_conv_only: bool = False, dtype=torch.bfloat16,
+                 device="cpu", generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.kernel_size = _triple(kernel_size)
+        self.strides = _triple(strides)
+        self.subunits = max(1, subunits)
+        self.in_features, self.features = in_features, features
+        self.act_name, self.norm_name = act, norm
+        self.last_conv_only = last_conv_only
+        self.dtype = dtype
+        cin = in_features
+        for su in range(self.subunits):
+            self.add_module(f"unit{su}", Convolution(
+                cin, features, kernel_size,
+                self.strides if su == 0 else (1, 1, 1), act=act, norm=norm,
+                dropout=dropout,
+                conv_only=last_conv_only and su == self.subunits - 1,
+                dtype=dtype, device=device, generator=generator))
+            cin = features
+        strided = int(np.prod(self.strides)) != 1
+        if strided or in_features != features:
+            self.residual = Conv3d(
+                in_features, features,
+                self.kernel_size if strided else (1, 1, 1), self.strides,
+                padding=None if strided else (0, 0, 0), dtype=dtype,
+                device=device, generator=generator)
+        else:
+            self.residual = None
+
+    def _headfold(self) -> bool:
+        """Conv-only logit head: conv0(x) + b0 + conv1x1(x) + br is linear in
+        the kernels, so the residual folds exactly into unit0's conv."""
+        return (self.last_conv_only and self.subunits == 1
+                and self.strides == (1, 1, 1)
+                and self.in_features != self.features)
+
+    def _rublock(self, pair: bool) -> bool:
+        """The sites ops/rublock.py takes: every eval two-subunit (3,3,3)
+        stride-1 PReLU+BN unit on one input whose channels change."""
+        return (not pair and self.subunits == 2 and not self.last_conv_only
+                and self.strides == (1, 1, 1)
+                and self.kernel_size == (3, 3, 3)
+                and self.act_name == "prelu" and self.norm_name == "batch"
+                and self.in_features != self.features)
+
+    def forward(self, x, use_kernels: bool = True):
+        pair = isinstance(x, (tuple, list))
+        if self._headfold():
+            return self._headfold_apply(x)
+        if self._rublock(pair):
+            fn = rublock.ru_block if use_kernels else rublock.ru_block_plain
+            s0, h0 = folded_conv_affine(self.unit0)
+            s1, h1 = folded_conv_affine(self.unit1)
+            return fn(x.to(self.dtype), w0=self.unit0.conv.kernel,
+                      bn0_scale=s0, bn0_shift=h0, alpha0=self.unit0.act.alpha,
+                      w1=self.unit1.conv.kernel, bn1_scale=s1, bn1_shift=h1,
+                      alpha1=self.unit1.act.alpha, wr=self.residual.kernel,
+                      br=self.residual.bias)
+        cx = x
+        for su in range(self.subunits):
+            cx = getattr(self, f"unit{su}")(cx)
+        if self.residual is not None:
+            res = self.residual(x)
+        else:
+            assert not pair, "identity residual undefined for pair input"
+            res = x
+        return cx + res
+
+    def _headfold_apply(self, x):
+        w0, b0 = self.unit0.conv.kernel, self.unit0.conv.bias
+        wr, br = self.residual.kernel, self.residual.bias
+        k = self.kernel_size
+        wf = w0 + torch.nn.functional.pad(
+            wr, (0, 0, 0, 0, k[2] // 2, k[2] // 2, k[1] // 2, k[1] // 2,
+                 k[0] // 2, k[0] // 2))
+        bf = b0 + br
+        pads = same_padding(k)
+        if isinstance(x, (tuple, list)):
+            xa, xb = (v.to(self.dtype) for v in x)
+            ca = xa.shape[-1]
+            return (conv3d(xa, wf[..., :ca, :], None, (1, 1, 1), pads)
+                    + conv3d(xb, wf[..., ca:, :], bf, (1, 1, 1), pads))
+        return conv3d(x.to(self.dtype), wf, bf, (1, 1, 1), pads)
+
+
+class AttentionBlock1(nn.Module):
+    """conv(C -> C/2, ReLU) -> conv(C/2 -> 1, sigmoid); returns (att, x), or
+    (att, att*x + x) with gate=True (AttentionBlock2 applied inline)."""
+
+    def __init__(self, in_features: int, kernel_size, dtype=torch.bfloat16,
+                 device="cpu", generator: Optional[torch.Generator] = None):
+        super().__init__()
+        c = in_features
+        self.conv1 = Convolution(c, c // 2, kernel_size, act="relu",
+                                 norm=None, dtype=dtype, device=device,
+                                 generator=generator)
+        self.conv2 = Convolution(c // 2, 1, kernel_size, act="sigmoid",
+                                 norm=None, dtype=dtype, device=device,
+                                 generator=generator)
+
+    def forward(self, x, gate: bool = False):
+        att = self.conv2(self.conv1(x))
+        if not gate:
+            return att, x
+        return att, attention_gate(att, x)
+
+
+def attention_gate(att: torch.Tensor, x):
+    """AttentionBlock2: out = att*x + x; a pair (xa, xb) gates each half."""
+    if isinstance(x, (tuple, list)):
+        return tuple(att.to(v.dtype) * v + v for v in x)
+    return att * x + x

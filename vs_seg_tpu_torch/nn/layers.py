@@ -1,0 +1,221 @@
+"""Low-level NN primitives on (N, D, H, W, C) activations, eval only.
+
+Counterpart of vs_seg_tpu/nn/layers.py, with the same semantics:
+  - conv padding: MONAI same_padding, (k - 1) // 2 per dim;
+  - transpose conv: MONAI output_padding = s + 2p - (k - 1) - 1, so that
+    output = input * stride;
+  - BatchNorm: torch BatchNorm3d eval semantics (eps 1e-5), folded into a
+    per-channel affine inv = scale * rsqrt(var + eps), shift = bias - mean*inv;
+  - PReLU: one shared slope, init 0.25;
+  - Dropout: identity at eval.
+
+Layout: a contiguous NDHWC tensor permuted to (N, C, D, H, W) is an NCDHW
+tensor in channels_last_3d memory format, with no copy, so the plain convs
+call F.conv3d without moving activations. Kernels keep the JAX parameter
+shape (kh, kw, kd, Cin, Cout) in the reference (H, W, D) order; only the
+weights are reordered, to torch's (Cout, Cin, kd, kh, kw).
+
+Parameters are float32 and created from an explicit CPU torch.Generator with
+torch's default init (U(-1/sqrt(fan_in), 1/sqrt(fan_in)) for kernel and
+bias), then moved to `device`. Compute happens in each module's `dtype`.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+Shape3 = Tuple[int, int, int]
+
+BN_EPS = 1e-5
+
+
+def _triple(v) -> Shape3:
+    if isinstance(v, (tuple, list)):
+        assert len(v) == 3
+        return tuple(int(x) for x in v)
+    return (int(v),) * 3
+
+
+def same_padding(kernel_size, dilation=1) -> Shape3:
+    """MONAI same_padding: (k - 1) // 2 * d per dim (odd kernels exact)."""
+    k = np.asarray(_triple(kernel_size))
+    d = np.asarray(_triple(dilation))
+    return tuple(int(p) for p in (k - 1) // 2 * d)
+
+
+def _dhw(v: Sequence[int]) -> Shape3:
+    """(H, W, D) reference order -> torch's (D, H, W) spatial order."""
+    return (int(v[2]), int(v[0]), int(v[1]))
+
+
+def _ncdhw(x: torch.Tensor) -> torch.Tensor:
+    return x.permute(0, 4, 1, 2, 3)
+
+
+def _ndhwc(y: torch.Tensor) -> torch.Tensor:
+    return y.permute(0, 2, 3, 4, 1).contiguous()
+
+
+def conv3d(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
+           strides: Shape3 = (1, 1, 1), padding: Shape3 = (0, 0, 0)
+           ) -> torch.Tensor:
+    """Convolution of (N, D, H, W, Cin) `x` with (kh, kw, kd, Cin, Cout) `w`.
+
+    `strides` and symmetric `padding` are in reference (H, W, D) order. The
+    conv runs in x.dtype; w and b are cast to it."""
+    wt = w.to(x.dtype).permute(4, 3, 2, 0, 1)
+    y = F.conv3d(_ncdhw(x), wt, None if b is None else b.to(x.dtype),
+                 stride=_dhw(strides), padding=_dhw(padding))
+    return _ndhwc(y)
+
+
+def conv_transpose3d(x: torch.Tensor, w: torch.Tensor,
+                     b: Optional[torch.Tensor], strides: Shape3,
+                     padding: Shape3, output_padding: Shape3) -> torch.Tensor:
+    """Transpose convolution with the (kh, kw, kd, Cin, Cout) JAX kernel.
+
+    The JAX package runs it as an input-dilated conv with the spatially
+    flipped kernel; F.conv_transpose3d takes the unflipped kernel as
+    (Cin, Cout, kd, kh, kw), which is the same operator."""
+    wt = w.to(x.dtype).permute(3, 4, 2, 0, 1)
+    y = F.conv_transpose3d(_ncdhw(x), wt,
+                           None if b is None else b.to(x.dtype),
+                           stride=_dhw(strides), padding=_dhw(padding),
+                           output_padding=_dhw(output_padding))
+    return _ndhwc(y)
+
+
+def fold_affine(w: torch.Tensor, b: Optional[torch.Tensor], affine=None):
+    """(kernel, bias) with an optional per-out-channel (inv, shift) folded in,
+    in float32: conv(x, w) * inv + shift == conv(x, w * inv) + b * inv + shift.
+    """
+    if affine is None:
+        return w, b
+    inv, shift = affine
+    return w * inv, (shift if b is None else b * inv + shift)
+
+
+def _uniform(shape, bound: float, generator: Optional[torch.Generator],
+             device) -> torch.Tensor:
+    """torch-default U(-bound, bound) init, drawn on the CPU generator and
+    then moved, so one seed gives the same weights on every device."""
+    t = torch.empty(shape, dtype=torch.float32)
+    t.uniform_(-bound, bound, generator=generator)
+    return t.to(device)
+
+
+class Conv3d(nn.Module):
+    """Plain 3D convolution with torch-Conv3d init and MONAI same padding.
+
+    `x` may be a PAIR (xa, xb) standing for their channel concat: the conv is
+    conv(xa, w[..., :ca, :]) + conv(xb, w[..., ca:, :]) with the same kernel,
+    as vs_seg_tpu/nn/layers.py:Conv3d computes it. `affine=(inv, shift)`
+    folds a frozen per-channel affine (eval BatchNorm) into the weights in
+    float32 before the cast to the compute dtype."""
+
+    def __init__(self, in_features: int, features: int, kernel_size,
+                 strides=(1, 1, 1), padding=None, use_bias: bool = True,
+                 dtype=torch.bfloat16, device="cpu",
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.kernel_size = _triple(kernel_size)
+        self.strides = _triple(strides)
+        self.padding = (same_padding(self.kernel_size) if padding is None
+                        else _triple(padding))
+        self.dtype = dtype
+        bound = 1.0 / np.sqrt(in_features * int(np.prod(self.kernel_size)))
+        self.kernel = nn.Parameter(_uniform(
+            (*self.kernel_size, in_features, features), bound, generator,
+            device))
+        self.bias = (nn.Parameter(_uniform((features,), bound, generator,
+                                           device))
+                     if use_bias else None)
+
+    def forward(self, x, affine=None):
+        w, b = fold_affine(self.kernel, self.bias, affine)
+        if isinstance(x, (tuple, list)):
+            xa, xb = (v.to(self.dtype) for v in x)
+            ca = xa.shape[-1]
+            return (conv3d(xa, w[..., :ca, :], None, self.strides,
+                           self.padding)
+                    + conv3d(xb, w[..., ca:, :], b, self.strides,
+                             self.padding))
+        return conv3d(x.to(self.dtype), w, b, self.strides, self.padding)
+
+
+class ConvTranspose3d(nn.Module):
+    """Transpose conv with torch-ConvTranspose3d init (fan_in = Cout * k) and
+    MONAI output_padding, so output = input * stride."""
+
+    def __init__(self, in_features: int, features: int, kernel_size,
+                 strides=(1, 1, 1), use_bias: bool = True,
+                 dtype=torch.bfloat16, device="cpu",
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        k = np.asarray(_triple(kernel_size))
+        s = np.asarray(_triple(strides))
+        p = np.asarray(same_padding(tuple(k)))
+        self.kernel_size = tuple(int(v) for v in k)
+        self.strides = tuple(int(v) for v in s)
+        self.padding = tuple(int(v) for v in p)
+        self.output_padding = tuple(int(v) for v in s + 2 * p - (k - 1) - 1)
+        self.dtype = dtype
+        bound = 1.0 / np.sqrt(features * int(np.prod(k)))
+        self.kernel = nn.Parameter(_uniform(
+            (*self.kernel_size, in_features, features), bound, generator,
+            device))
+        self.bias = (nn.Parameter(_uniform((features,), bound, generator,
+                                           device))
+                     if use_bias else None)
+
+    def forward(self, x, affine=None):
+        w, b = fold_affine(self.kernel, self.bias, affine)
+        return conv_transpose3d(x.to(self.dtype), w, b, self.strides,
+                                self.padding, self.output_padding)
+
+
+class BatchNorm(nn.Module):
+    """Eval BatchNorm3d over the channel axis (the last axis here), kept
+    folded: `fold()` gives the per-channel affine (inv, shift) that the
+    caller folds into the preceding conv. Parameters `scale`/`bias` and
+    running statistics `mean`/`var` carry the JAX package's names."""
+
+    def __init__(self, features: int, device="cpu"):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(features, device=device))
+        self.bias = nn.Parameter(torch.zeros(features, device=device))
+        self.register_buffer("mean", torch.zeros(features, device=device))
+        self.register_buffer("var", torch.ones(features, device=device))
+
+    def fold(self):
+        inv = torch.rsqrt(self.var + BN_EPS) * self.scale
+        return inv, self.bias - self.mean * inv
+
+
+class PReLU(nn.Module):
+    """Single shared slope (torch PReLU num_parameters=1, init 0.25):
+    max(x, 0) + alpha * min(x, 0)."""
+
+    def __init__(self, device="cpu"):
+        super().__init__()
+        self.alpha = nn.Parameter(torch.full((1,), 0.25, device=device))
+
+    def forward(self, x):
+        a = self.alpha.to(x.dtype)
+        return torch.clamp_min(x, 0) + a * torch.clamp_max(x, 0)
+
+
+class Dropout(nn.Module):
+    """Dropout is the identity at eval, the only mode this package runs."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x):
+        return x

@@ -1,0 +1,12 @@
+"""Hand-written Hopper kernels (csrc/*.cu, built at first use by _build.py)
+and their plain PyTorch twins:
+
+  conv333.py  conv333        <- vs_seg_tpu/ops/pallas_conv333.py:conv333
+  rublock.py  ru_block       <- vs_seg_tpu/ops/pallas_rublock.py:ru_block
+  l2block.py  l2_block       <- vs_seg_tpu/ops/pallas_l2block.py:l2_block
+              (+ attgate, csrc/attgate.cu)
+  blend.py    blend_scatter  <- vs_seg_tpu/ops/pallas_blend.py:
+                                pallas_blend_scatter
+
+Importing these modules builds nothing.
+"""

@@ -1,0 +1,218 @@
+"""(3,3,3) stride-1 same-padded conv with a fused epilogue and an optional
+fused 1x1x1 residual: the conv primitive of the encoder and decoder blocks.
+
+Replaces vs_seg_tpu/ops/pallas_conv333.py:conv333. As in the JAX package it
+is not dispatched on its own from the model; ops/rublock.py and
+ops/l2block.py are built from it.
+
+    y   = conv(x, w)                       x a tensor or a pair (xa, xb)
+    y   = act(y * scale + shift)           act: PReLU(alpha), ReLU is alpha 0
+    out = y + (conv1x1(xr, wr) + br)       optional residual, after the act
+
+`conv333` runs the hand-written kernel (csrc/conv333.cu) for CUDA tensors and
+`conv333_plain`, the PyTorch twin, for CPU tensors; any other device raises.
+The CUDA route counts its launches in `conv333.launches`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Sequence
+
+import torch
+import torch.nn.functional as F
+
+from vs_seg_tpu_torch.ops import _build
+
+KC = 16        # the kernel's K chunk: input channels are padded to this
+CO_MAX = 64    # output channels per block (4 WMMA N tiles)
+
+
+def as_pair(x) -> tuple:
+    """A tensor or a pair (xa, xb) standing for its channel concat -> tuple."""
+    return tuple(x) if isinstance(x, (tuple, list)) else (x,)
+
+
+def _conv_sum(xs: Sequence[torch.Tensor], w: torch.Tensor, pad: int
+              ) -> torch.Tensor:
+    """sum_i conv(xs[i], w[..., ci, :]) in float32, each conv in x.dtype.
+
+    w is (kh, kw, kd, sum Ci, Cout); the pair halves read consecutive input
+    channel slices, as vs_seg_tpu/nn/layers.py:Conv3d does."""
+    y = None
+    c0 = 0
+    for x in xs:
+        ci = x.shape[-1]
+        wt = w[..., c0:c0 + ci, :].to(x.dtype).permute(4, 3, 2, 0, 1)
+        yi = F.conv3d(x.permute(0, 4, 1, 2, 3), wt, padding=pad).float()
+        y = yi if y is None else y + yi
+        c0 += ci
+    return y.permute(0, 2, 3, 4, 1)
+
+
+def conv333_plain(x, w: torch.Tensor, scale: Optional[torch.Tensor] = None,
+                  shift: Optional[torch.Tensor] = None,
+                  alpha: Optional[torch.Tensor] = None,
+                  residual=None) -> torch.Tensor:
+    """PyTorch twin of the conv333 kernel (any device, any float dtype).
+
+    x: (N, D, H, W, Cin) or a pair; w: (3, 3, 3, Cin_total, Cout) in the JAX
+    (kh, kw, kd) order; scale/shift: (Cout,) f32 or None; alpha: the PReLU
+    slope ((1,) or (Cout,)), or None for no activation; residual: None or
+    (xr, wr, br) with xr a tensor or pair, wr (1, 1, 1, Cr, Cout), br (Cout,).
+    Convs run in x.dtype; the epilogue runs in float32 on the conv outputs;
+    the result has x.dtype."""
+    xs = as_pair(x)
+    y = _conv_sum(xs, w, 1)
+    if scale is not None:
+        y = y * scale.float()
+    if shift is not None:
+        y = y + shift.float()
+    if alpha is not None:
+        y = torch.where(y >= 0, y, alpha.float() * y)
+    if residual is not None:
+        xr, wr, br = residual
+        y = y + (_conv_sum(as_pair(xr), wr, 0) + br.float())
+    return y.to(xs[0].dtype)
+
+
+def _tiles(cout: int):
+    """(nfrag, cop): 16-wide N tiles per block and the padded Cout that the
+    grid's Cout tiles cover (csrc/conv333.cu)."""
+    nf = -(-cout // 16)
+    ntiles = -(-nf // (CO_MAX // 16))
+    nfrag = -(-nf // ntiles)
+    return nfrag, ntiles * nfrag * 16
+
+
+def _pad16(c: int) -> int:
+    return -(-c // KC) * KC
+
+
+def pack_weights(w: torch.Tensor, cins: Sequence[int], cop: int
+                 ) -> torch.Tensor:
+    """(kh, kw, kd, sum Ci, Cout) -> bf16 (taps, kp, cop) as the kernel
+    reads it: tap = (kd*3 + kh)*3 + kw, each input's channel block padded to
+    a multiple of 16 and stacked along kp, Cout padded to cop with zeros."""
+    kh, kw, kd, _, cout = w.shape
+    wt = w.permute(2, 0, 1, 3, 4).reshape(kd * kh * kw, w.shape[3], cout)
+    blocks = []
+    c0 = 0
+    for ci in cins:
+        blk = wt[:, c0:c0 + ci, :]
+        blocks.append(F.pad(blk, (0, cop - cout, 0, _pad16(ci) - ci)))
+        c0 += ci
+    return torch.cat(blocks, dim=1).to(torch.bfloat16).contiguous()
+
+
+def _vec(v: Optional[torch.Tensor], cout: int, cop: int, default: float,
+         device) -> torch.Tensor:
+    """A per-channel epilogue vector: None -> default, (1,) -> broadcast."""
+    if v is None:
+        return torch.full((cop,), default, dtype=torch.float32, device=device)
+    v = v.reshape(-1).float()
+    if v.numel() == 1:
+        v = v.expand(cout)
+    if v.numel() != cout:
+        raise ValueError(f"epilogue vector has {v.numel()} entries, "
+                         f"expected 1 or {cout}")
+    return F.pad(v, (0, cop - cout), value=default)
+
+
+def _check_act(xs, name: str, ref_shape=None):
+    for v in xs:
+        if v.device.type != "cuda":
+            raise ValueError(f"{name}: all tensors must be on the same CUDA "
+                             f"device, got {v.device}")
+        if v.dtype != torch.bfloat16:
+            raise TypeError(f"{name}: kernel takes bfloat16, got {v.dtype}")
+        if v.dim() != 5 or not v.is_contiguous():
+            raise ValueError(f"{name}: needs contiguous (N, D, H, W, C) "
+                             f"tensors, got shape {tuple(v.shape)}")
+        if ref_shape is not None and tuple(v.shape[:4]) != tuple(ref_shape):
+            raise ValueError(f"{name}: spatial shapes differ: "
+                             f"{tuple(v.shape[:4])} vs {tuple(ref_shape)}")
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else ctypes.c_void_p(t.data_ptr())
+
+
+_ARGTYPES = ([ctypes.c_void_p, ctypes.c_int] * 4
+             + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
+             + [ctypes.c_void_p])
+
+
+def _lib():
+    lib = _build.load("conv333")
+    fn = lib.conv333_launch
+    if fn.argtypes is None:
+        fn.argtypes = _ARGTYPES
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def conv333(x, w: torch.Tensor, scale: Optional[torch.Tensor] = None,
+            shift: Optional[torch.Tensor] = None,
+            alpha: Optional[torch.Tensor] = None,
+            residual=None) -> torch.Tensor:
+    """(3,3,3) conv + epilogue (+ residual); see conv333_plain for the
+    arguments. CUDA tensors go to the hand-written kernel (bf16 activations,
+    contiguous NDHWC, one device), CPU tensors to conv333_plain."""
+    xs = as_pair(x)
+    dev = xs[0].device
+    if dev.type == "cpu":
+        return conv333_plain(x, w, scale, shift, alpha, residual)
+    if dev.type != "cuda":
+        raise ValueError(f"conv333: unsupported device {dev}")
+    if len(xs) > 2:
+        raise ValueError("conv333: at most a pair of inputs")
+    shape = xs[0].shape[:4]
+    _check_act(xs, "conv333", shape)
+    cins = [int(v.shape[-1]) for v in xs]
+    if tuple(w.shape[:3]) != (3, 3, 3) or w.shape[3] != sum(cins):
+        raise ValueError(f"conv333: weight {tuple(w.shape)} does not match "
+                         f"inputs with {cins} channels")
+    cout = int(w.shape[4])
+    nfrag, cop = _tiles(cout)
+    wm = pack_weights(w.to(dev), cins, cop)
+    eps = [_vec(scale, cout, cop, 1.0, dev), _vec(shift, cout, cop, 0.0, dev),
+           _vec(alpha, cout, cop, 1.0, dev)]
+    rs, wrp = (), None
+    if residual is not None:
+        xr, wr, br = residual
+        rs = as_pair(xr)
+        if len(rs) > 2:
+            raise ValueError("conv333: at most a pair of residual inputs")
+        _check_act(rs, "conv333 residual", shape)
+        crs = [int(v.shape[-1]) for v in rs]
+        if tuple(wr.shape) != (1, 1, 1, sum(crs), cout):
+            raise ValueError(f"conv333: residual weight {tuple(wr.shape)} "
+                             f"does not match {crs} -> {cout}")
+        wrp = pack_weights(wr.to(dev), crs, cop)[0].contiguous()
+        eps.append(_vec(br, cout, cop, 0.0, dev))
+    else:
+        eps.append(torch.zeros(cop, dtype=torch.float32, device=dev))
+    eps = torch.stack(eps).contiguous()
+    n, d, h, wd = (int(s) for s in shape)
+    if n * d > 65535:
+        raise ValueError(f"conv333: N*D = {n * d} exceeds the grid limit")
+    out = torch.empty((n, d, h, wd, cout), dtype=torch.bfloat16, device=dev)
+    xa, xb = xs[0], (xs[1] if len(xs) > 1 else None)
+    ra = rs[0] if rs else None
+    rb = rs[1] if len(rs) > 1 else None
+    lib = _lib()
+    err = lib.conv333_launch(
+        _ptr(xa), cins[0], _ptr(xb), cins[1] if xb is not None else 0,
+        _ptr(ra), int(ra.shape[-1]) if ra is not None else 0,
+        _ptr(rb), int(rb.shape[-1]) if rb is not None else 0,
+        _ptr(wm), _ptr(wrp), _ptr(eps), _ptr(out),
+        n, d, h, wd, cout, nfrag, cop, int(wm.shape[1]),
+        dev.index if dev.index is not None else torch.cuda.current_device(),
+        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    _build.check(lib, err, "conv333")
+    conv333.launches += 1
+    return out
+
+
+conv333.launches = 0

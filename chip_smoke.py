@@ -23,17 +23,32 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
      the same volume through the all-plain path, compared in the bf16 band
      and by argmax agreement.
   4. ms/volume of both paths, each beside the card's name and power limit.
+  5. The training kernels against their plain twins: conv333_dw (the wgrad)
+     at down_2 unit1 (1,64,96,96) 48->48, upatt_2 conv2 48->1 and an up_3
+     unit0 half (1,32,48,48) 64->64, each run twice and required bit-equal;
+     the Conv333Train backward (dx through conv333, dw/db through
+     conv333_dw) against plain autograd at down_2 unit0.
+  6. Training of the flagship at full width (384x384x64 crops, batch 1, bf16
+     compute, f32 parameters): the first step's loss and every parameter's
+     gradient on both paths from the same seeded weights and dropout seed;
+     Trainer(cfg, model).init_state() -> fit() for one epoch of TRAIN_STEPS
+     steps and a validation pass on each path, with the launch counters reset
+     just before the kernel path's fit and read just after; then ms/step and
+     peak memory of each path.
 
-The last stdout line is {"ok": true, "device": {...}}; the line before it is
-the per-kernel JSON record.
+The kernels are built in parallel, one nvcc per source. The last stdout line
+is {"ok": true, "device": {...}}; the line before it is the per-kernel JSON
+record, whose launch counts add up both main paths (phases 3 and 6).
 """
 
 from __future__ import annotations
 
 import json
+import logging
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 SEED = 0
@@ -45,10 +60,33 @@ KERNEL_TOL = 2e-2        # max|kernel - plain| / max|plain|
 BLEND_TOL = 0.0          # same f32 operation order in both: bit for bit
 LOGIT_TOL = 3e-2         # whole path: max|kernel - plain| / max|plain| logits
 ARGMAX_MIN = 0.995       # voxelwise argmax agreement, kernel vs plain path
+# conv333_dw vs its plain twin: both sum the same bf16 products exactly in
+# float32 and differ only in the order of ~0.6 M additions per output.
+DW_TOL = 1e-4
+# Train path vs plain path, gradients of the first step from the same weights
+# and dropout masks: every conv rounds its dx (and the plain path its dw) to
+# bf16 at other points, and the differences compound through some 40 layers
+# of backward; held per parameter tensor against its own largest plain
+# gradient, and for the conv biases in front of a train-mode BatchNorm
+# (whose gradient is zero in exact arithmetic, so only rounding noise is
+# left) against the model's largest gradient.
+GRAD_TOL = 5e-2
+# Epoch-mean train loss of the two fits: equal first step, then a few Adam
+# steps from gradients within GRAD_TOL (measured: 1.1e-5).
+FIT_LOSS_TOL = 1e-3
 ROI = (384, 384, 64)     # (H, W, D)
 VOLUME = (448, 448, 80)  # (H, W, D)
 SW_BATCH = 8
 REPS = 5
+TRAIN_STEPS = 3          # Adam steps of the fit in phase 6
+STEP_REPS = 3            # timed train steps per path and turn
+# (3,3,3) stride-1 conv sites of the flagship's train forward, pair halves
+# counted apart: down_2/3/4 x 2, upatt_2/3/4 x 3, up_2/3/4 x 2, bottom_att x
+# 2, bottom x 2.
+TRAIN_SITES = 25
+# conv333 launches of one eval forward of one crop: 4 ru_blocks x 2 and 3
+# l2_blocks x 2.
+EVAL_CONV333 = 4 * 2 + 3 * 2
 
 REPO = Path(__file__).resolve().parent
 
@@ -83,8 +121,8 @@ def compare(name: str, got, ref, tol: float) -> float:
     """Raise unless max|got - ref| <= tol * max|ref|; return max|got - ref|.
     """
     import torch
-    got = got.float()
-    ref = ref.float()
+    got = got.detach().float()
+    ref = ref.detach().float()
     if got.shape != ref.shape:
         raise AssertionError(f"{name}: shape {tuple(got.shape)} vs "
                              f"{tuple(ref.shape)}")
@@ -235,20 +273,30 @@ def kernel_checks(dev, gen):
     return rec
 
 
+def _wrappers():
+    from vs_seg_tpu_torch.ops import (blend, conv333, conv333_dw, l2block,
+                                      rublock)
+    return {"conv333": conv333.conv333, "attgate": l2block.attgate,
+            "ru_block": rublock.ru_block, "l2_block": l2block.l2_block,
+            "blend_scatter": blend.blend_scatter,
+            "conv333_dw": conv333_dw.conv333_dw}
+
+
 def reset_counts():
-    from vs_seg_tpu_torch.ops import blend, conv333, l2block, rublock
-    for fn in (conv333.conv333, l2block.attgate, rublock.ru_block,
-               l2block.l2_block, blend.blend_scatter):
+    for fn in _wrappers().values():
         fn.launches = 0
 
 
 def read_counts():
-    from vs_seg_tpu_torch.ops import blend, conv333, l2block, rublock
-    return {"conv333": conv333.conv333.launches,
-            "attgate": l2block.attgate.launches,
-            "ru_block": rublock.ru_block.launches,
-            "l2_block": l2block.l2_block.launches,
-            "blend_scatter": blend.blend_scatter.launches}
+    return {k: fn.launches for k, fn in _wrappers().items()}
+
+
+def check_counts(counts, expect, path: str):
+    log(f"  launch counts in the counted {path} run: {counts}")
+    for k, n in expect.items():
+        if counts[k] != n:
+            raise AssertionError(f"{k}: {counts[k]} launches in the {path} "
+                                 f"run, expected {n} (one per site)")
 
 
 def model_run(dev, gen, card: str):
@@ -280,7 +328,7 @@ def model_run(dev, gen, card: str):
     # the model's own sites: 4 encoder units (down_2, down_3, down_4,
     # bottom), 3 decoder levels (up_2, up_3, up_4), 1 window batch
     expect = {"ru_block": 4, "l2_block": 3, "attgate": 3,
-              "conv333": 4 * 2 + 3 * 2, "blend_scatter": 1}
+              "conv333": EVAL_CONV333, "blend_scatter": 1, "conv333_dw": 0}
 
     def run(use_kernels: bool):
         pred = make_predictor(model, torch.bfloat16, use_kernels=use_kernels)
@@ -305,11 +353,7 @@ def model_run(dev, gen, card: str):
         else:
             outs[use_kernels], ms = run(use_kernels)
         times[use_kernels].append(ms)
-    log(f"  launch counts in the counted kernel-path run: {counts}")
-    for k, n in expect.items():
-        if counts[k] != n:
-            raise AssertionError(f"{k}: {counts[k]} launches in the main "
-                                 f"path, expected {n} (one per site)")
+    check_counts(counts, expect, "inference")
     ko, po = outs[True], outs[False]
     if tuple(ko.shape) != (*VOLUME, 2):
         raise AssertionError(f"output shape {tuple(ko.shape)}")
@@ -328,6 +372,232 @@ def model_run(dev, gen, card: str):
     log(f"plain path: {p_ms:.1f} ms/volume {times[False]} on {card}")
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
         f"GiB on {card}")
+    return counts
+
+
+def train_kernel_checks(dev, gen, card: str):
+    """Phase 5: conv333_dw and the Conv333Train backward vs plain."""
+    import torch
+
+    from vs_seg_tpu_torch.ops import conv333_dw as dwm
+    from vs_seg_tpu_torch.ops import train_conv
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen).to(dev, torch.bfloat16)
+
+    rec, errs = {}, []
+    for name, shape, cin, cout in (
+            ("down_2 unit1", (1, 64, 96, 96), 48, 48),
+            ("upatt_2 conv2", (1, 64, 96, 96), 48, 1),
+            ("up_3 unit0 half", (1, 32, 48, 48), 64, 64)):
+        x, dy = randn(*shape, cin), randn(*shape, cout)
+        dw, db = dwm.conv333_dw(x, dy)
+        dw2, db2 = dwm.conv333_dw(x, dy)
+        if not (torch.equal(dw, dw2) and torch.equal(db, db2)):
+            raise AssertionError(f"conv333_dw {name}: two runs differ")
+        pdw, pdb = dwm.conv333_dw_plain(x, dy)
+        tag = f"conv333_dw {name} {shape}x{cin}->{cout}"
+        errs.append(max(compare(tag + " dw", dw, pdw, DW_TOL),
+                        compare(tag + " db", db, pdb, DW_TOL)))
+        if not rec:
+            ms = cuda_ms(lambda: dwm.conv333_dw(x, dy))
+            flop = 2 * 27 * cin * cout * x[..., 0].numel()
+            log(f"  {tag}: {flop / 1e9:.1f} GFLOP, kernel {ms!r} ms = "
+                f"{flop / ms / 1e9!r} TFLOP/s on {card}")
+            rec["conv333_dw"] = dict(
+                shape=tag, ms=ms,
+                plain_ms=cuda_ms(lambda: dwm.conv333_dw_plain(x, dy)))
+    rec["conv333_dw"]["max_abs_err"] = max(errs)
+    log("  conv333_dw: bit-equal over two runs at all three shapes")
+
+    # the Function's backward against plain autograd, down_2 unit0 (32->48)
+    x = randn(1, 64, 96, 96, 32).requires_grad_()
+    w = ((torch.rand((3, 3, 3, 32, 48), generator=gen) * 2 - 1) / 864 ** .5
+         ).to(dev).requires_grad_()
+    b = (torch.rand(48, generator=gen) * .4 - .2).to(dev).requires_grad_()
+    dy = randn(1, 64, 96, 96, 48)
+    ys, grads, bwd = {}, {}, {}
+    for use_kernels in (True, False):
+        y = train_conv.conv333_train(x, w, b, use_kernels)
+        ys[use_kernels] = y
+        bwd[use_kernels] = (lambda y=y: torch.autograd.grad(
+            y, (x, w, b), dy, retain_graph=True))
+        grads[use_kernels] = bwd[use_kernels]()
+    tag = "Conv333Train down_2 unit0 (1,64,96,96,32)->48"
+    compare(tag + " y", ys[True], ys[False], 0.0)
+    for part, g, r in zip(("dx", "dw", "db"), grads[True], grads[False]):
+        compare(f"{tag} {part}", g, r, KERNEL_TOL)
+    k_ms, p_ms = cuda_ms(bwd[True]), cuda_ms(bwd[False])
+    log(f"  {tag} backward: kernel {k_ms!r} ms, plain autograd {p_ms!r} ms "
+        f"on {card}")
+    torch.cuda.synchronize()
+    return rec
+
+
+class StepLosses(logging.Handler):
+    """Collects the float of every per-step train loss the Trainer logs."""
+
+    def __init__(self):
+        super().__init__()
+        self.losses = []
+
+    def emit(self, record):
+        if "train_loss" in str(record.msg):
+            self.losses.append(float(record.args[-1]))
+
+
+def train_run(dev, card: str):
+    """Phase 6: full-width flagship training on both paths."""
+    import numpy as np
+    import torch
+
+    from vs_seg_tpu_torch.core.config import Config
+    from vs_seg_tpu_torch.losses.dice import dice_spvpa_loss
+    from vs_seg_tpu_torch.models import UNet2d5_spvPA
+    from vs_seg_tpu_torch.nn.blocks import Convolution
+    from vs_seg_tpu_torch.train import trainer as tr
+
+    cfg = Config(data_root=str(REPO / "build" / "chip_smoke_train"),
+                 results_folder_name="smoke", num_epochs=1, val_interval=1,
+                 seed=SEED)
+    dtype = tr.DTYPES[cfg.compute_dtype]
+    model = UNet2d5_spvPA(dtype=dtype, device=dev,
+                          generator=torch.Generator().manual_seed(SEED),
+                          **cfg.model_kwargs())
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    h, w, d = cfg.pad_crop_shape
+    rng = np.random.default_rng(SEED + 1)
+
+    def crop():
+        # a seeded image and a sparse binary label: one box of 32x38x12
+        # voxels in a 384x384x64 crop
+        lab = np.zeros((cfg.train_batch_size, 1, h, w, d), np.float32)
+        bh, bw, bd = h // 12, w // 10, d // 5
+        h0, w0, d0 = (int(rng.integers(0, s - e)) for s, e in
+                      ((h, bh), (w, bw), (d, bd)))
+        lab[..., h0:h0 + bh, w0:w0 + bw, d0:d0 + bd] = 1.0
+        img = rng.normal(size=lab.shape).astype(np.float32) + lab
+        return {"image": img, "label": lab}
+
+    train_data = [crop() for _ in range(TRAIN_STEPS)]
+    val_data = [crop()]
+    log(f"  {TRAIN_STEPS} train crops + 1 validation crop of "
+        f"{cfg.pad_crop_shape}, channels {tuple(cfg.channels)}, "
+        f"compute {cfg.compute_dtype}")
+
+    # the first step's loss and gradients on both paths, same dropout seed
+    noise_biases = {f"{n}.conv.bias" for n, m in model.named_modules()
+                    if isinstance(m, Convolution) and m.norm is not None}
+    first, grads = {}, {}
+    image, label = tr.to_device_batch(train_data[0], dev, dtype)
+    for use_kernels in (True, False):
+        model.load_state_dict(init)
+        model.zero_grad(set_to_none=True)
+        gen = torch.Generator(dev).manual_seed(cfg.seed)
+        logits, atts = model(image, use_kernels=use_kernels, train=True,
+                             generator=gen)
+        loss = dice_spvpa_loss(logits, atts, label.float(),
+                               supervised_attention=cfg.attention,
+                               hardness_weighting=cfg.hardness)
+        loss.backward()
+        first[use_kernels] = float(loss.detach())
+        grads[use_kernels] = {n: p.grad.float().clone()
+                              for n, p in model.named_parameters()}
+    del image, label, logits, atts, loss
+    gmax = max(float(g.abs().max()) for g in grads[False].values())
+    grad_err = {}
+    for n, ref in grads[False].items():
+        err = float((grads[True][n] - ref).abs().max())
+        scale = gmax if n in noise_biases else float(ref.abs().max())
+        grad_err[n] = err / max(scale, 1e-30)
+    worst = sorted(grad_err.items(), key=lambda kv: -kv[1])[:6]
+    log(f"  first-step loss: kernel path {first[True]!r}, plain path "
+        f"{first[False]!r}")
+    log(f"  gradients, kernel vs plain path, worst relative errors of "
+        f"{len(grad_err)} tensors (tol {GRAD_TOL!r}): {worst}")
+
+    # Trainer.fit on both paths from the same weights and dropout seed
+    fits = {}
+    counts = None
+    for use_kernels in (True, False):
+        model.load_state_dict(init)
+        logger = logging.getLogger(f"chip_smoke.train.{use_kernels}")
+        logger.setLevel(logging.INFO)
+        logger.propagate = False
+        steps = StepLosses()
+        logger.addHandler(steps)
+        trainer = tr.Trainer(cfg, model, dev, logger=logger,
+                             use_kernels=use_kernels)
+        state = trainer.init_state()
+        torch.cuda.synchronize()
+        if use_kernels:
+            reset_counts()
+        t = time.perf_counter()
+        state, losses, metrics = trainer.fit(state, train_data, val_data)
+        torch.cuda.synchronize()
+        if use_kernels:
+            counts = read_counts()
+        fits[use_kernels] = dict(wall_s=time.perf_counter() - t,
+                                 steps=steps.losses, epoch=losses,
+                                 val_dice=metrics)
+        log(f"  fit, {'kernel' if use_kernels else 'plain'} path: step "
+            f"losses {steps.losses}, epoch loss {losses}, val dice {metrics}, "
+            f"{fits[use_kernels]['wall_s']:.2f} s wall (validation and "
+            f"checkpoints included) on {card}")
+    check_counts(counts, {
+        "conv333_dw": TRAIN_SITES * TRAIN_STEPS,
+        "conv333": TRAIN_SITES * TRAIN_STEPS + EVAL_CONV333,
+        "ru_block": 4, "l2_block": 3, "attgate": 3, "blend_scatter": 0},
+        "training")
+
+    # ms/step and peak memory, device-resident batch, turns plain, kernel,
+    # kernel, plain
+    image, label = tr.to_device_batch(train_data[0], dev, dtype)
+    times = {True: [], False: []}
+    peak = {}
+    for use_kernels in (False, True, True, False):
+        model.load_state_dict(init)
+        opt = tr.make_optimizer(model.parameters(), cfg.initial_learning_rate,
+                                cfg.weight_decay)
+        step = tr.make_train_step(model, opt,
+                                  supervised_attention=cfg.attention,
+                                  hardness=cfg.hardness,
+                                  use_kernels=use_kernels)
+        gen = torch.Generator(dev).manual_seed(cfg.seed)
+        step(image, label, gen)            # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        for _ in range(STEP_REPS):
+            loss = step(image, label, gen)
+        torch.cuda.synchronize()
+        times[use_kernels].append((time.perf_counter() - t) * 1e3 / STEP_REPS)
+        peak[use_kernels] = torch.cuda.max_memory_allocated() / 2 ** 30
+        if not torch.isfinite(loss):
+            raise AssertionError("non-finite train loss")
+    for use_kernels in (True, False):
+        name = "kernel" if use_kernels else "plain"
+        ts = times[use_kernels]
+        log(f"train step, {name} path: {sum(ts) / len(ts):.1f} ms/step {ts}, "
+            f"peak device memory {peak[use_kernels]:.2f} GiB on {card}")
+
+    # the checks
+    if first[True] != first[False]:
+        raise AssertionError(f"first-step losses differ: {first}")
+    bad = {n: e for n, e in grad_err.items() if e > GRAD_TOL}
+    if bad:
+        raise AssertionError(f"gradients outside {GRAD_TOL}: {bad}")
+    for use_kernels, f in fits.items():
+        vals = f["steps"] + f["epoch"] + f["val_dice"]
+        if len(f["steps"]) != TRAIN_STEPS or not np.isfinite(vals).all():
+            raise AssertionError(f"fit (use_kernels={use_kernels}): {f}")
+    if fits[True]["steps"][0] != first[True]:
+        raise AssertionError("the fit's first step is not the checked one: "
+                             f"{fits[True]['steps'][0]} vs {first[True]}")
+    ek, ep = fits[True]["epoch"][0], fits[False]["epoch"][0]
+    if abs(ek - ep) > FIT_LOSS_TOL * abs(ep):
+        raise AssertionError(f"epoch losses differ: {ek} vs {ep}")
+    torch.cuda.synchronize()
     return counts
 
 
@@ -355,7 +625,10 @@ def main() -> int:
     log(f"python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
-    for name in ("conv333", "attgate", "blend"):
+    names = ("conv333", "conv333_dw", "attgate", "blend")
+    with ThreadPoolExecutor(len(names)) as pool:   # one nvcc per source
+        list(pool.map(_build.build, names))
+    for name in names:
         _build.load(name)
     log(f"kernel build+load {time.perf_counter() - t0:.1f} s "
         f"(nvcc seconds {_build.BUILD_SECONDS})")
@@ -363,11 +636,16 @@ def main() -> int:
     gen = torch.Generator().manual_seed(SEED)
     log("phase 2: kernels vs plain twins at flagship shapes")
     rec = kernel_checks(dev, gen)
+    log("phase 3: flagship whole-volume inference")
+    infer_counts = model_run(dev, gen, card)
+    log("phase 5: training kernels vs plain twins")
+    rec.update(train_kernel_checks(dev, gen, card))
     for k, r in rec.items():
         log(f"  {k} [{r['shape']}]: kernel {r['ms']:.3f} ms, plain "
             f"{r['plain_ms']:.3f} ms on {card}")
-    log("phase 3: flagship whole-volume inference")
-    counts = model_run(dev, gen, card)
+    log("phase 6: flagship training at full width")
+    train_counts = train_run(dev, card)
+    counts = {k: infer_counts[k] + train_counts[k] for k in infer_counts}
 
     pkg = "vs_seg_tpu_torch/ops/"
     meta = {
@@ -377,6 +655,8 @@ def main() -> int:
         "l2_block": ("l2block.py", "vs_seg_tpu/ops/pallas_l2block.py:391"),
         "blend_scatter": ("csrc/blend.cu",
                           "vs_seg_tpu/ops/pallas_blend.py:107"),
+        "conv333_dw": ("csrc/conv333_dw.cu",
+                       "vs_seg_tpu/ops/experimental/pallas_train.py:113"),
     }
     kernels = [{"name": k, "route": "cuda", "source": pkg + meta[k][0],
                 "replaces": meta[k][1], "launches": counts[k],

@@ -11,16 +11,19 @@ without the JAX test setup:
 
 Tolerance: bf16 kernel vs plain twin, max|diff| <= 2e-2 * max|plain| (both
 round to bf16 at different points and sum in different orders); the blend
-is exact (same f32 operation order).
+is exact (same f32 operation order); conv333_dw and its twin sum the same
+exact bf16 products in float32 in other orders: 1e-4.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from vs_seg_tpu_torch.ops import blend, conv333, l2block, rublock
+from vs_seg_tpu_torch.ops import (blend, conv333, conv333_dw, l2block,
+                                  rublock, train_conv)
 
 TOL = 2e-2
+DW_TOL = 1e-4
 
 pytestmark = pytest.mark.gpu
 
@@ -133,3 +136,44 @@ def test_blend_kernel_matches_plain_exactly(dev, dtype):
     po, pw = blend.blend_scatter_plain(out0.clone(), w0.clone(), preds,
                                        starts, mask, imp)
     assert torch.equal(ko, po) and torch.equal(kw, pw)
+
+
+@pytest.mark.parametrize("shape,cin,cout", [
+    ((2, 3, 9, 13), 5, 7),            # nothing aligned
+    ((1, 4, 16, 16), 24, 1),          # Cout = 1 (an attention conv2)
+    ((1, 2, 12, 20), 40, 80),         # Cin not a multiple of 16, 2 N tiles
+    ((2, 1, 8, 16), 16, 130),         # single depth plane, 3 N tiles
+])
+def test_conv333_dw_kernel_matches_plain_and_is_deterministic(
+        dev, shape, cin, cout):
+    g = _g()
+    x, dy = _x(g, dev, *shape, cin), _x(g, dev, *shape, cout)
+    n0 = conv333_dw.conv333_dw.launches
+    dw, db = conv333_dw.conv333_dw(x, dy)
+    assert conv333_dw.conv333_dw.launches == n0 + 1
+    dw2, db2 = conv333_dw.conv333_dw(x, dy)
+    assert torch.equal(dw, dw2) and torch.equal(db, db2)
+    pdw, pdb = conv333_dw.conv333_dw_plain(x, dy)
+    _check(dw, pdw, DW_TOL)
+    _check(db, pdb, DW_TOL)
+
+
+def test_conv333_train_backward_matches_plain_autograd(dev):
+    """The Function's kernel backward against autograd through the library
+    conv (whose bf16 dw and db are rounded to bf16: TOL)."""
+    g = _g()
+    x = _x(g, dev, 1, 3, 10, 20, 12).requires_grad_()
+    w = _w(g, dev, (3, 3, 3), 12, 20).requires_grad_()
+    b = _v(g, dev, 20, -.2, .2).requires_grad_()
+    dy = _x(g, dev, 1, 3, 10, 20, 20)
+    n0 = conv333.conv333.launches, conv333_dw.conv333_dw.launches
+    y = train_conv.conv333_train(x, w, b)
+    got = torch.autograd.grad(y, (x, w, b), dy)
+    assert (conv333.conv333.launches, conv333_dw.conv333_dw.launches) == (
+        n0[0] + 1, n0[1] + 1)
+    y_ref = train_conv.conv333_train(x, w, b, use_kernels=False)
+    ref = torch.autograd.grad(y_ref, (x, w, b), dy)
+    assert torch.equal(y, y_ref)
+    assert got[1].dtype == torch.float32 and got[2].dtype == torch.float32
+    for gk, gp in zip(got, ref):
+        _check(gk, gp)

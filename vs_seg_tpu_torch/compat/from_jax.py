@@ -8,6 +8,8 @@ the same names and the same parameter shapes, so each leaf maps to the
 state_dict entry at its dotted path. The conversion is strict, as
 torch_import.py's _TrackingDict check of full consumption is: every leaf must
 land on a model entry, and every model entry must be given, or it raises.
+`load_jax_train_state` carries a whole JAX training state (with the Adam
+moments) into a model and its torch optimizer.
 """
 
 from __future__ import annotations
@@ -66,3 +68,58 @@ def load_jax_variables(model: nn.Module, variables: Mapping) -> nn.Module:
         raise ValueError(f"shape mismatch (key, jax, model): {bad[:8]}")
     model.load_state_dict(sd, strict=True)
     return model
+
+
+def _param_order(model: nn.Module):
+    """The model's (name, parameter) pairs in the JAX params tree's leaf
+    order: nested dicts flatten with their keys sorted at every level, so
+    the order is that of the dotted names split into components."""
+    return sorted(model.named_parameters(),
+                  key=lambda kv: tuple(kv[0].split(".")))
+
+
+def load_jax_train_state(model: nn.Module, optimizer: torch.optim.Optimizer,
+                         state: Mapping) -> Dict[str, float]:
+    """Carry a JAX training state into `model` and its torch.optim.Adam
+    `optimizer`, in place.
+
+    `state` holds numpy arrays only: "params" and "batch_stats" as for
+    load_jax_variables, and "opt_state" in the form flax's to_state_dict
+    gives (the form vs_seg_tpu checkpoints store) of the optimizer that
+    vs_seg_tpu/train/trainer.py:make_optimizer builds: inject_hyperparams
+    over optax.flatten, so the Adam moments are single `mu`/`nu` vectors in
+    ravel_pytree order. They are sliced into per-parameter exp_avg /
+    exp_avg_sq; `step` is the Adam count and the learning rate the injected
+    hyperparameter. Returns the scalars of the state that are not tensors
+    (epoch, best_metric, best_metric_epoch) where present."""
+    load_jax_variables(model, {"params": state["params"],
+                               "batch_stats": state.get("batch_stats", {})})
+    opt = state["opt_state"]
+    adam = opt["inner_state"]["1"]
+    mu = np.asarray(adam["mu"], np.float32).reshape(-1)
+    nu = np.asarray(adam["nu"], np.float32).reshape(-1)
+    named = _param_order(model)
+    total = sum(p.numel() for _, p in named)
+    if mu.size != total or nu.size != total:
+        raise ValueError(f"Adam moments hold {mu.size}/{nu.size} values, the "
+                         f"model has {total} parameters")
+    owned = {id(p) for g in optimizer.param_groups for p in g["params"]}
+    if owned != {id(p) for _, p in named}:
+        raise ValueError("the optimizer does not hold exactly the model's "
+                         "parameters")
+    step = float(np.asarray(adam["count"]))
+    off = 0
+    for _, p in named:
+        k = p.numel()
+        optimizer.state[p] = {
+            "step": torch.tensor(step, dtype=torch.float32),
+            "exp_avg": torch.from_numpy(mu[off:off + k].copy()).reshape(
+                p.shape).to(p.device),
+            "exp_avg_sq": torch.from_numpy(nu[off:off + k].copy()).reshape(
+                p.shape).to(p.device)}
+        off += k
+    lr = float(np.asarray(opt["hyperparams"]["learning_rate"]))
+    for group in optimizer.param_groups:
+        group["lr"] = lr
+    return {k: float(np.asarray(state[k])) for k in
+            ("epoch", "best_metric", "best_metric_epoch") if k in state}

@@ -1,5 +1,5 @@
 """UNet2d5_spvPA — 6-level 2.5D residual U-Net with deep spatial-attention
-supervision, eval forward, mirroring vs_seg_tpu/models/unet2d5_spvpa.py.
+supervision, mirroring vs_seg_tpu/models/unet2d5_spvpa.py.
 
   level i = 0..n-1 (channels c_i, stride s_i, kernel k_i, sample kernel sk_i):
     down_i        ResidualUnit(c_{i-1} -> c_i, `num_res_units` subunits)
@@ -11,10 +11,18 @@ supervision, eval forward, mirroring vs_seg_tpu/models/unet2d5_spvpa.py.
     up_i          ResidualUnit(2 c_i -> outc_i, 1 subunit, conv-only at top)
   bottom: bottom_att AttentionBlock1(c_{n-1}) + gate, ResidualUnit -> c_n
 
-forward(x) takes (N, D, H, W, C) and returns (logits (N, D, H, W, out),
-att_maps), the maps coarsest first, each (N, d, h, w, 1).
+forward(x, use_kernels=True, train=False, generator=None) takes (N, D, H,
+W, C) and returns (logits (N, D, H, W, out), att_maps), the maps coarsest
+first, each (N, d, h, w, 1). Train or eval is the explicit `train` argument,
+as in the JAX package; torch's module-level train()/eval() state is not
+read. At train, BatchNorm uses batch statistics (and updates the running
+ones), Dropout draws from `generator` (a torch.Generator on x's device,
+required when dropout > 0), no l2block/rublock/headfold route is taken, and
+every (3,3,3) stride-1 conv runs the hand-written backward of
+ops/train_conv.py (25 conv sites in the flagship, pair halves counted
+separately).
 
-Dispatch to the hand-written kernels (ops/): the two-subunit (3,3,3)
+Eval dispatch to the hand-written kernels (ops/): the two-subunit (3,3,3)
 encoder units go to ops/rublock.py from ResidualUnit; every (3,3,3) decoder
 level i > 0 whose output has the skip's width goes to ops/l2block.py here,
 as vs_seg_tpu's l2block_fusable/l2block_apply route it. With
@@ -96,30 +104,32 @@ class UNet2d5_spvPA(nn.Module):
                 2 * channels[i], outc, kernel_sizes[i], subunits=1,
                 last_conv_only=(i == 0), **common))
 
-    def forward(self, x, use_kernels: bool = True):
+    def forward(self, x, use_kernels: bool = True, train: bool = False,
+                generator: Optional[torch.Generator] = None):
         n = self.n_levels
+        kw = dict(use_kernels=use_kernels, train=train)
         skips = []
         for i in range(n):
-            x = getattr(self, f"down_{i}")(x, use_kernels)
+            x = getattr(self, f"down_{i}")(x, generator=generator, **kw)
             skips.append(x)
-            x = getattr(self, f"downsample_{i}")(x)
+            x = getattr(self, f"downsample_{i}")(x, generator=generator, **kw)
         att_maps = []
         if self.attention_module:
-            att, x = self.bottom_att(x, gate=True)
+            att, x = self.bottom_att(x, gate=True, **kw)
             att_maps.append(att)
-        x = self.bottom(x, use_kernels)
+        x = self.bottom(x, generator=generator, **kw)
         for i in reversed(range(n)):
-            x = getattr(self, f"upsample_{i}")(x)
+            x = getattr(self, f"upsample_{i}")(x, generator=generator, **kw)
             pair = (skips[i], x.to(skips[i].dtype))
             outc = self.out_channels if i == 0 else self.channels[i]
-            if self._l2block(pair, i, outc):
+            if not train and self._l2block(pair, i, outc):
                 x, att = self._l2block_apply(pair, i, use_kernels)
                 att_maps.append(att)
                 continue
             if self.attention_module:
-                att, pair = getattr(self, f"upatt_{i}")(pair, gate=True)
+                att, pair = getattr(self, f"upatt_{i}")(pair, gate=True, **kw)
                 att_maps.append(att)
-            x = getattr(self, f"up_{i}")(pair, use_kernels)
+            x = getattr(self, f"up_{i}")(pair, generator=generator, **kw)
         return x, tuple(att_maps)
 
     def _l2block(self, pair, i: int, outc: int) -> bool:

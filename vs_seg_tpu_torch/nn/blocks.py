@@ -1,19 +1,23 @@
-"""Composite eval blocks mirroring vs_seg_tpu/nn/blocks.py.
+"""Composite blocks mirroring vs_seg_tpu/nn/blocks.py.
 
-  Convolution     conv (or transpose conv) -> folded BatchNorm -> act,
+  Convolution     eval: conv (or transpose conv) -> folded BatchNorm -> act;
+                  train: conv -> BatchNorm (batch stats) -> Dropout -> act;
                   or conv_only
   ResidualUnit    `subunits` Convolutions + residual (1x1 conv when the
                   channels change); the conv-only logit head folds its
                   residual into the conv (the JAX `_headfold_apply` algebra);
                   the (3,3,3) two-subunit encoder units dispatch to
-                  ops/rublock.py
+                  ops/rublock.py (eval only)
   AttentionBlock1 conv(C -> C/2, ReLU) -> conv(C/2 -> 1, sigmoid), with the
                   residual gate att*x + x (`attention_gate`)
 
 Module and parameter names follow the JAX package (unit0, conv, norm, act,
 residual, conv1, conv2, kernel, bias, scale, mean, var, alpha), so a JAX
 variables tree maps onto the state_dict key for key (compat/from_jax.py).
-Eval only: Dropout is the identity and BatchNorm is folded.
+Every forward takes `train` (default False, eval), `use_kernels` and, for
+train-mode dropout, an explicit torch.Generator. At train no block takes the
+rublock, headfold or fused-gate route, as in the JAX package; the (3,3,3)
+stride-1 convs inside run the hand-written backward (nn/layers.py:Conv3d).
 """
 
 from __future__ import annotations
@@ -63,13 +67,20 @@ class Convolution(nn.Module):
                         else None)
         self.act = PReLU(device=device) if self.act_name == "prelu" else None
 
-    def forward(self, x):
+    def forward(self, x, use_kernels: bool = True, train: bool = False,
+                generator: Optional[torch.Generator] = None):
+        kw = dict(train=train, use_kernels=use_kernels)
         if self.conv_only:
-            return self.conv(x)
-        y = self.conv(x, affine=None if self.norm is None
-                      else self.norm.fold())
+            return self.conv(x, **kw)
+        if train:
+            y = self.conv(x, **kw)
+            if self.norm is not None:
+                y = self.norm(y)
+        else:
+            y = self.conv(x, affine=None if self.norm is None
+                          else self.norm.fold(), **kw)
         if self.dropout is not None:
-            y = self.dropout(y)
+            y = self.dropout(y, train, generator)
         if self.act_name == "prelu":
             y = self.act(y)
         elif self.act_name == "relu":
@@ -135,11 +146,12 @@ class ResidualUnit(nn.Module):
                 and self.act_name == "prelu" and self.norm_name == "batch"
                 and self.in_features != self.features)
 
-    def forward(self, x, use_kernels: bool = True):
+    def forward(self, x, use_kernels: bool = True, train: bool = False,
+                generator: Optional[torch.Generator] = None):
         pair = isinstance(x, (tuple, list))
-        if self._headfold():
+        if not train and self._headfold():
             return self._headfold_apply(x)
-        if self._rublock(pair):
+        if not train and self._rublock(pair):
             fn = rublock.ru_block if use_kernels else rublock.ru_block_plain
             s0, h0 = folded_conv_affine(self.unit0)
             s1, h1 = folded_conv_affine(self.unit1)
@@ -150,9 +162,9 @@ class ResidualUnit(nn.Module):
                       br=self.residual.bias)
         cx = x
         for su in range(self.subunits):
-            cx = getattr(self, f"unit{su}")(cx)
+            cx = getattr(self, f"unit{su}")(cx, use_kernels, train, generator)
         if self.residual is not None:
-            res = self.residual(x)
+            res = self.residual(x, train=train, use_kernels=use_kernels)
         else:
             assert not pair, "identity residual undefined for pair input"
             res = x
@@ -190,8 +202,10 @@ class AttentionBlock1(nn.Module):
                                  norm=None, dtype=dtype, device=device,
                                  generator=generator)
 
-    def forward(self, x, gate: bool = False):
-        att = self.conv2(self.conv1(x))
+    def forward(self, x, gate: bool = False, use_kernels: bool = True,
+                train: bool = False):
+        att = self.conv2(self.conv1(x, use_kernels, train), use_kernels,
+                         train)
         if not gate:
             return att, x
         return att, attention_gate(att, x)

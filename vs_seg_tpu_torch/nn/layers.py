@@ -1,13 +1,21 @@
-"""Low-level NN primitives on (N, D, H, W, C) activations, eval only.
+"""Low-level NN primitives on (N, D, H, W, C) activations.
 
 Counterpart of vs_seg_tpu/nn/layers.py, with the same semantics:
   - conv padding: MONAI same_padding, (k - 1) // 2 per dim;
   - transpose conv: MONAI output_padding = s + 2p - (k - 1) - 1, so that
     output = input * stride;
-  - BatchNorm: torch BatchNorm3d eval semantics (eps 1e-5), folded into a
-    per-channel affine inv = scale * rsqrt(var + eps), shift = bias - mean*inv;
+  - BatchNorm: torch BatchNorm3d semantics (eps 1e-5, momentum 0.1): at
+    train, biased batch statistics in float32 normalise and the unbiased
+    variance updates the running var; at eval, folded into a per-channel
+    affine inv = scale * rsqrt(var + eps), shift = bias - mean*inv;
   - PReLU: one shared slope, init 0.25;
-  - Dropout: identity at eval.
+  - Dropout: inverted (x / keep) at train, identity at eval.
+
+Train or eval is an explicit `train` argument of every forward, as in the JAX
+package (not torch's module-level train()/eval() state). At train, every
+(3,3,3) stride-1 same-padded conv, each pair half on its own, goes through
+ops/train_conv.py (the hand-written backward), as vs_seg_tpu's conv3d routes
+it to pallas_train.conv333_train.
 
 Layout: a contiguous NDHWC tensor permuted to (N, C, D, H, W) is an NCDHW
 tensor in channels_last_3d memory format, with no copy, so the plain convs
@@ -29,9 +37,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from vs_seg_tpu_torch.ops import train_conv
+
 Shape3 = Tuple[int, int, int]
 
 BN_EPS = 1e-5
+BN_MOMENTUM = 0.1
 
 
 def _triple(v) -> Shape3:
@@ -116,7 +127,9 @@ class Conv3d(nn.Module):
     conv(xa, w[..., :ca, :]) + conv(xb, w[..., ca:, :]) with the same kernel,
     as vs_seg_tpu/nn/layers.py:Conv3d computes it. `affine=(inv, shift)`
     folds a frozen per-channel affine (eval BatchNorm) into the weights in
-    float32 before the cast to the compute dtype."""
+    float32 before the cast to the compute dtype. With `train`, a (3,3,3)
+    stride-1 same-padded conv runs through ops/train_conv.py, one call per
+    pair half with the bias on the second (vs_seg_tpu's Conv3d split)."""
 
     def __init__(self, in_features: int, features: int, kernel_size,
                  strides=(1, 1, 1), padding=None, use_bias: bool = True,
@@ -136,16 +149,27 @@ class Conv3d(nn.Module):
                                            device))
                      if use_bias else None)
 
-    def forward(self, x, affine=None):
+    def train_route(self) -> bool:
+        """The convs vs_seg_tpu sends to conv333_train at train."""
+        return (self.kernel_size == (3, 3, 3) and self.strides == (1, 1, 1)
+                and self.padding == (1, 1, 1))
+
+    def forward(self, x, affine=None, train: bool = False,
+                use_kernels: bool = True):
         w, b = fold_affine(self.kernel, self.bias, affine)
+        if train and affine is None and self.train_route():
+            def conv(v, wv, bv, strides, padding):
+                return train_conv.conv333_train(v, wv, bv, use_kernels)
+        else:
+            conv = conv3d
         if isinstance(x, (tuple, list)):
             xa, xb = (v.to(self.dtype) for v in x)
             ca = xa.shape[-1]
-            return (conv3d(xa, w[..., :ca, :], None, self.strides,
-                           self.padding)
-                    + conv3d(xb, w[..., ca:, :], b, self.strides,
-                             self.padding))
-        return conv3d(x.to(self.dtype), w, b, self.strides, self.padding)
+            return (conv(xa, w[..., :ca, :], None, self.strides,
+                         self.padding)
+                    + conv(xb, w[..., ca:, :], b, self.strides,
+                           self.padding))
+        return conv(x.to(self.dtype), w, b, self.strides, self.padding)
 
 
 class ConvTranspose3d(nn.Module):
@@ -173,17 +197,22 @@ class ConvTranspose3d(nn.Module):
                                            device))
                      if use_bias else None)
 
-    def forward(self, x, affine=None):
+    def forward(self, x, affine=None, train: bool = False,
+                use_kernels: bool = True):
+        """`train` and `use_kernels` change nothing here: no transpose conv
+        has a kernel route."""
         w, b = fold_affine(self.kernel, self.bias, affine)
         return conv_transpose3d(x.to(self.dtype), w, b, self.strides,
                                 self.padding, self.output_padding)
 
 
 class BatchNorm(nn.Module):
-    """Eval BatchNorm3d over the channel axis (the last axis here), kept
-    folded: `fold()` gives the per-channel affine (inv, shift) that the
-    caller folds into the preceding conv. Parameters `scale`/`bias` and
-    running statistics `mean`/`var` carry the JAX package's names."""
+    """BatchNorm3d over the channel axis (the last axis here). At eval it is
+    kept folded: `fold()` gives the per-channel affine (inv, shift) that the
+    caller folds into the preceding conv. At train `forward` normalises with
+    the batch statistics and updates the running ones in place (buffers, no
+    gradient). Parameters `scale`/`bias` and running statistics `mean`/`var`
+    carry the JAX package's names."""
 
     def __init__(self, features: int, device="cpu"):
         super().__init__()
@@ -195,6 +224,28 @@ class BatchNorm(nn.Module):
     def fold(self):
         inv = torch.rsqrt(self.var + BN_EPS) * self.scale
         return inv, self.bias - self.mean * inv
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """Train mode, as vs_seg_tpu/nn/layers.py:BatchNorm writes it: biased
+        stats in float32 as E[x^2] - E[x]^2 (not F.batch_norm, whose variance
+        algorithm and bf16 handling differ), running var updated with the
+        unbiased n/(n-1) estimate, and for low-precision x one scale/shift
+        applied in x's dtype."""
+        axes = tuple(range(x.dim() - 1))
+        xf = x.float()
+        mean = xf.mean(axes)
+        var = (xf * xf).mean(axes) - mean * mean
+        n = float(np.prod([x.shape[a] for a in axes]))
+        with torch.no_grad():
+            m = BN_MOMENTUM
+            unbiased = var * (n / max(n - 1.0, 1.0))
+            self.mean.copy_((1 - m) * self.mean + m * mean)
+            self.var.copy_((1 - m) * self.var + m * unbiased)
+        inv = torch.rsqrt(var + BN_EPS) * self.scale
+        if x.dtype == torch.float32:
+            return (x - mean) * inv + self.bias
+        shift = self.bias - mean * inv
+        return x * inv.to(x.dtype) + shift.to(x.dtype)
 
 
 class PReLU(nn.Module):
@@ -211,11 +262,27 @@ class PReLU(nn.Module):
 
 
 class Dropout(nn.Module):
-    """Dropout is the identity at eval, the only mode this package runs."""
+    """Inverted dropout at train, the identity at eval. As in the JAX package
+    the keep decision thresholds one 16-bit random word per element, so the
+    keep probability is quantised to 1/65536 and x is divided by that exact
+    keep. The words come from the caller's torch.Generator (on x's device),
+    so the masks are not the JAX package's bits."""
 
     def __init__(self, rate: float):
         super().__init__()
         self.rate = rate
 
-    def forward(self, x):
-        return x
+    def forward(self, x, train: bool = False,
+                generator: Optional[torch.Generator] = None):
+        if not train or self.rate == 0.0:
+            return x
+        thresh = int(round((1.0 - self.rate) * 65536.0))
+        if thresh >= 65536:
+            return x
+        if generator is None:
+            raise ValueError("train-mode dropout needs an explicit "
+                             "torch.Generator")
+        keep = thresh / 65536.0
+        bits = torch.randint(0, 65536, x.shape, generator=generator,
+                             device=x.device, dtype=torch.int32)
+        return (x / keep).masked_fill(bits >= thresh, 0.0)

@@ -7,6 +7,12 @@ and their plain PyTorch twins:
               (+ attgate, csrc/attgate.cu)
   blend.py    blend_scatter  <- vs_seg_tpu/ops/pallas_blend.py:
                                 pallas_blend_scatter
+  conv333_dw.py  conv333_dw  <- vs_seg_tpu/ops/experimental/pallas_train.py:
+                                conv333_dw (+ dw_extract/db_extract)
+  train_conv.py  Conv333Train, conv333_train
+                             <- vs_seg_tpu/ops/experimental/pallas_train.py:
+                                conv333_train (dx via conv333, dw/db via
+                                conv333_dw)
 
 Importing these modules builds nothing.
 """

@@ -35,10 +35,28 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
      steps and a validation pass on each path, with the launch counters reset
      just before the kernel path's fit and read just after; then ms/step and
      peak memory of each path.
+  7. The kd = 1 ("2.5D") route kernels against their plain twins at the
+     flagship shapes of one 8-window batch: ru_block2d at down_0 (1->16) and
+     down_1 (16->32), l2_block2d at up_1 (32||32->32) and the up_0 logit head
+     (16||16->2), tail_block at up_1 and up_0, fused_attention_gate (kd 1) at
+     upatt_0 and upatt_1 and (kd 3) at the upatt_2 shape.
+  8. The phase-3 volume under two route configurations (Routes), each
+     through the kernels (launch counters reset just before, read just
+     after, checked per site) and through the plain path: A = ru_block2d,
+     l2_block2d, tail_block at up_1; B = fused_attention_gate. Logits are
+     held against the configuration's plain path and phase 3's default
+     kernel path; ms/volume of each path; and a per-level split of one
+     8-window forward (CUDA events at the model's top-level modules) for the
+     default routes and for A.
 
-The kernels are built in parallel, one nvcc per source. The last stdout line
-is {"ok": true, "device": {...}}; the line before it is the per-kernel JSON
-record, whose launch counts add up both main paths (phases 3 and 6).
+The kernels are built in parallel, one nvcc per source. Every kernel record
+carries its time, its plain twin's, the time of one library call computing
+the same function where there is one, and its bound: the larger of the
+bytes it must move (inputs read once, outputs written once) over the HBM
+rate and its operations over the peak rate for their type (H100 SXM, dense:
+989 TFLOP/s bf16 tensor cores, 67 TFLOP/s f32, 3.35 TB/s). The last stdout
+line is {"ok": true, "device": {...}}; the line before it is the per-kernel
+JSON record, whose launch counts add up every main path (phases 3, 6 and 8).
 """
 
 from __future__ import annotations
@@ -87,6 +105,10 @@ TRAIN_SITES = 25
 # conv333 launches of one eval forward of one crop: 4 ru_blocks x 2 and 3
 # l2_blocks x 2.
 EVAL_CONV333 = 4 * 2 + 3 * 2
+# Published H100 SXM peaks (dense) for the kernels' bounds.
+PEAK_BF16 = 989e12       # FLOP/s, tensor cores
+PEAK_F32 = 67e12         # FLOP/s, CUDA cores
+HBM_RATE = 3.35e12       # bytes/s
 
 REPO = Path(__file__).resolve().parent
 
@@ -117,6 +139,22 @@ def cuda_ms(fn, reps: int = REPS) -> float:
     return start.elapsed_time(end) / reps
 
 
+def nbytes(*ts) -> int:
+    """Bytes of the tensors given (None counts nothing)."""
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
+def bound(moved: int, bf16_flop: float = 0.0, f32_flop: float = 0.0):
+    """(bound_ms, bound_by, bytes, bf16 FLOP, f32 FLOP): the larger of
+    `moved` bytes over the HBM rate and the operations over the peak rate
+    for their type."""
+    t_bytes = moved / HBM_RATE
+    t_ops = bf16_flop / PEAK_BF16 + f32_flop / PEAK_F32
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", moved, bf16_flop,
+            f32_flop)
+
+
 def compare(name: str, got, ref, tol: float) -> float:
     """Raise unless max|got - ref| <= tol * max|ref|; return max|got - ref|.
     """
@@ -142,6 +180,7 @@ def kernel_checks(dev, gen):
     """Phase 2: each kernel vs its plain twin at the flagship shapes."""
     import numpy as np
     import torch
+    import torch.nn.functional as F
 
     from vs_seg_tpu_torch.infer.sliding_window import (
         dense_patch_starts, gaussian_importance_map)
@@ -185,6 +224,14 @@ def kernel_checks(dev, gen):
                  conv333.conv333_plain(x, w, s, h, a), KERNEL_TOL)
     k_ms = cuda_ms(lambda: conv333.conv333(x, w, s, h, a))
     p_ms = cuda_ms(lambda: conv333.conv333_plain(x, w, s, h, a))
+    # the library yardstick: one cuDNN conv (+ bias) on the same input
+    wt = w.to(torch.bfloat16).permute(4, 3, 2, 0, 1).contiguous()
+    hb = h.to(torch.bfloat16)
+    lib_ms = cuda_ms(lambda: F.conv3d(x.permute(0, 4, 1, 2, 3), wt, hb,
+                                      padding=1))
+    vox = x[..., 0].numel()
+    c_bound = bound(nbytes(x, w, s, h, a) + vox * 48 * 2,
+                    2 * 27 * 32 * 48 * vox)
     # pair input + fused pair residual, at up_2 unit0 (48+48 -> 48)
     ga, gb = randn(B, 64, 96, 96, 48), randn(B, 64, 96, 96, 48)
     w = weight((3, 3, 3), 96, 48)
@@ -194,7 +241,8 @@ def kernel_checks(dev, gen):
                  conv333.conv333_plain((ga, gb), w, s, h, a, residual=res),
                  KERNEL_TOL)
     rec["conv333"] = dict(max_abs_err=max(e1, e2), ms=k_ms, plain_ms=p_ms,
-                          shape="down_2 unit0 (8,64,96,96,32)->48")
+                          shape="down_2 unit0 (8,64,96,96,32)->48",
+                          library_ms=lib_ms, bound=c_bound)
 
     # attgate at up_2 (C = 48)
     a1 = randn(B, 64, 96, 96, 48).abs()
@@ -206,7 +254,10 @@ def kernel_checks(dev, gen):
     rec["attgate"] = dict(
         max_abs_err=e, shape="up_2 (8,64,96,96,48)",
         ms=cuda_ms(lambda: l2block.attgate(a1, w2, b2, ga, gb)),
-        plain_ms=cuda_ms(lambda: l2block.attgate_plain(a1, w2, b2, ga, gb)))
+        plain_ms=cuda_ms(lambda: l2block.attgate_plain(a1, w2, b2, ga, gb)),
+        library_ms=None,
+        bound=bound(nbytes(a1, ga, gb, w2, b2, *got),
+                    f32_flop=(2 * 27 + 4) * 48 * vox))
     del a1
 
     # ru_block at down_2 (32 -> 48, 64x96x96) and down_3 (48 -> 64, 32x48x48)
@@ -222,7 +273,13 @@ def kernel_checks(dev, gen):
             rec["ru_block"] = dict(
                 shape=f"down_2 {shape}x{cin}->{cout}",
                 ms=cuda_ms(lambda: rublock.ru_block(xr, **kw)),
-                plain_ms=cuda_ms(lambda: rublock.ru_block_plain(xr, **kw)))
+                plain_ms=cuda_ms(lambda: rublock.ru_block_plain(xr, **kw)),
+                library_ms=None,
+                bound=bound(nbytes(xr, *kw.values())
+                            + xr[..., 0].numel() * cout * 2,
+                            2 * xr[..., 0].numel() * (
+                                27 * cin * cout + 27 * cout * cout
+                                + cin * cout)))
     rec["ru_block"]["max_abs_err"] = max(errs)
 
     # l2_block at up_2 (C = 48, 64x96x96) and up_3 (C = 64, 32x48x48)
@@ -240,7 +297,12 @@ def kernel_checks(dev, gen):
             rec["l2_block"] = dict(
                 shape=f"up_2 {shape}x{c}x2",
                 ms=cuda_ms(lambda: l2block.l2_block(xa, xb, **kw)),
-                plain_ms=cuda_ms(lambda: l2block.l2_block_plain(xa, xb, **kw)))
+                plain_ms=cuda_ms(lambda: l2block.l2_block_plain(xa, xb, **kw)),
+                library_ms=None,
+                bound=bound(nbytes(xa, xb, *kw.values(), *got),
+                            2 * xa[..., 0].numel() * (2 * 27 * 2 * c * c
+                                                      + 2 * c * c),
+                            (2 * 27 + 4) * c * xa[..., 0].numel()))
     rec["l2_block"]["max_abs_err"] = max(errs)
     del xa, xb, ga, gb, x
 
@@ -268,18 +330,32 @@ def kernel_checks(dev, gen):
         ms=cuda_ms(lambda: blend.blend_scatter(oa, wa, preds, starts, mask,
                                                imp)),
         plain_ms=cuda_ms(lambda: blend.blend_scatter_plain(
-            oa, wa, preds, starts, mask, imp)))
+            oa, wa, preds, starts, mask, imp)),
+        library_ms=None,
+        # the accumulators are read and written; per window voxel and
+        # channel a multiply-add, per voxel the weight and its sum
+        bound=bound(nbytes(preds, imp) + 2 * nbytes(out0, w0),
+                    f32_flop=preds[..., 0].numel() * (2 * 2 + 2)))
     torch.cuda.synchronize()
     return rec
 
 
 def _wrappers():
-    from vs_seg_tpu_torch.ops import (blend, conv333, conv333_dw, l2block,
-                                      rublock)
+    from vs_seg_tpu_torch.ops import (att, blend, block2d, conv333,
+                                      conv333_dw, l2block, rublock, tail2d)
     return {"conv333": conv333.conv333, "attgate": l2block.attgate,
             "ru_block": rublock.ru_block, "l2_block": l2block.l2_block,
             "blend_scatter": blend.blend_scatter,
-            "conv333_dw": conv333_dw.conv333_dw}
+            "conv333_dw": conv333_dw.conv333_dw,
+            "ru_block2d": block2d.ru_block2d,
+            "l2_block2d": block2d.l2_block2d,
+            "tail_block": tail2d.tail_block,
+            "fused_attention_gate": att.fused_attention_gate}
+
+
+# launches of the routed kd = 1 kernels in a run that takes no kd = 1 route
+NO_KD1 = {"ru_block2d": 0, "l2_block2d": 0, "tail_block": 0,
+          "fused_attention_gate": 0}
 
 
 def reset_counts():
@@ -328,7 +404,8 @@ def model_run(dev, gen, card: str):
     # the model's own sites: 4 encoder units (down_2, down_3, down_4,
     # bottom), 3 decoder levels (up_2, up_3, up_4), 1 window batch
     expect = {"ru_block": 4, "l2_block": 3, "attgate": 3,
-              "conv333": EVAL_CONV333, "blend_scatter": 1, "conv333_dw": 0}
+              "conv333": EVAL_CONV333, "blend_scatter": 1, "conv333_dw": 0,
+              **NO_KD1}
 
     def run(use_kernels: bool):
         pred = make_predictor(model, torch.bfloat16, use_kernels=use_kernels)
@@ -372,7 +449,7 @@ def model_run(dev, gen, card: str):
     log(f"plain path: {p_ms:.1f} ms/volume {times[False]} on {card}")
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
         f"GiB on {card}")
-    return counts
+    return counts, model, staged, ko
 
 
 def train_kernel_checks(dev, gen, card: str):
@@ -404,9 +481,15 @@ def train_kernel_checks(dev, gen, card: str):
             flop = 2 * 27 * cin * cout * x[..., 0].numel()
             log(f"  {tag}: {flop / 1e9:.1f} GFLOP, kernel {ms!r} ms = "
                 f"{flop / ms / 1e9!r} TFLOP/s on {card}")
+            # the library yardstick: cuDNN's wgrad on the same bf16 input
+            lib_ms = cuda_ms(lambda: torch.nn.grad.conv3d_weight(
+                x.permute(0, 4, 1, 2, 3), (cout, cin, 3, 3, 3),
+                dy.permute(0, 4, 1, 2, 3), padding=1))
             rec["conv333_dw"] = dict(
                 shape=tag, ms=ms,
-                plain_ms=cuda_ms(lambda: dwm.conv333_dw_plain(x, dy)))
+                plain_ms=cuda_ms(lambda: dwm.conv333_dw_plain(x, dy)),
+                library_ms=lib_ms,
+                bound=bound(nbytes(x, dy, dw, db), flop))
     rec["conv333_dw"]["max_abs_err"] = max(errs)
     log("  conv333_dw: bit-equal over two runs at all three shapes")
 
@@ -547,8 +630,8 @@ def train_run(dev, card: str):
     check_counts(counts, {
         "conv333_dw": TRAIN_SITES * TRAIN_STEPS,
         "conv333": TRAIN_SITES * TRAIN_STEPS + EVAL_CONV333,
-        "ru_block": 4, "l2_block": 3, "attgate": 3, "blend_scatter": 0},
-        "training")
+        "ru_block": 4, "l2_block": 3, "attgate": 3, "blend_scatter": 0,
+        **NO_KD1}, "training")
 
     # ms/step and peak memory, device-resident batch, turns plain, kernel,
     # kernel, plain
@@ -601,6 +684,264 @@ def train_run(dev, card: str):
     return counts
 
 
+def kd1_kernel_checks(dev, gen, card: str):
+    """Phase 7: the kd = 1 route kernels vs their plain twins at the
+    flagship shapes of one 8-window batch."""
+    import numpy as np
+    import torch
+
+    from vs_seg_tpu_torch.ops import att, block2d, tail2d
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen).to(dev, torch.bfloat16)
+
+    def weight(k, cin, cout):
+        b = 1.0 / np.sqrt(cin * int(np.prod(k)))
+        return ((torch.rand((*k, cin, cout), generator=gen) * 2 - 1) * b
+                ).to(dev)
+
+    def vec(c, lo, hi):
+        return (torch.rand(c, generator=gen) * (hi - lo) + lo).to(dev)
+
+    def unit0(cin, cout, head):
+        kw = dict(w0=weight((3, 3, 1), cin, cout),
+                  wr=weight((1, 1, 1), cin, cout), br=vec(cout, -.2, .2))
+        if head:      # the conv-only logit head: scale 1, identity act
+            kw.update(bn_scale=None, bn_shift=vec(cout, -.2, .2), alpha=None)
+        else:
+            kw.update(bn_scale=vec(cout, .5, 1.5),
+                      bn_shift=vec(cout, -.2, .2), alpha=vec(1, .1, .3))
+        return kw
+
+    def check(name, fn, plain, args, kw, work, record):
+        """Compare every output; time both when `record`; returns the
+        record (or None) and the max error."""
+        got, ref = fn(*args, **kw), plain(*args, **kw)
+        got = got if isinstance(got, tuple) else (got,)
+        ref = ref if isinstance(ref, tuple) else (ref,)
+        err = 0.0
+        for i, (g, r) in enumerate(zip(got, ref)):
+            if g is None and r is None:
+                continue
+            if isinstance(g, tuple):
+                for j, (gj, rj) in enumerate(zip(g, r)):
+                    err = max(err, compare(f"{name} out{i}.{j}", gj, rj,
+                                           KERNEL_TOL))
+            else:
+                err = max(err, compare(f"{name} out{i}", g, r, KERNEL_TOL))
+        if not record:
+            return None, err
+        outs = [t for g in got for t in (g if isinstance(g, tuple) else (g,))]
+        ins = [t for a in args for t in (a if isinstance(a, (tuple, list))
+                                         else (a,))]
+        b = bound(nbytes(*ins, *[v for v in kw.values()
+                                 if isinstance(v, torch.Tensor)], *outs),
+                  *work)
+        rec = dict(shape=name, ms=cuda_ms(lambda: fn(*args, **kw)),
+                   plain_ms=cuda_ms(lambda: plain(*args, **kw)),
+                   library_ms=None, bound=b)
+        log(f"  {name}: kernel {rec['ms']!r} ms, plain {rec['plain_ms']!r} "
+            f"ms, bound {b[0]!r} ms ({b[1]}) on {card}")
+        return rec, err
+
+    # one window batch, D-first: level 0 (8,64,384,384), level 1 (8,64,192,
+    # 192), level 2 (8,64,96,96)
+    B, (h, w, d) = SW_BATCH, ROI
+    L0, L1, L2 = (B, d, h, w), (B, d, h // 2, w // 2), (B, d, h // 4, w // 4)
+    v0, v1 = int(np.prod(L0)), int(np.prod(L1))
+    rec, errs = {}, {}
+
+    def keep(key, r_e):
+        r, e = r_e
+        errs[key] = max(errs.get(key, 0.0), e)
+        if r is not None:
+            rec[key] = r
+        torch.cuda.synchronize()
+
+    # ru_block2d at down_0 (1 -> 16) and down_1 (16 -> 32)
+    for site, shape, cin, cout in (("down_0", L0, 1, 16),
+                                   ("down_1", L1, 16, 32)):
+        x = randn(*shape, cin)
+        kw = dict(w0=weight((3, 3, 1), cin, cout),
+                  bn0_scale=vec(cout, .5, 1.5), bn0_shift=vec(cout, -.2, .2),
+                  alpha0=vec(1, .1, .3), w1=weight((3, 3, 1), cout, cout),
+                  bn1_scale=vec(cout, .5, 1.5), bn1_shift=vec(cout, -.2, .2),
+                  alpha1=vec(1, .1, .3), wr=weight((1, 1, 1), cin, cout),
+                  br=vec(cout, -.2, .2))
+        vox = x[..., 0].numel()
+        keep("ru_block2d", check(
+            f"ru_block2d {site} {shape}x{cin}->{cout}", block2d.ru_block2d,
+            block2d.ru_block2d_plain, (x,), kw,
+            (2 * vox * (9 * cin * cout + 9 * cout * cout + cin * cout),),
+            site == "down_0"))
+        del x
+
+    # l2_block2d at up_1 (32||32 -> 32) and the up_0 head (16||16 -> 2);
+    # tail_block at the same sites, given a1
+    for site, shape, c, cout in (("up_1", L1, 32, 32), ("up_0", L0, 16, 2)):
+        head = site == "up_0"
+        vox = v1 if site == "up_1" else v0
+        xa, xb = randn(*shape, c), randn(*shape, c)
+        kw = dict(unit0(2 * c, cout, head), w1=weight((3, 3, 1), 2 * c, c),
+                  b1=vec(c, -.2, .2), w2=weight((3, 3, 1), c, 1),
+                  b2=vec(1, -.2, .2))
+        conv_mac = 9 * 2 * c * cout + 2 * c * cout
+        keep("l2_block2d", check(
+            f"l2_block2d {site} {shape}x{c}x2->{cout}", block2d.l2_block2d,
+            block2d.l2_block2d_plain, (xa, xb), kw,
+            (2 * vox * (9 * 2 * c * c + conv_mac), (2 * 9 + 4) * c * vox),
+            head))
+        a1 = randn(*shape, c).relu()
+        tkw = {k: v for k, v in kw.items() if k not in ("w1", "b1")}
+        keep("tail_block", check(
+            f"tail_block {site} {shape}x{c}x2->{cout}", tail2d.tail_block,
+            tail2d.tail_block_plain, (a1, xa, xb), tkw,
+            (2 * vox * conv_mac, (2 * 9 + 4) * c * vox), not head))
+        del xa, xb, a1
+
+    # fused_attention_gate, kd 1 at upatt_0 (Cm 16) and upatt_1 (Cm 32),
+    # kd 3 at the upatt_2 shape (Cm 48)
+    for site, shape, cm, kd in (("upatt_0", L0, 16, 1),
+                                ("upatt_1", L1, 32, 1),
+                                ("upatt_2", L2, 48, 3)):
+        a1 = randn(*shape, cm).relu()
+        xs = (randn(*shape, cm), randn(*shape, cm))
+        w2, b2 = weight((3, 3, kd), cm, 1), vec(1, -.2, .2)
+        vox = a1[..., 0].numel()
+        keep("fused_attention_gate", check(
+            f"fused_attention_gate kd{kd} {site} {shape}x{cm}",
+            att.fused_attention_gate, att.fused_attention_gate_plain,
+            (a1, xs, w2, b2), {}, (0.0, (2 * 9 * kd + 4) * cm * vox),
+            site == "upatt_0"))
+        del a1, xs
+    for k in rec:
+        rec[k]["max_abs_err"] = errs[k]
+    return rec
+
+
+def level_times(model, x, routes):
+    """ms of each level of one forward of `x`: CUDA events at every top-level
+    module's entry and exit; the time between two events goes to the level
+    of the earlier one, so a routed decoder block (run between upsample_i
+    and the next module) counts to level i."""
+    import torch
+
+    marks = []
+
+    def level(name):
+        return "bottom" if name.startswith("bottom") else (
+            "level " + name.rsplit("_", 1)[1])
+
+    def mark(lv):
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        marks.append((e, lv))
+
+    hooks = []
+    for name, m in model.named_children():
+        lv = level(name)
+        hooks.append(m.register_forward_pre_hook(
+            lambda mod, args, lv=lv: mark(lv)))
+        hooks.append(m.register_forward_hook(
+            lambda mod, args, out, lv=lv: mark(lv)))
+    try:
+        with torch.no_grad():
+            model(x, routes=routes)
+            mark(None)
+            torch.cuda.synchronize()
+    finally:
+        for h in hooks:
+            h.remove()
+    out = {}
+    for (e0, lv), (e1, _) in zip(marks, marks[1:]):
+        out[lv] = out.get(lv, 0.0) + e0.elapsed_time(e1)
+    return out
+
+
+def routes_run(dev, gen, card: str, model, staged, default_logits):
+    """Phase 8: the phase-3 volume under route configurations A and B."""
+    import torch
+
+    from vs_seg_tpu_torch.core.config import Routes
+    from vs_seg_tpu_torch.infer.engine import make_predictor
+    from vs_seg_tpu_torch.infer.sliding_window import sliding_window_inference
+
+    base = {"ru_block": 4, "l2_block": 3, "blend_scatter": 1,
+            "conv333_dw": 0}
+    configs = {
+        # ru_block2d x 2 (2 conv333 each), tail_block at up_1 (1 attgate +
+        # 1 conv333), l2_block2d at the up_0 head (1 attgate + 2 conv333)
+        "A": (Routes(rublock2d=True, l2block2d=True, tail2d1=True),
+              dict(base, ru_block2d=2, l2_block2d=1, tail_block=1,
+                   fused_attention_gate=0, attgate=3 + 1 + 1,
+                   conv333=EVAL_CONV333 + 2 * 2 + 1 + 2)),
+        # upatt_0 and upatt_1
+        "B": (Routes(att_fuse=True),
+              dict(base, ru_block2d=0, l2_block2d=0, tail_block=0,
+                   fused_attention_gate=2, attgate=3,
+                   conv333=EVAL_CONV333)),
+    }
+    total = {}
+    for name, (routes, expect) in configs.items():
+        log(f"  configuration {name}: {routes}")
+
+        def run(use_kernels: bool):
+            pred = make_predictor(model, torch.bfloat16,
+                                  use_kernels=use_kernels, routes=routes)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = sliding_window_inference(
+                staged, ROI, pred, overlap=0.25, sw_batch_size=SW_BATCH,
+                use_kernels=use_kernels)
+            torch.cuda.synchronize()
+            return out, (time.perf_counter() - t) * 1e3
+
+        run(True)      # warm-up
+        run(False)
+        times = {True: [], False: []}
+        counts, outs = None, {}
+        for use_kernels in (False, True, True, False):
+            if use_kernels and counts is None:
+                reset_counts()
+                outs[True], ms = run(True)
+                counts = read_counts()
+            else:
+                outs[use_kernels], ms = run(use_kernels)
+            times[use_kernels].append(ms)
+        check_counts(counts, expect, f"configuration {name} inference")
+        ko, po = outs[True], outs[False]
+        if tuple(ko.shape) != (*VOLUME, 2) or not torch.isfinite(ko).all() \
+                or not torch.isfinite(po).all():
+            raise AssertionError(f"configuration {name}: bad logits")
+        for what, ref in (("its plain path", po),
+                          ("the default kernel path", default_logits)):
+            compare(f"configuration {name} logits vs {what}", ko, ref,
+                    LOGIT_TOL)
+            agree = float((ko.argmax(-1) == ref.argmax(-1)).float().mean())
+            log(f"  argmax agreement with {what} {agree!r} "
+                f"(min {ARGMAX_MIN})")
+            if agree < ARGMAX_MIN:
+                raise AssertionError(f"configuration {name}: argmax "
+                                     f"agreement {agree} < {ARGMAX_MIN}")
+        for use_kernels in (True, False):
+            ts = times[use_kernels]
+            log(f"configuration {name}, "
+                f"{'kernel' if use_kernels else 'plain'} path: "
+                f"{sum(ts) / len(ts):.1f} ms/volume {ts} on {card}")
+        total = {k: total.get(k, 0) + n for k, n in counts.items()}
+        del ko, po, outs
+
+    # per-level split of one 8-window forward, default routes vs A
+    x = torch.randn((SW_BATCH, ROI[2], ROI[0], ROI[1], 1),
+                    generator=gen).to(dev, torch.bfloat16)
+    for name, routes in (("default", Routes()), ("A", configs["A"][0])):
+        level_times(model, x, routes)       # warm-up
+        lv = level_times(model, x, routes)
+        log(f"  per-level ms of one 8-window forward, routes {name}: "
+            f"{lv} (sum {sum(lv.values())!r}) on {card}")
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -637,17 +978,29 @@ def main() -> int:
     log("phase 2: kernels vs plain twins at flagship shapes")
     rec = kernel_checks(dev, gen)
     log("phase 3: flagship whole-volume inference")
-    infer_counts = model_run(dev, gen, card)
+    infer_counts, model, staged, default_logits = model_run(dev, gen, card)
     log("phase 5: training kernels vs plain twins")
     rec.update(train_kernel_checks(dev, gen, card))
-    for k, r in rec.items():
-        log(f"  {k} [{r['shape']}]: kernel {r['ms']:.3f} ms, plain "
-            f"{r['plain_ms']:.3f} ms on {card}")
     log("phase 6: flagship training at full width")
     train_counts = train_run(dev, card)
-    counts = {k: infer_counts[k] + train_counts[k] for k in infer_counts}
+    log("phase 7: kd = 1 route kernels vs plain twins at flagship shapes")
+    rec.update(kd1_kernel_checks(dev, gen, card))
+    log("phase 8: flagship whole-volume inference under route "
+        "configurations A and B")
+    route_counts = routes_run(dev, gen, card, model, staged, default_logits)
+    del model, staged, default_logits
+    counts = {k: infer_counts[k] + train_counts[k] + route_counts[k]
+              for k in infer_counts}
+    for k, r in rec.items():
+        lib = "-" if r["library_ms"] is None else f"{r['library_ms']:.3f}"
+        ms, by, moved, f16, f32 = r["bound"]
+        log(f"  {k} [{r['shape']}]: kernel {r['ms']:.3f} ms, plain "
+            f"{r['plain_ms']:.3f} ms, library {lib} ms, bound {ms:.3f} ms "
+            f"({by}: {moved / 1e9:.3f} GB, {f16 / 1e9:.1f} GFLOP bf16, "
+            f"{f32 / 1e9:.1f} GFLOP f32) on {card}")
 
     pkg = "vs_seg_tpu_torch/ops/"
+    exp = "vs_seg_tpu/ops/experimental/"
     meta = {
         "conv333": ("csrc/conv333.cu", "vs_seg_tpu/ops/pallas_conv333.py:208"),
         "attgate": ("csrc/attgate.cu", "vs_seg_tpu/ops/pallas_l2block.py:271"),
@@ -655,13 +1008,20 @@ def main() -> int:
         "l2_block": ("l2block.py", "vs_seg_tpu/ops/pallas_l2block.py:391"),
         "blend_scatter": ("csrc/blend.cu",
                           "vs_seg_tpu/ops/pallas_blend.py:107"),
-        "conv333_dw": ("csrc/conv333_dw.cu",
-                       "vs_seg_tpu/ops/experimental/pallas_train.py:113"),
+        "conv333_dw": ("csrc/conv333_dw.cu", exp + "pallas_train.py:113"),
+        "ru_block2d": ("block2d.py", exp + "pallas_block2d.py:180"),
+        "l2_block2d": ("block2d.py", exp + "pallas_block2d.py:226"),
+        "tail_block": ("tail2d.py", exp + "pallas_tail2d.py:239"),
+        "fused_attention_gate": ("att.py", exp + "pallas_att.py:146"),
     }
     kernels = [{"name": k, "route": "cuda", "source": pkg + meta[k][0],
                 "replaces": meta[k][1], "launches": counts[k],
                 "max_abs_err": rec[k]["max_abs_err"], "ms": rec[k]["ms"],
-                "plain_ms": rec[k]["plain_ms"]} for k in meta]
+                "plain_ms": rec[k]["plain_ms"],
+                "bound_ms": rec[k]["bound"][0],
+                "bound_by": rec[k]["bound"][1],
+                "library_ms": rec[k]["library_ms"]} for k in meta]
+    log(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

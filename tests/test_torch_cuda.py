@@ -19,8 +19,8 @@ import numpy as np
 import pytest
 import torch
 
-from vs_seg_tpu_torch.ops import (blend, conv333, conv333_dw, l2block,
-                                  rublock, train_conv)
+from vs_seg_tpu_torch.ops import (att, blend, block2d, conv333, conv333_dw,
+                                  l2block, rublock, tail2d, train_conv)
 
 TOL = 2e-2
 DW_TOL = 1e-4
@@ -177,3 +177,88 @@ def test_conv333_train_backward_matches_plain_autograd(dev):
     assert got[1].dtype == torch.float32 and got[2].dtype == torch.float32
     for gk, gp in zip(got, ref):
         _check(gk, gp)
+
+
+@pytest.mark.parametrize("shape,cins,cout,res", [
+    ((2, 3, 9, 13), (1,), 16, False),         # Cin = 1 (down_0 unit0)
+    ((1, 2, 12, 20), (8, 8), 2, True),        # pair + residual, Cout = 2
+])
+def test_conv333_kd1_kernel_matches_plain(dev, shape, cins, cout, res):
+    g = _g()
+    xs = tuple(_x(g, dev, *shape, c) for c in cins)
+    x = xs if len(xs) > 1 else xs[0]
+    w = _w(g, dev, (3, 3, 1), sum(cins), cout)
+    args = (w, _v(g, dev, cout, .5, 1.5), _v(g, dev, cout, -.2, .2),
+            _v(g, dev, 1, .1, .3))
+    residual = ((x, _w(g, dev, (1, 1, 1), sum(cins), cout),
+                 _v(g, dev, cout, -.2, .2)) if res else None)
+    _check(conv333.conv333(x, *args, residual=residual),
+           conv333.conv333_plain(x, *args, residual=residual))
+
+
+def _l2d(g, dev, c, cout, head):
+    kw = dict(w2=_w(g, dev, (3, 3, 1), c, 1), b2=_v(g, dev, 1, -.2, .2),
+              w0=_w(g, dev, (3, 3, 1), 2 * c, cout),
+              wr=_w(g, dev, (1, 1, 1), 2 * c, cout),
+              br=_v(g, dev, cout, -.2, .2))
+    if head:
+        kw.update(bn_scale=None, bn_shift=_v(g, dev, cout, -.2, .2),
+                  alpha=None)
+    else:
+        kw.update(bn_scale=_v(g, dev, cout, .5, 1.5),
+                  bn_shift=_v(g, dev, cout, -.2, .2),
+                  alpha=_v(g, dev, 1, .1, .3))
+    return kw
+
+
+@pytest.mark.parametrize("c,cout,head", [(12, 12, False), (8, 2, True)])
+def test_block2d_and_tail_kernels_match_plain(dev, c, cout, head):
+    g = _g()
+    x = _x(g, dev, 2, 3, 10, 13, 5)
+    kw = dict(w0=_w(g, dev, (3, 3, 1), 5, c),
+              bn0_scale=_v(g, dev, c, .5, 1.5),
+              bn0_shift=_v(g, dev, c, -.2, .2), alpha0=_v(g, dev, 1, .1, .3),
+              w1=_w(g, dev, (3, 3, 1), c, c),
+              bn1_scale=_v(g, dev, c, .5, 1.5),
+              bn1_shift=_v(g, dev, c, -.2, .2), alpha1=_v(g, dev, 1, .1, .3),
+              wr=_w(g, dev, (1, 1, 1), 5, c), br=_v(g, dev, c, -.2, .2))
+    n0 = block2d.ru_block2d.launches
+    _check(block2d.ru_block2d(x, **kw), block2d.ru_block2d_plain(x, **kw))
+    assert block2d.ru_block2d.launches == n0 + 1
+    xa, xb = _x(g, dev, 1, 3, 10, 13, c), _x(g, dev, 1, 3, 10, 13, c)
+    kw = _l2d(g, dev, c, cout, head)
+    l2 = dict(kw, w1=_w(g, dev, (3, 3, 1), 2 * c, c),
+              b1=_v(g, dev, c, -.2, .2))
+    for got, ref in zip(block2d.l2_block2d(xa, xb, **l2),
+                        block2d.l2_block2d_plain(xa, xb, **l2)):
+        _check(got, ref)
+    a1 = _x(g, dev, 1, 3, 10, 13, c).abs()
+    n0 = tail2d.tail_block.launches
+    for got, ref in zip(tail2d.tail_block(a1, xa, xb, **kw),
+                        tail2d.tail_block_plain(a1, xa, xb, **kw)):
+        _check(got, ref)
+    assert tail2d.tail_block.launches == n0 + 1
+
+
+@pytest.mark.parametrize("kd,cm,cx,n_x,att_out", [
+    (1, 5, 5, 2, "compact"),        # nothing aligned
+    (3, 8, 8, 1, "compact"),        # one gated input, depth taps
+    (1, 8, 16, 2, "none"),          # gated inputs wider than a1
+])
+def test_fused_attention_gate_kernel_matches_plain(dev, kd, cm, cx, n_x,
+                                                   att_out):
+    g = _g()
+    a1 = _x(g, dev, 2, 3, 7, 9, cm).abs()
+    xs = [_x(g, dev, 2, 3, 7, 9, cx) for _ in range(n_x)]
+    w2, b2 = _w(g, dev, (3, 3, kd), cm, 1), _v(g, dev, 1, -.2, .2)
+    n0 = att.fused_attention_gate.launches
+    got = att.fused_attention_gate(a1, xs, w2, b2, att_out=att_out)
+    ref = att.fused_attention_gate_plain(a1, xs, w2, b2, att_out=att_out)
+    assert att.fused_attention_gate.launches == n0 + 1
+    if att_out == "none":
+        assert got[0] is None and ref[0] is None
+    else:
+        _check(got[0], ref[0])
+    assert len(got[1]) == n_x
+    for o, r in zip(got[1], ref[1]):
+        _check(o, r)

@@ -24,7 +24,8 @@ from vs_seg_tpu.ops.pallas_conv333 import can_conv333
 from vs_seg_tpu.ops.pallas_conv333 import conv333 as jconv333
 from vs_seg_tpu.ops.pallas_l2block import can_l2_block, l2_block as jl2
 from vs_seg_tpu.ops.pallas_rublock import can_ru_block, ru_block as jru
-from vs_seg_tpu_torch.ops import blend, conv333, l2block, rublock
+from vs_seg_tpu_torch.ops import (att, blend, block2d, conv333, l2block,
+                                  rublock, tail2d)
 
 
 def _rel_err(got, ref):
@@ -219,13 +220,19 @@ def test_blend_matches_pallas_and_xla(oc, preds_dtype):
 
 
 @pytest.mark.parametrize("name", ["conv333", "attgate", "ru_block",
-                                  "l2_block", "blend_scatter"])
+                                  "l2_block", "blend_scatter", "ru_block2d",
+                                  "l2_block2d", "tail_block",
+                                  "fused_attention_gate"])
 def test_wrappers_refuse_other_devices(name):
     """A wrapper runs its plain twin only for CPU tensors; for any other
     device that is not CUDA it raises instead of falling back."""
     x = torch.zeros((1, 1, 8, 16, 16), device="meta")
     w = torch.zeros((3, 3, 3, 16, 16))
+    w1 = torch.zeros((3, 3, 1, 16, 16))
     v = torch.zeros(16)
+    l2d = dict(w2=torch.zeros(3, 3, 1, 16, 1), b2=v[:1],
+               w0=torch.zeros(3, 3, 1, 32, 16), bn_scale=v, bn_shift=v,
+               alpha=v[:1], wr=torch.zeros(1, 1, 1, 32, 16), br=v)
     calls = {
         "conv333": lambda: conv333.conv333(x, w),
         "attgate": lambda: l2block.attgate(x, torch.zeros(3, 3, 3, 16, 1),
@@ -244,6 +251,15 @@ def test_wrappers_refuse_other_devices(name):
             torch.zeros((4, 4, 4, 1), device="meta"),
             torch.zeros((1, 2, 2, 2, 2), device="meta"), np.zeros((1, 3)),
             np.ones(1), torch.zeros((2, 2, 2), device="meta")),
+        "ru_block2d": lambda: block2d.ru_block2d(
+            x, w0=w1, bn0_scale=v, bn0_shift=v, alpha0=v[:1], w1=w1,
+            bn1_scale=v, bn1_shift=v, alpha1=v[:1],
+            wr=torch.zeros(1, 1, 1, 16, 16), br=v),
+        "l2_block2d": lambda: block2d.l2_block2d(
+            x, x, w1=torch.zeros(3, 3, 1, 32, 16), b1=v, **l2d),
+        "tail_block": lambda: tail2d.tail_block(x, x, x, **l2d),
+        "fused_attention_gate": lambda: att.fused_attention_gate(
+            x, (x, x), torch.zeros(3, 3, 1, 16, 1), v[:1]),
     }
     with pytest.raises(ValueError, match="unsupported device"):
         calls[name]()
@@ -251,9 +267,23 @@ def test_wrappers_refuse_other_devices(name):
 
 def test_no_kernel_launch_on_cpu():
     """The CPU route never counts a launch: counts are CUDA launches only."""
-    before = (conv333.conv333.launches, rublock.ru_block.launches)
+    fns = (conv333.conv333, rublock.ru_block, l2block.attgate,
+           block2d.ru_block2d, block2d.l2_block2d, tail2d.tail_block,
+           att.fused_attention_gate)
+    before = [f.launches for f in fns]
     rng = np.random.default_rng(6)
     x = T(rng.normal(size=(1, 2, 8, 16, 12)).astype(np.float32))
     p = {k: T(v) for k, v in _ru_params(rng, 12, 16).items()}
     rublock.ru_block(x, **p)
-    assert (conv333.conv333.launches, rublock.ru_block.launches) == before
+    p2d = {k: v[:, :, 1:2] if k in ("w0", "w1") else v for k, v in p.items()}
+    block2d.ru_block2d(x, **p2d)
+    xa = T(rng.normal(size=(1, 2, 8, 16, 8)).astype(np.float32))
+    tail = dict(w2=T(_w(rng, (3, 3, 1), 8, 1)), b2=T(_v(rng, 1, -.3, .3)),
+                w0=T(_w(rng, (3, 3, 1), 16, 2)), bn_scale=None,
+                bn_shift=T(_v(rng, 2, -.3, .3)), alpha=None,
+                wr=T(_w(rng, (1, 1, 1), 16, 2)), br=T(_v(rng, 2, -.3, .3)))
+    block2d.l2_block2d(xa, xa, w1=T(_w(rng, (3, 3, 1), 16, 8)),
+                       b1=T(_v(rng, 8, -.3, .3)), **tail)
+    tail2d.tail_block(xa, xa, xa, **tail)
+    att.fused_attention_gate(xa, (xa, xa), tail["w2"], tail["b2"])
+    assert [f.launches for f in fns] == before

@@ -78,7 +78,8 @@ def test_conv3d_matches_jax(k, pair):
     jm = jlayers.Conv3d(6, k, dtype=jnp.float32)
     v, xs = _init(jm, x)
     ref = jm.apply(v, xs)
-    tm = tlayers.Conv3d(8 if pair else 3, 6, k, dtype=torch.float32)
+    tm = tlayers.Conv3d(8 if pair else 3, 6, k, dtype=torch.float32,
+                        device="cpu")
     load_jax_variables(tm, v)
     _close(tm(_torch(x)), ref)
 
@@ -90,7 +91,8 @@ def test_conv_transpose3d_matches_jax(k, s):
     jm = jlayers.ConvTranspose3d(3, k, s, dtype=jnp.float32)
     v, xs = _init(jm, x)
     ref = jm.apply(v, xs)
-    tm = tlayers.ConvTranspose3d(4, 3, k, s, dtype=torch.float32)
+    tm = tlayers.ConvTranspose3d(4, 3, k, s, dtype=torch.float32,
+                                 device="cpu")
     load_jax_variables(tm, v)
     out = tm(_torch(x))
     # output = input * stride in every dim (strides given in (H, W, D))
@@ -109,7 +111,7 @@ def test_convolution_matches_jax(act, norm, conv_only):
     ref = jm.apply(v, xs, train=False)
     tm = tblocks.Convolution(5, 7, (3, 3, 3), act=act, norm=norm,
                              dropout=0.1, conv_only=conv_only,
-                             dtype=torch.float32)
+                             dtype=torch.float32, device="cpu")
     load_jax_variables(tm, v)
     _close(tm(_torch(x)), ref)
 
@@ -121,7 +123,7 @@ def test_transposed_convolution_matches_jax():
     v, xs = _init(jm, x, train=False)
     ref = jm.apply(v, xs, train=False)
     tm = tblocks.Convolution(6, 3, (3, 3, 3), (2, 2, 2), is_transposed=True,
-                             dtype=torch.float32)
+                             dtype=torch.float32, device="cpu")
     load_jax_variables(tm, v)
     _close(tm(_torch(x)), ref)
 
@@ -152,7 +154,7 @@ def test_residual_unit_matches_jax(case):
     ref = jm.apply(v, xs, train=False)
     tm = tblocks.ResidualUnit(cin, feats, k, s, subunits=subunits,
                               dropout=0.1, last_conv_only=last,
-                              dtype=torch.float32)
+                              dtype=torch.float32, device="cpu")
     load_jax_variables(tm, v)
     assert tm._headfold() == last
     assert tm._rublock(isinstance(x, tuple)) == (case == "k333_rublock_site")
@@ -167,7 +169,8 @@ def test_attention_block_and_gate_match_jax(pair, k):
     jm = jblocks.AttentionBlock1(k, dtype=jnp.float32)
     v, xs = _init(jm, x, train=False, gate=True)
     ref_att, ref_g = jm.apply(v, xs, train=False, gate=True)
-    tm = tblocks.AttentionBlock1(8 if pair else 6, k, dtype=torch.float32)
+    tm = tblocks.AttentionBlock1(8 if pair else 6, k, dtype=torch.float32,
+                                 device="cpu")
     load_jax_variables(tm, v)
     att, g = tm(_torch(x), gate=True)
     _close(att, ref_att)
@@ -183,7 +186,7 @@ def test_batchnorm_fold_matches_jax():
     v = _randomise_stats(jm.init({"params": jax.random.key(0)}, None, False,
                                  fold=True))
     inv, shift = jm.apply(v, None, False, fold=True)
-    tm = tlayers.BatchNorm(5)
+    tm = tlayers.BatchNorm(5, device="cpu")
     load_jax_variables(tm, v)
     t_inv, t_shift = tm.fold()
     _close(t_inv, inv, 1e-6)
@@ -193,11 +196,11 @@ def test_batchnorm_fold_matches_jax():
 def test_same_padding_and_init_bounds():
     assert tlayers.same_padding((3, 3, 1)) == jlayers.same_padding((3, 3, 1))
     g = torch.Generator().manual_seed(0)
-    conv = tlayers.Conv3d(4, 6, (3, 3, 3), generator=g)
+    conv = tlayers.Conv3d(4, 6, (3, 3, 3), device="cpu", generator=g)
     bound = 1 / np.sqrt(4 * 27)
     assert tuple(conv.kernel.shape) == (3, 3, 3, 4, 6)
     assert float(conv.kernel.detach().abs().max()) <= bound
-    again = tlayers.Conv3d(4, 6, (3, 3, 3),
+    again = tlayers.Conv3d(4, 6, (3, 3, 3), device="cpu",
                            generator=torch.Generator().manual_seed(0))
     assert torch.equal(conv.kernel, again.kernel)   # seeded, reproducible
 
@@ -206,7 +209,8 @@ def test_from_jax_is_strict():
     x = _x((1, 2, 4, 4, 3))
     jm = jblocks.Convolution(4, (3, 3, 1), dtype=jnp.float32)
     v, _ = _init(jm, x, train=False)
-    tm = tblocks.Convolution(3, 4, (3, 3, 1), dtype=torch.float32)
+    tm = tblocks.Convolution(3, 4, (3, 3, 1), dtype=torch.float32,
+                             device="cpu")
     assert set(jax_state_dict(v)) == set(tm.state_dict())
     extra = {"params": dict(v["params"], stray={"kernel": np.zeros(1)}),
              "batch_stats": v["batch_stats"]}

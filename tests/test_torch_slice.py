@@ -51,7 +51,7 @@ def _pair(dtype_j, dtype_t, cfg):
     jm = JUNet(out_channels=2, num_res_units=2, dropout=0.1,
                attention_module=True, dtype=dtype_j, **cfg)
     variables = _variables(jm)
-    tm = TUNet(out_channels=2, dtype=dtype_t, **cfg)
+    tm = TUNet(out_channels=2, dtype=dtype_t, device="cpu", **cfg)
     load_jax_variables(tm, variables)
     return jm, tm.eval(), variables
 
@@ -143,7 +143,7 @@ def test_replica_import_from_jax_three_way():
     params, stats = import_unet2d5_spvpa(
         {k: v.clone() for k, v in rep.state_dict().items()},
         channels=SMALL["channels"], num_res_units=2, attention=True)
-    tm = TUNet(out_channels=2, dtype=torch.float32, **SMALL)
+    tm = TUNet(out_channels=2, dtype=torch.float32, device="cpu", **SMALL)
     load_jax_variables(tm, {"params": params, "batch_stats": stats})
     with torch.no_grad():
         out, atts = tm.eval()(x.permute(0, 4, 2, 3, 1).contiguous())

@@ -159,7 +159,7 @@ def test_batchnorm_train_matches_jax(dtype):
                          "var": rng.uniform(.5, 2, 5).astype(np.float32)}}
     ref, mut = jm.apply(v, jnp.asarray(x, jdt), True,
                         mutable=["batch_stats"])
-    tm = tlayers.BatchNorm(5)
+    tm = tlayers.BatchNorm(5, device="cpu")
     load_jax_variables(tm, v)
     out = tm(T(x).to(getattr(torch, dtype)))
     assert _rel(out, ref) <= (1e-5 if dtype == "float32" else BF16_TOL)
@@ -252,7 +252,8 @@ def _small_pair(seed=0):
                attention_module=True, dtype=jnp.float32, **SMALL)
     v = jtrainer.init_model(jm, seed)
     v = jax.tree_util.tree_map(lambda a: np.asarray(a, np.float32), v)
-    tm = TUNet(out_channels=2, dtype=torch.float32, dropout=0.0, **SMALL)
+    tm = TUNet(out_channels=2, dtype=torch.float32, dropout=0.0, device="cpu",
+               **SMALL)
     load_jax_variables(tm, v)
     return jm, tm, v
 
@@ -406,7 +407,8 @@ def test_train_steps_and_train_state_match_jax():
             check(tm, topt)
 
     # carry the JAX state after step 2 into a fresh port model + optimizer
-    tm2 = TUNet(out_channels=2, dtype=torch.float32, dropout=0.0, **SMALL)
+    tm2 = TUNet(out_channels=2, dtype=torch.float32, dropout=0.0,
+                device="cpu", **SMALL)
     topt2 = ttrainer.make_optimizer(tm2.parameters(), 1.0, WD)
     load_jax_train_state(tm2, topt2, {
         "params": _to_np(params), "batch_stats": _to_np(stats),
@@ -467,7 +469,8 @@ def test_trainer_fit_checkpoints_and_resumes(tmp_path):
                  initial_learning_rate=1e-3, compute_dtype="float32",
                  **{k: SMALL[k] for k in SMALL})
     gen = torch.Generator().manual_seed(0)
-    model = TUNet(dtype=torch.float32, generator=gen, **cfg.model_kwargs())
+    model = TUNet(dtype=torch.float32, device="cpu", generator=gen,
+                  **cfg.model_kwargs())
     tr = ttrainer.Trainer(cfg, model, "cpu", logger=logging.getLogger("t"))
     state = tr.init_state()
     rng = np.random.default_rng(21)

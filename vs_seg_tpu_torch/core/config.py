@@ -2,6 +2,8 @@
 that the port's trainer and model read, with the same names, defaults, debug
 overrides and derived paths. (The JAX module cannot be imported here: the
 vs_seg_tpu package imports jax.) The CLI flags are not ported yet.
+
+`Routes` selects the opt-in kernel routes of the eval forward.
 """
 
 from __future__ import annotations
@@ -66,3 +68,34 @@ class Config:
                     sample_kernel_sizes=self.sample_kernel_sizes,
                     num_res_units=self.num_res_units, dropout=self.dropout,
                     attention_module=self.attention)
+
+
+@dataclasses.dataclass(frozen=True)
+class Routes:
+    """Opt-in kernel routes of the eval forward, one field per environment
+    gate of the JAX package (all off by default there too). The port reads
+    no environment variable: a caller passes Routes to
+    UNet2d5_spvPA.forward or infer/engine.py:make_predictor. At train every
+    route is ignored, as JAX gates each of them on `not train`.
+
+      rublock2d  VS_RUBLOCK2D  (3,3,1) two-subunit encoder units (down_0,
+                               down_1) -> ops/block2d.py:ru_block2d
+      l2block2d  VS_L2BLOCK2D  (3,3,1) decoder levels (up_0 head, up_1):
+                               upatt_i + up_i -> ops/block2d.py:l2_block2d
+      tail2d0    VS_TAIL2D0    level 0 decoder tail -> ops/tail2d.py
+      tail2d1    VS_TAIL2D1    level 1 decoder tail -> ops/tail2d.py
+      att_fuse   VS_ATT_FUSE   the decoder's gated AttentionBlock1 sites
+                               (upatt_i) that no block route took ->
+                               ops/att.py
+
+    At a (3,3,1) decoder level i, tail2d{i} comes before l2block2d."""
+
+    rublock2d: bool = False
+    l2block2d: bool = False
+    tail2d0: bool = False
+    tail2d1: bool = False
+    att_fuse: bool = False
+
+    def tail2d(self, level: int) -> bool:
+        """The tail route of decoder level `level` (levels 0 and 1 only)."""
+        return (self.tail2d0, self.tail2d1)[level] if level < 2 else False

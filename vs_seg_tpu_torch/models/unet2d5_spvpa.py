@@ -11,11 +11,12 @@ supervision, mirroring vs_seg_tpu/models/unet2d5_spvpa.py.
     up_i          ResidualUnit(2 c_i -> outc_i, 1 subunit, conv-only at top)
   bottom: bottom_att AttentionBlock1(c_{n-1}) + gate, ResidualUnit -> c_n
 
-forward(x, use_kernels=True, train=False, generator=None) takes (N, D, H,
-W, C) and returns (logits (N, D, H, W, out), att_maps), the maps coarsest
-first, each (N, d, h, w, 1). Train or eval is the explicit `train` argument,
-as in the JAX package; torch's module-level train()/eval() state is not
-read. At train, BatchNorm uses batch statistics (and updates the running
+forward(x, use_kernels=True, train=False, generator=None, routes=Routes())
+takes (N, D, H, W, C) and returns (logits (N, D, H, W, out), att_maps), the
+maps coarsest first, each (N, d, h, w, 1). The constructor's `device` is a
+required keyword (no CPU default). Train or eval is the explicit `train`
+argument, as in the JAX package; torch's module-level train()/eval() state
+is not read. At train, BatchNorm uses batch statistics (and updates the running
 ones), Dropout draws from `generator` (a torch.Generator on x's device,
 required when dropout > 0), no l2block/rublock/headfold route is taken, and
 every (3,3,3) stride-1 conv runs the hand-written backward of
@@ -25,10 +26,18 @@ separately).
 Eval dispatch to the hand-written kernels (ops/): the two-subunit (3,3,3)
 encoder units go to ops/rublock.py from ResidualUnit; every (3,3,3) decoder
 level i > 0 whose output has the skip's width goes to ops/l2block.py here,
-as vs_seg_tpu's l2block_fusable/l2block_apply route it. With
-use_kernels=False those sites run the kernels' plain PyTorch twins instead;
-on CPU tensors both choices run the plain twins. The (3,3,1) levels run
-plain PyTorch.
+as vs_seg_tpu's l2block_fusable/l2block_apply route it. The (3,3,1) levels
+run plain PyTorch unless `routes` (core/config.py:Routes, the JAX package's
+opt-in env gates) sends them to kernels: rublock2d the encoder units
+(ResidualUnit), and at a (3,3,1) decoder level i with attention, tail2d{i}
+(ops/tail2d.py, a1 from the library conv) before l2block2d
+(ops/block2d.py:l2_block2d, the i == 0 logit head included). A block route
+replaces upatt_i + up_i, whose chain is then not computed; att_fuse takes
+the upatt_i sites no block route took (AttentionBlock1). As in the JAX package,
+the port routes on semantics alone: the TPU kernels' tiling preconditions
+are not copied. With use_kernels=False every routed site runs its kernels'
+plain PyTorch twins instead; on CPU tensors both choices run the plain
+twins. At train the routes are ignored.
 """
 
 from __future__ import annotations
@@ -38,11 +47,12 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
+from vs_seg_tpu_torch.core.config import Routes
 from vs_seg_tpu_torch.nn.blocks import (
     AttentionBlock1, Convolution, ResidualUnit, folded_conv_affine,
 )
 from vs_seg_tpu_torch.nn.layers import _triple
-from vs_seg_tpu_torch.ops import l2block
+from vs_seg_tpu_torch.ops import block2d, l2block, tail2d
 
 
 class UNet2d5_spvPA(nn.Module):
@@ -56,8 +66,8 @@ class UNet2d5_spvPA(nn.Module):
                  sample_kernel_sizes=((3, 3, 1), (3, 3, 1), (3, 3, 3),
                                       (3, 3, 3), (3, 3, 3)),
                  num_res_units: int = 2, dropout: Optional[float] = 0.1,
-                 attention_module: bool = True, dtype=torch.bfloat16,
-                 device="cpu", generator: Optional[torch.Generator] = None):
+                 attention_module: bool = True, dtype=torch.bfloat16, *,
+                 device, generator: Optional[torch.Generator] = None):
         super().__init__()
         if not (len(channels) == len(kernel_sizes) == len(strides) + 1
                 == len(sample_kernel_sizes) + 1):
@@ -105,25 +115,30 @@ class UNet2d5_spvPA(nn.Module):
                 last_conv_only=(i == 0), **common))
 
     def forward(self, x, use_kernels: bool = True, train: bool = False,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                routes: Routes = Routes()):
         n = self.n_levels
-        kw = dict(use_kernels=use_kernels, train=train)
+        kw = dict(use_kernels=use_kernels, train=train, routes=routes)
         skips = []
         for i in range(n):
             x = getattr(self, f"down_{i}")(x, generator=generator, **kw)
             skips.append(x)
-            x = getattr(self, f"downsample_{i}")(x, generator=generator, **kw)
+            x = getattr(self, f"downsample_{i}")(
+                x, use_kernels=use_kernels, train=train, generator=generator)
         att_maps = []
         if self.attention_module:
             att, x = self.bottom_att(x, gate=True, **kw)
             att_maps.append(att)
         x = self.bottom(x, generator=generator, **kw)
         for i in reversed(range(n)):
-            x = getattr(self, f"upsample_{i}")(x, generator=generator, **kw)
+            x = getattr(self, f"upsample_{i}")(
+                x, use_kernels=use_kernels, train=train, generator=generator)
             pair = (skips[i], x.to(skips[i].dtype))
             outc = self.out_channels if i == 0 else self.channels[i]
-            if not train and self._l2block(pair, i, outc):
-                x, att = self._l2block_apply(pair, i, use_kernels)
+            route = None if train else self._block_route(pair, i, outc,
+                                                         routes)
+            if route is not None:
+                x, att = self._block_apply(route, pair, i, use_kernels)
                 att_maps.append(att)
                 continue
             if self.attention_module:
@@ -132,23 +147,49 @@ class UNet2d5_spvPA(nn.Module):
             x = getattr(self, f"up_{i}")(pair, generator=generator, **kw)
         return x, tuple(att_maps)
 
-    def _l2block(self, pair, i: int, outc: int) -> bool:
-        """The decoder sites ops/l2block.py takes: (3,3,3) levels i > 0 with
-        attention whose output keeps the skip's width C."""
+    def _block_route(self, pair, i: int, outc: int, routes: Routes):
+        """The eval block route of decoder level i, or None: "l2block" at the
+        (3,3,3) levels i > 0 with attention whose output keeps the skip's
+        width C (always taken); at the (3,3,1) levels with attention "tail"
+        under routes.tail2d(i), else "l2block2d" under routes.l2block2d
+        (vs_seg_tpu/models/unet2d5_spvpa.py:l2block_fusable)."""
         xa, xb = pair
-        return (self.attention_module and i > 0
-                and self.kernel_sizes[i] == (3, 3, 3)
-                and tuple(xa.shape) == tuple(xb.shape)
-                and outc == int(xa.shape[-1]))
+        if not self.attention_module or tuple(xa.shape) != tuple(xb.shape):
+            return None
+        k = self.kernel_sizes[i]
+        if k == (3, 3, 3):
+            return ("l2block" if i > 0 and outc == int(xa.shape[-1])
+                    else None)
+        if k != (3, 3, 1):
+            return None
+        if routes.tail2d(i):
+            return "tail"
+        return "l2block2d" if routes.l2block2d else None
 
-    def _l2block_apply(self, pair, i: int, use_kernels: bool):
+    def _block_apply(self, route: str, pair, i: int, use_kernels: bool):
+        """Run decoder level i's upatt_i + up_i as one block; (out, att)."""
         att_m = getattr(self, f"upatt_{i}")
         ru = getattr(self, f"up_{i}")
-        inv, shift = folded_conv_affine(ru.unit0)
-        fn = l2block.l2_block if use_kernels else l2block.l2_block_plain
-        return fn(pair[0], pair[1],
-                  w1=att_m.conv1.conv.kernel, b1=att_m.conv1.conv.bias,
-                  w2=att_m.conv2.conv.kernel, b2=att_m.conv2.conv.bias,
+        if ru.last_conv_only:
+            # the conv-only logit head: degenerate epilogue (scale 1, shift =
+            # bias, identity activation)
+            inv, shift, alpha = None, ru.unit0.conv.bias, None
+        else:
+            inv, shift = folded_conv_affine(ru.unit0)
+            alpha = ru.unit0.act.alpha
+        kw = dict(w2=att_m.conv2.conv.kernel, b2=att_m.conv2.conv.bias,
                   w0=ru.unit0.conv.kernel, bn_scale=inv, bn_shift=shift,
-                  alpha=ru.unit0.act.alpha, wr=ru.residual.kernel,
-                  br=ru.residual.bias)
+                  alpha=alpha, wr=ru.residual.kernel, br=ru.residual.bias)
+        if route == "tail":
+            # att conv1 stays the library conv on the pair halves (bias on
+            # the second half, then ReLU), as in the JAX model
+            a1 = att_m.conv1(pair, use_kernels)
+            fn = tail2d.tail_block if use_kernels else tail2d.tail_block_plain
+            return fn(a1, pair[0], pair[1], **kw)
+        kw.update(w1=att_m.conv1.conv.kernel, b1=att_m.conv1.conv.bias)
+        if route == "l2block":
+            fn = l2block.l2_block if use_kernels else l2block.l2_block_plain
+        else:
+            fn = (block2d.l2_block2d if use_kernels
+                  else block2d.l2_block2d_plain)
+        return fn(pair[0], pair[1], **kw)

@@ -7,17 +7,24 @@
                   channels change); the conv-only logit head folds its
                   residual into the conv (the JAX `_headfold_apply` algebra);
                   the (3,3,3) two-subunit encoder units dispatch to
-                  ops/rublock.py (eval only)
+                  ops/rublock.py, and with Routes.rublock2d the (3,3,1) ones
+                  to ops/block2d.py:ru_block2d (eval only)
   AttentionBlock1 conv(C -> C/2, ReLU) -> conv(C/2 -> 1, sigmoid), with the
-                  residual gate att*x + x (`attention_gate`)
+                  residual gate att*x + x (`attention_gate`); with
+                  Routes.att_fuse the gated eval tail of a pair input (the
+                  decoder's upatt_i: conv2 + sigmoid + gate) runs as
+                  ops/att.py:fused_attention_gate
 
 Module and parameter names follow the JAX package (unit0, conv, norm, act,
 residual, conv1, conv2, kernel, bias, scale, mean, var, alpha), so a JAX
 variables tree maps onto the state_dict key for key (compat/from_jax.py).
 Every forward takes `train` (default False, eval), `use_kernels` and, for
-train-mode dropout, an explicit torch.Generator. At train no block takes the
-rublock, headfold or fused-gate route, as in the JAX package; the (3,3,3)
-stride-1 convs inside run the hand-written backward (nn/layers.py:Conv3d).
+train-mode dropout, an explicit torch.Generator; ResidualUnit and
+AttentionBlock1 also take `routes` (core/config.py:Routes). At train no block
+takes the rublock, headfold or fused-gate route, as in the JAX package; the
+(3,3,3) stride-1 convs inside run the hand-written backward
+(nn/layers.py:Conv3d). Every constructor takes `device` as a required
+keyword (no CPU default).
 """
 
 from __future__ import annotations
@@ -28,11 +35,13 @@ import numpy as np
 import torch
 from torch import nn
 
+from vs_seg_tpu_torch.core.config import Routes
 from vs_seg_tpu_torch.nn.layers import (
     BatchNorm, Conv3d, ConvTranspose3d, Dropout, PReLU, _triple, conv3d,
     same_padding,
 )
-from vs_seg_tpu_torch.ops import rublock
+from vs_seg_tpu_torch.ops import att as fused_att
+from vs_seg_tpu_torch.ops import block2d, rublock
 
 
 def folded_conv_affine(unit: "Convolution"):
@@ -49,8 +58,8 @@ class Convolution(nn.Module):
                  strides=(1, 1, 1), act: Optional[str] = "prelu",
                  norm: Optional[str] = "batch",
                  dropout: Optional[float] = None, conv_only: bool = False,
-                 is_transposed: bool = False, dtype=torch.bfloat16,
-                 device="cpu", generator: Optional[torch.Generator] = None):
+                 is_transposed: bool = False, dtype=torch.bfloat16, *,
+                 device, generator: Optional[torch.Generator] = None):
         super().__init__()
         if act not in ("prelu", "relu", "sigmoid", None):
             raise ValueError(f"unsupported act {act}")
@@ -101,8 +110,8 @@ class ResidualUnit(nn.Module):
                  strides=(1, 1, 1), subunits: int = 2,
                  act: Optional[str] = "prelu", norm: Optional[str] = "batch",
                  dropout: Optional[float] = None,
-                 last_conv_only: bool = False, dtype=torch.bfloat16,
-                 device="cpu", generator: Optional[torch.Generator] = None):
+                 last_conv_only: bool = False, dtype=torch.bfloat16, *,
+                 device, generator: Optional[torch.Generator] = None):
         super().__init__()
         self.kernel_size = _triple(kernel_size)
         self.strides = _triple(strides)
@@ -137,22 +146,31 @@ class ResidualUnit(nn.Module):
                 and self.strides == (1, 1, 1)
                 and self.in_features != self.features)
 
-    def _rublock(self, pair: bool) -> bool:
-        """The sites ops/rublock.py takes: every eval two-subunit (3,3,3)
-        stride-1 PReLU+BN unit on one input whose channels change."""
+    def _rublock(self, pair: bool, routes: Routes = Routes()) -> bool:
+        """The eval sites a fused block takes: every two-subunit stride-1
+        PReLU+BN unit on one input whose channels change, (3,3,3) always
+        (ops/rublock.py), (3,3,1) under routes.rublock2d
+        (ops/block2d.py:ru_block2d)."""
         return (not pair and self.subunits == 2 and not self.last_conv_only
                 and self.strides == (1, 1, 1)
-                and self.kernel_size == (3, 3, 3)
+                and (self.kernel_size == (3, 3, 3)
+                     or (self.kernel_size == (3, 3, 1) and routes.rublock2d))
                 and self.act_name == "prelu" and self.norm_name == "batch"
                 and self.in_features != self.features)
 
     def forward(self, x, use_kernels: bool = True, train: bool = False,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                routes: Routes = Routes()):
         pair = isinstance(x, (tuple, list))
         if not train and self._headfold():
             return self._headfold_apply(x)
-        if not train and self._rublock(pair):
-            fn = rublock.ru_block if use_kernels else rublock.ru_block_plain
+        if not train and self._rublock(pair, routes):
+            if self.kernel_size == (3, 3, 3):
+                fn = (rublock.ru_block if use_kernels
+                      else rublock.ru_block_plain)
+            else:
+                fn = (block2d.ru_block2d if use_kernels
+                      else block2d.ru_block2d_plain)
             s0, h0 = folded_conv_affine(self.unit0)
             s1, h1 = folded_conv_affine(self.unit1)
             return fn(x.to(self.dtype), w0=self.unit0.conv.kernel,
@@ -192,7 +210,7 @@ class AttentionBlock1(nn.Module):
     (att, att*x + x) with gate=True (AttentionBlock2 applied inline)."""
 
     def __init__(self, in_features: int, kernel_size, dtype=torch.bfloat16,
-                 device="cpu", generator: Optional[torch.Generator] = None):
+                 *, device, generator: Optional[torch.Generator] = None):
         super().__init__()
         c = in_features
         self.conv1 = Convolution(c, c // 2, kernel_size, act="relu",
@@ -203,9 +221,20 @@ class AttentionBlock1(nn.Module):
                                  generator=generator)
 
     def forward(self, x, gate: bool = False, use_kernels: bool = True,
-                train: bool = False):
-        att = self.conv2(self.conv1(x, use_kernels, train), use_kernels,
-                         train)
+                train: bool = False, routes: Routes = Routes()):
+        a1 = self.conv1(x, use_kernels, train)
+        if (gate and not train and routes.att_fuse
+                and isinstance(x, (tuple, list))):
+            # conv2 + sigmoid + gate in one pass (vs_seg_tpu/nn/blocks.py
+            # :472-483) on the decoder's pair, each half as wide as a1; the
+            # compact map is what the JAX caller keeps. A single input is
+            # twice a1's width, and JAX never fuses it (bottom_att).
+            fn = (fused_att.fused_attention_gate if use_kernels
+                  else fused_att.fused_attention_gate_plain)
+            att, gated = fn(a1, tuple(x), self.conv2.conv.kernel,
+                            self.conv2.conv.bias)
+            return att, gated
+        att = self.conv2(a1, use_kernels, train)
         if not gate:
             return att, x
         return att, attention_gate(att, x)

@@ -26,6 +26,8 @@ weights are reordered, to torch's (Cout, Cin, kd, kh, kw).
 Parameters are float32 and created from an explicit CPU torch.Generator with
 torch's default init (U(-1/sqrt(fan_in), 1/sqrt(fan_in)) for kernel and
 bias), then moved to `device`. Compute happens in each module's `dtype`.
+Every module takes `device` as a required keyword, checked by
+core/device.py:resolve_device: there is no CPU default.
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from vs_seg_tpu_torch.core.device import resolve_device
 from vs_seg_tpu_torch.ops import train_conv
 
 Shape3 = Tuple[int, int, int]
@@ -133,9 +136,10 @@ class Conv3d(nn.Module):
 
     def __init__(self, in_features: int, features: int, kernel_size,
                  strides=(1, 1, 1), padding=None, use_bias: bool = True,
-                 dtype=torch.bfloat16, device="cpu",
+                 dtype=torch.bfloat16, *, device,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
+        device = resolve_device(device)
         self.kernel_size = _triple(kernel_size)
         self.strides = _triple(strides)
         self.padding = (same_padding(self.kernel_size) if padding is None
@@ -178,9 +182,10 @@ class ConvTranspose3d(nn.Module):
 
     def __init__(self, in_features: int, features: int, kernel_size,
                  strides=(1, 1, 1), use_bias: bool = True,
-                 dtype=torch.bfloat16, device="cpu",
+                 dtype=torch.bfloat16, *, device,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
+        device = resolve_device(device)
         k = np.asarray(_triple(kernel_size))
         s = np.asarray(_triple(strides))
         p = np.asarray(same_padding(tuple(k)))
@@ -214,8 +219,9 @@ class BatchNorm(nn.Module):
     gradient). Parameters `scale`/`bias` and running statistics `mean`/`var`
     carry the JAX package's names."""
 
-    def __init__(self, features: int, device="cpu"):
+    def __init__(self, features: int, *, device):
         super().__init__()
+        device = resolve_device(device)
         self.scale = nn.Parameter(torch.ones(features, device=device))
         self.bias = nn.Parameter(torch.zeros(features, device=device))
         self.register_buffer("mean", torch.zeros(features, device=device))
@@ -252,9 +258,10 @@ class PReLU(nn.Module):
     """Single shared slope (torch PReLU num_parameters=1, init 0.25):
     max(x, 0) + alpha * min(x, 0)."""
 
-    def __init__(self, device="cpu"):
+    def __init__(self, *, device):
         super().__init__()
-        self.alpha = nn.Parameter(torch.full((1,), 0.25, device=device))
+        self.alpha = nn.Parameter(torch.full((1,), 0.25,
+                                             device=resolve_device(device)))
 
     def forward(self, x):
         a = self.alpha.to(x.dtype)

@@ -2,9 +2,19 @@
 and their plain PyTorch twins:
 
   conv333.py  conv333        <- vs_seg_tpu/ops/pallas_conv333.py:conv333
+              (kd in {1, 3})
   rublock.py  ru_block       <- vs_seg_tpu/ops/pallas_rublock.py:ru_block
   l2block.py  l2_block       <- vs_seg_tpu/ops/pallas_l2block.py:l2_block
               (+ attgate, csrc/attgate.cu)
+  block2d.py  ru_block2d, l2_block2d
+                             <- vs_seg_tpu/ops/experimental/pallas_block2d.py:
+                                ru_block2d, l2_block2d (conv333 at kd = 1,
+                                + attgate)
+  tail2d.py   tail_block     <- vs_seg_tpu/ops/experimental/pallas_tail2d.py:
+                                tail_block (attgate + conv333 at kd = 1)
+  att.py      fused_attention_gate
+                             <- vs_seg_tpu/ops/experimental/pallas_att.py:
+                                fused_attention_gate (csrc/attgate.cu)
   blend.py    blend_scatter  <- vs_seg_tpu/ops/pallas_blend.py:
                                 pallas_blend_scatter
   conv333_dw.py  conv333_dw  <- vs_seg_tpu/ops/experimental/pallas_train.py:

@@ -1,0 +1,137 @@
+"""Fused attention tail: conv2 (Ca -> 1, (3,3,kd), kd in {1, 3}) + sigmoid +
+residual gate on one or two inputs, in one pass (csrc/attgate.cu).
+
+Replaces vs_seg_tpu/ops/experimental/pallas_att.py:fused_attention_gate:
+
+    att  = sigmoid(conv2(a1) + b2)                        Ca -> 1
+    outs = [att * x + x for x in xs]                      1-2 inputs
+
+The TPU kernel lane-packs (W, C) rows, reduces the conv per W group with
+rolls and can emit the map broadcast over the channel lanes ("wide"); its
+only caller keeps `att[..., :1]`. Here the map is compact, (N, D, H, W, 1),
+or None with att_out="none". The TPU kernel's preconditions (W*Cm % 128,
+H % 8, all xs with a1's channel count) are Mosaic tiling rules: the port
+routes on semantics alone, and the kernel takes any shape.
+
+`launch_attgate` is the launch shared by this module's wrapper and by
+ops/l2block.py:attgate (the middle stage of l2_block, l2_block2d and
+tail_block), which count their launches apart. Numerics: the conv, the
+sigmoid and the gate run in float32 on the unrounded att; each output is
+rounded to the working dtype once. (The TPU kernel rounds att to the
+working dtype before the gate: a difference of one bf16 ulp of att.)
+
+What bounds it on the H100: memory (see csrc/attgate.cu).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from vs_seg_tpu_torch.ops import _build
+from vs_seg_tpu_torch.ops.conv333 import _check_act, _ptr
+
+ATT_OUT = ("compact", "none")
+
+
+def _kd(w2: torch.Tensor) -> int:
+    kd = int(w2.shape[2])
+    if tuple(w2.shape[:2]) != (3, 3) or kd not in (1, 3) or w2.shape[4] != 1:
+        raise ValueError(f"attention conv2 weight {tuple(w2.shape)}: expected "
+                         "(3, 3, kd, Ca, 1) with kd in (1, 3)")
+    return kd
+
+
+def fused_attention_gate_plain(a1: torch.Tensor, xs: Sequence[torch.Tensor],
+                               w2: torch.Tensor, b2: torch.Tensor, *,
+                               att_out: str = "compact"):
+    """PyTorch twin of fused_attention_gate. a1 (N, D, H, W, Ca); xs 1-2
+    tensors (N, D, H, W, Cx); w2 (3, 3, kd, Ca, 1) in the JAX (kh, kw, kd)
+    order; b2 (1,). Returns (att (N, D, H, W, 1) in xs[0].dtype, or None for
+    att_out="none"; tuple of gated xs)."""
+    if att_out not in ATT_OUT:
+        raise ValueError(f"att_out must be one of {ATT_OUT}, got {att_out!r}")
+    kd = _kd(w2)
+    wt = w2.float().permute(4, 3, 2, 0, 1)
+    z = F.conv3d(a1.float().permute(0, 4, 1, 2, 3), wt, b2.float(),
+                 padding=(kd // 2, 1, 1)).permute(0, 2, 3, 4, 1)
+    att = torch.sigmoid(z)
+    gated = tuple((att * x.float() + x.float()).to(x.dtype) for x in xs)
+    dt = xs[0].dtype
+    return (att.to(dt) if att_out == "compact" else None), gated
+
+
+def _attgate_lib():
+    lib = _build.load("attgate")
+    fn = lib.attgate_launch
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def launch_attgate(a1: torch.Tensor, xs: Sequence[torch.Tensor],
+                   w2: torch.Tensor, b2: torch.Tensor, want_att: bool,
+                   name: str) -> Tuple[Optional[torch.Tensor], tuple]:
+    """Check the CUDA inputs and launch csrc/attgate.cu once."""
+    xs = tuple(xs)
+    if not 1 <= len(xs) <= 2:
+        raise ValueError(f"{name}: one or two gated inputs, got {len(xs)}")
+    shape = a1.shape[:4]
+    _check_act((a1, *xs), name, shape)
+    ca, cx = int(a1.shape[-1]), int(xs[0].shape[-1])
+    if any(int(x.shape[-1]) != cx for x in xs):
+        raise ValueError(f"{name}: gated inputs differ in channels: "
+                         f"{[int(x.shape[-1]) for x in xs]}")
+    kd = _kd(w2)
+    if w2.shape[3] != ca or b2.numel() != 1:
+        raise ValueError(f"{name}: w2 {tuple(w2.shape)} / b2 "
+                         f"{tuple(b2.shape)} do not match Ca = {ca}")
+    if (kd * 9 * ca + 1) * 4 > 48 * 1024:
+        raise ValueError(f"{name}: Ca = {ca} exceeds the kernel's shared "
+                         f"memory bound at kd = {kd}")
+    dev = a1.device
+    # (kh, kw, kd, Ca, 1) -> (kd, kh, kw, Ca) f32, tap-major as the kernel
+    # reads it, then b2: one device buffer, so no host sync for the bias
+    w2p = torch.cat([w2[..., 0].permute(2, 0, 1, 3).reshape(-1),
+                     b2.reshape(-1)]).to(dev, torch.float32).contiguous()
+    gated = tuple(torch.empty_like(x) for x in xs)
+    att = (torch.empty((*shape, 1), dtype=torch.bfloat16, device=dev)
+           if want_att else None)
+    n, d, h, w = (int(s) for s in shape)
+    lib = _attgate_lib()
+    err = lib.attgate_launch(
+        _ptr(a1), _ptr(w2p), _ptr(xs[0]),
+        _ptr(xs[1]) if len(xs) > 1 else None, _ptr(gated[0]),
+        _ptr(gated[1]) if len(xs) > 1 else None, _ptr(att),
+        n, d, h, w, ca, cx, kd,
+        dev.index if dev.index is not None else torch.cuda.current_device(),
+        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    _build.check(lib, err, name)
+    return att, gated
+
+
+def fused_attention_gate(a1: torch.Tensor, xs: Sequence[torch.Tensor],
+                         w2: torch.Tensor, b2: torch.Tensor, *,
+                         att_out: str = "compact"):
+    """att = sigmoid(conv3d(a1, w2) + b2); outs = [att * x + x for x in xs];
+    see fused_attention_gate_plain. CUDA tensors go to the hand-written
+    kernel (bf16, contiguous NDHWC), CPU tensors to the plain twin."""
+    if att_out not in ATT_OUT:
+        raise ValueError(f"att_out must be one of {ATT_OUT}, got {att_out!r}")
+    if a1.device.type == "cpu":
+        return fused_attention_gate_plain(a1, xs, w2, b2, att_out=att_out)
+    if a1.device.type != "cuda":
+        raise ValueError(f"fused_attention_gate: unsupported device "
+                         f"{a1.device}")
+    out = launch_attgate(a1, xs, w2, b2, att_out == "compact",
+                         "fused_attention_gate")
+    fused_attention_gate.launches += 1
+    return out
+
+
+fused_attention_gate.launches = 0

@@ -1,9 +1,11 @@
-"""(3,3,3) stride-1 same-padded conv with a fused epilogue and an optional
-fused 1x1x1 residual: the conv primitive of the encoder and decoder blocks.
+"""(3,3,kd) stride-1 same-padded conv, kd in {1, 3}, with a fused epilogue
+and an optional fused 1x1x1 residual: the conv primitive of the encoder and
+decoder blocks.
 
 Replaces vs_seg_tpu/ops/pallas_conv333.py:conv333. As in the JAX package it
 is not dispatched on its own from the model; ops/rublock.py and
-ops/l2block.py are built from it.
+ops/l2block.py are built from it at kd = 3, ops/block2d.py and
+ops/tail2d.py at kd = 1 (the (3,3,1) "2.5D" levels).
 
     y   = conv(x, w)                       x a tensor or a pair (xa, xb)
     y   = act(y * scale + shift)           act: PReLU(alpha), ReLU is alpha 0
@@ -33,12 +35,13 @@ def as_pair(x) -> tuple:
     return tuple(x) if isinstance(x, (tuple, list)) else (x,)
 
 
-def _conv_sum(xs: Sequence[torch.Tensor], w: torch.Tensor, pad: int
-              ) -> torch.Tensor:
-    """sum_i conv(xs[i], w[..., ci, :]) in float32, each conv in x.dtype.
+def _conv_sum(xs: Sequence[torch.Tensor], w: torch.Tensor) -> torch.Tensor:
+    """sum_i conv(xs[i], w[..., ci, :]) in float32, each conv in x.dtype,
+    same-padded (a 1x1x1 w pads nothing).
 
     w is (kh, kw, kd, sum Ci, Cout); the pair halves read consecutive input
     channel slices, as vs_seg_tpu/nn/layers.py:Conv3d does."""
+    pad = (w.shape[2] // 2, w.shape[0] // 2, w.shape[1] // 2)
     y = None
     c0 = 0
     for x in xs:
@@ -56,14 +59,15 @@ def conv333_plain(x, w: torch.Tensor, scale: Optional[torch.Tensor] = None,
                   residual=None) -> torch.Tensor:
     """PyTorch twin of the conv333 kernel (any device, any float dtype).
 
-    x: (N, D, H, W, Cin) or a pair; w: (3, 3, 3, Cin_total, Cout) in the JAX
-    (kh, kw, kd) order; scale/shift: (Cout,) f32 or None; alpha: the PReLU
-    slope ((1,) or (Cout,)), or None for no activation; residual: None or
+    x: (N, D, H, W, Cin) or a pair; w: (3, 3, kd, Cin_total, Cout) in the
+    JAX (kh, kw, kd) order, kd in {1, 3}; scale/shift: (Cout,) f32 or None;
+    alpha: the PReLU slope ((1,) or (Cout,)), or None for no activation;
+    residual: None or
     (xr, wr, br) with xr a tensor or pair, wr (1, 1, 1, Cr, Cout), br (Cout,).
     Convs run in x.dtype; the epilogue runs in float32 on the conv outputs;
     the result has x.dtype."""
     xs = as_pair(x)
-    y = _conv_sum(xs, w, 1)
+    y = _conv_sum(xs, w)
     if scale is not None:
         y = y * scale.float()
     if shift is not None:
@@ -72,7 +76,7 @@ def conv333_plain(x, w: torch.Tensor, scale: Optional[torch.Tensor] = None,
         y = torch.where(y >= 0, y, alpha.float() * y)
     if residual is not None:
         xr, wr, br = residual
-        y = y + (_conv_sum(as_pair(xr), wr, 0) + br.float())
+        y = y + (_conv_sum(as_pair(xr), wr) + br.float())
     return y.to(xs[0].dtype)
 
 
@@ -92,8 +96,9 @@ def _pad16(c: int) -> int:
 def pack_weights(w: torch.Tensor, cins: Sequence[int], cop: int
                  ) -> torch.Tensor:
     """(kh, kw, kd, sum Ci, Cout) -> bf16 (taps, kp, cop) as the kernel
-    reads it: tap = (kd*3 + kh)*3 + kw, each input's channel block padded to
-    a multiple of 16 and stacked along kp, Cout padded to cop with zeros."""
+    reads it: taps = kd*kh*kw, tap = (kd*3 + kh)*3 + kw, each input's
+    channel block padded to a multiple of 16 and stacked along kp, Cout
+    padded to cop with zeros."""
     kh, kw, kd, _, cout = w.shape
     wt = w.permute(2, 0, 1, 3, 4).reshape(kd * kh * kw, w.shape[3], cout)
     blocks = []
@@ -139,7 +144,7 @@ def _ptr(t: Optional[torch.Tensor]):
 
 
 _ARGTYPES = ([ctypes.c_void_p, ctypes.c_int] * 4
-             + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
+             + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10
              + [ctypes.c_void_p])
 
 
@@ -156,7 +161,7 @@ def conv333(x, w: torch.Tensor, scale: Optional[torch.Tensor] = None,
             shift: Optional[torch.Tensor] = None,
             alpha: Optional[torch.Tensor] = None,
             residual=None) -> torch.Tensor:
-    """(3,3,3) conv + epilogue (+ residual); see conv333_plain for the
+    """(3,3,kd) conv + epilogue (+ residual); see conv333_plain for the
     arguments. CUDA tensors go to the hand-written kernel (bf16 activations,
     contiguous NDHWC, one device), CPU tensors to conv333_plain."""
     xs = as_pair(x)
@@ -170,7 +175,8 @@ def conv333(x, w: torch.Tensor, scale: Optional[torch.Tensor] = None,
     shape = xs[0].shape[:4]
     _check_act(xs, "conv333", shape)
     cins = [int(v.shape[-1]) for v in xs]
-    if tuple(w.shape[:3]) != (3, 3, 3) or w.shape[3] != sum(cins):
+    if tuple(w.shape[:3]) not in ((3, 3, 3), (3, 3, 1)) \
+            or w.shape[3] != sum(cins):
         raise ValueError(f"conv333: weight {tuple(w.shape)} does not match "
                          f"inputs with {cins} channels")
     cout = int(w.shape[4])
@@ -207,7 +213,7 @@ def conv333(x, w: torch.Tensor, scale: Optional[torch.Tensor] = None,
         _ptr(ra), int(ra.shape[-1]) if ra is not None else 0,
         _ptr(rb), int(rb.shape[-1]) if rb is not None else 0,
         _ptr(wm), _ptr(wrp), _ptr(eps), _ptr(out),
-        n, d, h, wd, cout, nfrag, cop, int(wm.shape[1]),
+        n, d, h, wd, cout, nfrag, cop, int(wm.shape[1]), int(w.shape[2]),
         dev.index if dev.index is not None else torch.cuda.current_device(),
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     _build.check(lib, err, "conv333")

@@ -1,12 +1,18 @@
-// conv333 — direct (3,3,3) stride-1 same-padded convolution for sm_90a,
-// with a fused epilogue and an optional fused 1x1x1 residual.
+// conv333 — direct (3,3,kd) stride-1 same-padded convolution for sm_90a,
+// kd in {1, 3}, with a fused epilogue and an optional fused 1x1x1 residual.
 //
 // Replaces the TPU kernel vs_seg_tpu/ops/pallas_conv333.py:conv333
 // (_conv_kernel), and through ops/rublock.py and ops/l2block.py the convs of
 // vs_seg_tpu/ops/pallas_rublock.py:ru_block and
-// vs_seg_tpu/ops/pallas_l2block.py:l2_block. None of the TPU design (Toeplitz
-// band matrices, 64-lane channel padding, (rows, 128) flat views, depth-plane
-// rings) is carried over: those exist for the MXU and VMEM.
+// vs_seg_tpu/ops/pallas_l2block.py:l2_block. With kd = 1 (the "2.5D" levels
+// 0-1) it is, through ops/block2d.py and ops/tail2d.py, the conv of
+// vs_seg_tpu/ops/experimental/pallas_block2d.py:ru_block2d/l2_block2d and
+// pallas_tail2d.py:tail_block. None of the TPU design (Toeplitz band
+// matrices, 64-lane channel padding, (rows, 128) flat views, depth-plane
+// rings, tap packing) is carried over: those exist for the MXU and VMEM.
+// kd is a runtime argument: the depth loop runs over the weight's kd planes
+// (dz = d + kdi - kd/2), so the kd = 3 launches do exactly what they did
+// before kd existed.
 //
 //   out[v, co] = act(sum_{taps, ci} x[v + tap, ci] * w[tap, ci, co] * scale[co]
 //                    + shift[co])
@@ -18,7 +24,7 @@
 // residual input r; nothing is concatenated in memory.
 //
 // Layout: activations NDHWC bf16. Weights are packed by the wrapper
-// (ops/conv333.py:pack_weights) as bf16 (27, kp, cop): tap = (kd*3+kh)*3+kw,
+// (ops/conv333.py:pack_weights) as bf16 (9*kd, kp, cop): tap = (kd*3+kh)*3+kw,
 // each input's channels zero-padded to a multiple of 16 and stacked along
 // kp, Cout zero-padded to cop. The residual weight is bf16 (krp, cop). eps is
 // f32 (4, cop): scale, shift, alpha, residual bias. Accumulation is f32;
@@ -34,11 +40,16 @@
 // NFRAG mma. The residual is one more K loop with only the centre tap, into
 // separate accumulators, so it is added after the activation.
 //
-// What bounds it on the H100: at the flagship shapes (Cin 32-160, Cout
-// 48-96) the conv is compute-heavy (27*Cin MACs per output), but this first
-// version does not keep the tensor cores fed: each round is load -> sync ->
-// compute with no overlap, and the weight slice is re-read from L2 by every
-// block. Double buffering with cp.async/TMA and wgmma are the next steps.
+// What bounds it on the H100: at the flagship (3,3,3) shapes (Cin 32-160,
+// Cout 48-96) the conv is compute-heavy (27*Cin MACs per output), but this
+// first version does not keep the tensor cores fed: each round is load ->
+// sync -> compute with no overlap, and the weight slice is re-read from L2
+// by every block. Double buffering with cp.async/TMA and wgmma are the next
+// steps. At the kd = 1 sites two shapes waste tensor-core work (known costs,
+// left for a later change): Cin = 1 at down_0 unit0 pads K to 16 channels,
+// 16x the useful MACs (packing the 9 taps into K would fix it), and
+// Cout = 2 at the up_0 logit head fills 2 of a 16-wide N tile (8x). Both
+// sites are memory-bound anyway (few MACs per byte at 16 channels).
 // Bounds: N*D <= 65535 (grid.y), Cout unbounded (grid.z tiles of 64).
 
 #include <mma.h>
@@ -71,6 +82,7 @@ struct Args {
   const float* eps;               // (4, cop)
   __nv_bfloat16* out;             // (N, D, H, W, cout)
   int N, D, H, W, cout, cop, kp, tiles_w;
+  int kd;                         // depth taps of the weight: 1 or 3
 };
 
 // Stage the (SH, SW, KC) halo tile of plane dz, channels [c0, c0+16), zeros
@@ -152,8 +164,8 @@ __global__ void __launch_bounds__(NTHREADS) conv333_kernel(Args a) {
     const int C = a.cx[xi];
     if (C == 0) continue;
     for (int c0 = 0; c0 < C; c0 += KC) {
-      for (int kd = 0; kd < 3; ++kd) {
-        const int dz = d + kd - 1;
+      for (int kd = 0; kd < a.kd; ++kd) {
+        const int dz = d + kd - a.kd / 2;
         if (dz < 0 || dz >= a.D) continue;   // zero plane: contributes nothing
         __syncthreads();
         stage_x(in_s, a.x[xi], C, c0, n, dz, h0, w0, a);
@@ -251,11 +263,12 @@ extern "C" int conv333_launch(const void* xa, int ca, const void* xb, int cb,
                               const void* ra, int cra, const void* rb, int crb,
                               const void* wm, const void* wr, const void* eps,
                               void* out, int n, int d, int h, int w, int cout,
-                              int nfrag, int cop, int kp, int device,
+                              int nfrag, int cop, int kp, int kd, int device,
                               void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (nfrag < 1 || nfrag > 4 || cop % (nfrag * 16) != 0 || n * d > 65535)
+  if (nfrag < 1 || nfrag > 4 || cop % (nfrag * 16) != 0 || n * d > 65535 ||
+      (kd != 1 && kd != 3))
     return static_cast<int>(cudaErrorInvalidValue);
   Args a;
   a.x[0] = static_cast<const __nv_bfloat16*>(xa);
@@ -277,6 +290,7 @@ extern "C" int conv333_launch(const void* xa, int ca, const void* xb, int cb,
   a.cout = cout;
   a.cop = cop;
   a.kp = kp;
+  a.kd = kd;
   a.tiles_w = (w + TW - 1) / TW;
   const int tiles_h = (h + TH - 1) / TH;
   dim3 grid(a.tiles_w * tiles_h, n * d, cop / (nfrag * 16));

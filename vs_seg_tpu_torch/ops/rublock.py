@@ -25,27 +25,29 @@ import torch
 from vs_seg_tpu_torch.ops.conv333 import conv333, conv333_plain
 
 
-def ru_block_plain(x: torch.Tensor, *, w0, bn0_scale, bn0_shift, alpha0, w1,
-                   bn1_scale, bn1_shift, alpha1, wr, br) -> torch.Tensor:
-    """PyTorch twin of ru_block (any device, any float dtype)."""
-    u0 = conv333_plain(x, w0, bn0_scale, bn0_shift, alpha0)
-    return conv333_plain(u0, w1, bn1_scale, bn1_shift, alpha1,
-                         residual=(x, wr, br))
-
-
-def ru_block(x: torch.Tensor, *, w0, bn0_scale, bn0_shift, alpha0, w1,
+def ru_chain(conv, x: torch.Tensor, *, w0, bn0_scale, bn0_shift, alpha0, w1,
              bn1_scale, bn1_shift, alpha1, wr, br) -> torch.Tensor:
-    """Fused eval ResidualUnit. x: (N, D, H, W, Cin); w0 (3,3,3,Cin,Cout),
-    w1 (3,3,3,Cout,Cout), wr (1,1,1,Cin,Cout); returns (N, D, H, W, Cout)."""
+    """The unit through `conv` (conv333 or conv333_plain), for (3,3,kd)
+    weights of either kd: u0 = conv0(x); out = conv1(u0) + residual."""
+    u0 = conv(x, w0, bn0_scale, bn0_shift, alpha0)
+    return conv(u0, w1, bn1_scale, bn1_shift, alpha1, residual=(x, wr, br))
+
+
+def ru_block_plain(x: torch.Tensor, **params) -> torch.Tensor:
+    """PyTorch twin of ru_block (any device, any float dtype)."""
+    return ru_chain(conv333_plain, x, **params)
+
+
+def ru_block(x: torch.Tensor, **params) -> torch.Tensor:
+    """Fused eval ResidualUnit. x: (N, D, H, W, Cin); params (ru_chain's
+    keywords): w0 (3,3,3,Cin,Cout), w1 (3,3,3,Cout,Cout), wr
+    (1,1,1,Cin,Cout), the folded affines and PReLU slopes; returns (N, D, H,
+    W, Cout)."""
     if x.device.type == "cpu":
-        return ru_block_plain(
-            x, w0=w0, bn0_scale=bn0_scale, bn0_shift=bn0_shift, alpha0=alpha0,
-            w1=w1, bn1_scale=bn1_scale, bn1_shift=bn1_shift, alpha1=alpha1,
-            wr=wr, br=br)
+        return ru_block_plain(x, **params)
     if x.device.type != "cuda":
         raise ValueError(f"ru_block: unsupported device {x.device}")
-    u0 = conv333(x, w0, bn0_scale, bn0_shift, alpha0)
-    out = conv333(u0, w1, bn1_scale, bn1_shift, alpha1, residual=(x, wr, br))
+    out = ru_chain(conv333, x, **params)
     ru_block.launches += 1
     return out
 

@@ -40,14 +40,26 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
      down_1 (16->32), l2_block2d at up_1 (32||32->32) and the up_0 logit head
      (16||16->2), tail_block at up_1 and up_0, fused_attention_gate (kd 1) at
      upatt_0 and upatt_1 and (kd 3) at the upatt_2 shape.
-  8. The phase-3 volume under two route configurations (Routes), each
+  8. The phase-3 volume under three route configurations (Routes), each
      through the kernels (launch counters reset just before, read just
      after, checked per site) and through the plain path: A = ru_block2d,
-     l2_block2d, tail_block at up_1; B = fused_attention_gate. Logits are
-     held against the configuration's plain path and phase 3's default
-     kernel path; ms/volume of each path; and a per-level split of one
-     8-window forward (CUDA events at the model's top-level modules) for the
-     default routes and for A.
+     l2_block2d, tail_block at up_1; B = fused_attention_gate; C = ds_conv
+     at downsample_2/3/4. Logits are held against the configuration's plain
+     path and phase 3's default kernel path; ms/volume of each path; and a
+     per-level split of one 8-window forward (CUDA events at the model's
+     top-level modules) for the default routes, A and C.
+  9. ds_conv (the (3,3,3) stride-(2,2,2) downsample) against its plain twin
+     at the flagship's downsample_2/3/4 shapes of one 8-window batch, with
+     one cuDNN strided conv as the library yardstick.
+ 10. The inference CLI end to end: CLI_CASES synthetic NIFTI test cases of
+     448x448x80 (non-RAS affine) from the port's generate_dataset, phase
+     3's weights saved as the port's checkpoint, `cli.inference.main` on
+     cuda:0 under --routes dsconv (launch counters reset just before, read
+     just after: ds_conv 3 per 8-window forward), then the same data
+     through `run_inference(use_kernels=False)`; the exported NIFTIs read
+     back with the original affine and shape, labelmaps and Dice of the
+     two paths agree, and each path's compute seconds per volume. Figures
+     are drawn when matplotlib is installed.
 
 The kernels are built in parallel, one nvcc per source. Every kernel record
 carries its time, its plain twin's, the time of one library call computing
@@ -56,7 +68,8 @@ bytes it must move (inputs read once, outputs written once) over the HBM
 rate and its operations over the peak rate for their type (H100 SXM, dense:
 989 TFLOP/s bf16 tensor cores, 67 TFLOP/s f32, 3.35 TB/s). The last stdout
 line is {"ok": true, "device": {...}}; the line before it is the per-kernel
-JSON record, whose launch counts add up every main path (phases 3, 6 and 8).
+JSON record, whose launch counts add up every main path (phases 3, 6, 8
+and 10).
 """
 
 from __future__ import annotations
@@ -342,7 +355,8 @@ def kernel_checks(dev, gen):
 
 def _wrappers():
     from vs_seg_tpu_torch.ops import (att, blend, block2d, conv333,
-                                      conv333_dw, l2block, rublock, tail2d)
+                                      conv333_dw, dsconv, l2block, rublock,
+                                      tail2d)
     return {"conv333": conv333.conv333, "attgate": l2block.attgate,
             "ru_block": rublock.ru_block, "l2_block": l2block.l2_block,
             "blend_scatter": blend.blend_scatter,
@@ -350,12 +364,13 @@ def _wrappers():
             "ru_block2d": block2d.ru_block2d,
             "l2_block2d": block2d.l2_block2d,
             "tail_block": tail2d.tail_block,
-            "fused_attention_gate": att.fused_attention_gate}
+            "fused_attention_gate": att.fused_attention_gate,
+            "ds_conv": dsconv.ds_conv}
 
 
-# launches of the routed kd = 1 kernels in a run that takes no kd = 1 route
+# launches of the routed kernels in a run that takes no route
 NO_KD1 = {"ru_block2d": 0, "l2_block2d": 0, "tail_block": 0,
-          "fused_attention_gate": 0}
+          "fused_attention_gate": 0, "ds_conv": 0}
 
 
 def reset_counts():
@@ -859,7 +874,7 @@ def level_times(model, x, routes):
 
 
 def routes_run(dev, gen, card: str, model, staged, default_logits):
-    """Phase 8: the phase-3 volume under route configurations A and B."""
+    """Phase 8: the phase-3 volume under route configurations A, B and C."""
     import torch
 
     from vs_seg_tpu_torch.core.config import Routes
@@ -867,7 +882,7 @@ def routes_run(dev, gen, card: str, model, staged, default_logits):
     from vs_seg_tpu_torch.infer.sliding_window import sliding_window_inference
 
     base = {"ru_block": 4, "l2_block": 3, "blend_scatter": 1,
-            "conv333_dw": 0}
+            "conv333_dw": 0, "ds_conv": 0}
     configs = {
         # ru_block2d x 2 (2 conv333 each), tail_block at up_1 (1 attgate +
         # 1 conv333), l2_block2d at the up_0 head (1 attgate + 2 conv333)
@@ -880,6 +895,11 @@ def routes_run(dev, gen, card: str, model, staged, default_logits):
               dict(base, ru_block2d=0, l2_block2d=0, tail_block=0,
                    fused_attention_gate=2, attgate=3,
                    conv333=EVAL_CONV333)),
+        # downsample_2, downsample_3 and downsample_4
+        "C": (Routes(dsconv=True),
+              dict(base, ru_block2d=0, l2_block2d=0, tail_block=0,
+                   fused_attention_gate=0, attgate=3, conv333=EVAL_CONV333,
+                   ds_conv=3)),
     }
     total = {}
     for name, (routes, expect) in configs.items():
@@ -931,15 +951,177 @@ def routes_run(dev, gen, card: str, model, staged, default_logits):
         total = {k: total.get(k, 0) + n for k, n in counts.items()}
         del ko, po, outs
 
-    # per-level split of one 8-window forward, default routes vs A
+    # per-level split of one 8-window forward, default routes vs A and C
     x = torch.randn((SW_BATCH, ROI[2], ROI[0], ROI[1], 1),
                     generator=gen).to(dev, torch.bfloat16)
-    for name, routes in (("default", Routes()), ("A", configs["A"][0])):
+    for name, routes in (("default", Routes()), ("A", configs["A"][0]),
+                         ("C", configs["C"][0])):
         level_times(model, x, routes)       # warm-up
         lv = level_times(model, x, routes)
         log(f"  per-level ms of one 8-window forward, routes {name}: "
             f"{lv} (sum {sum(lv.values())!r}) on {card}")
     return total
+
+
+# the flagship's (3,3,3) stride-(2,2,2) sites for one 8-window batch:
+# (name, input (N, D, H, W), channels)
+DS_SITES = (("downsample_2", (SW_BATCH, 64, 96, 96), 48),
+            ("downsample_3", (SW_BATCH, 32, 48, 48), 64),
+            ("downsample_4", (SW_BATCH, 16, 24, 24), 80))
+
+
+def dsconv_checks(dev, gen, card: str):
+    """Phase 9: ds_conv vs its plain twin at the three flagship sites."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from vs_seg_tpu_torch.ops import dsconv
+
+    rec, errs = None, []
+    for site, shape, c in DS_SITES:
+        x = torch.randn((*shape, c), generator=gen).to(dev, torch.bfloat16)
+        bw = 1.0 / np.sqrt(27 * c)
+        w = ((torch.rand((3, 3, 3, c, c), generator=gen) * 2 - 1) * bw
+             ).to(dev)
+        s = (torch.rand(c, generator=gen) + .5).to(dev)
+        h = (torch.rand(c, generator=gen) * .4 - .2).to(dev)
+        a = (torch.rand(1, generator=gen) * .2 + .1).to(dev)
+        got = dsconv.ds_conv(x, w, s, h, a)
+        name = f"ds_conv {site} {shape}x{c}->{c}"
+        errs.append(compare(name, got, dsconv.ds_conv_plain(x, w, s, h, a),
+                            KERNEL_TOL))
+        ms = cuda_ms(lambda: dsconv.ds_conv(x, w, s, h, a))
+        # host time to enqueue one call (weight packing + launch): where it
+        # exceeds the kernel's, the event time above is the host's
+        t = time.perf_counter()
+        for _ in range(REPS):
+            dsconv.ds_conv(x, w, s, h, a)
+        host_ms = (time.perf_counter() - t) * 1e3 / REPS
+        torch.cuda.synchronize()
+        p_ms = cuda_ms(lambda: dsconv.ds_conv_plain(x, w, s, h, a))
+        # the library yardstick: one cuDNN strided conv (+ bias) on the same
+        # bf16 NDHWC input (channels_last_3d, no copy)
+        wt = w.to(torch.bfloat16).permute(4, 3, 2, 0, 1).contiguous()
+        hb = h.to(torch.bfloat16)
+        lib_ms = cuda_ms(lambda: F.conv3d(x.permute(0, 4, 1, 2, 3), wt, hb,
+                                          stride=2, padding=1))
+        b = bound(nbytes(x, w, s, h, a, got),
+                  2 * 27 * c * c * got[..., 0].numel())
+        log(f"  {name}: kernel {ms!r} ms (host enqueue {host_ms!r} ms per "
+            f"call), plain {p_ms!r} ms, cuDNN {lib_ms!r}"
+            f" ms, bound {b[0]!r} ms ({b[1]}: {b[2] / 1e9:.3f} GB, "
+            f"{b[3] / 1e9:.1f} GFLOP) = {b[3] / ms / 1e9!r} TFLOP/s on {card}")
+        if rec is None:
+            rec = dict(shape=name, ms=ms, plain_ms=p_ms, library_ms=lib_ms,
+                       bound=b)
+        del x, got
+    rec["max_abs_err"] = max(errs)
+    torch.cuda.synchronize()
+    return {"ds_conv": rec}
+
+
+CLI_CASES = 2            # synthetic test cases of phase 10
+
+
+def cli_run(dev, card: str, model):
+    """Phase 10: the inference CLI end to end on synthetic NIFTIs, through
+    the kernels under --routes dsconv and through the plain path."""
+    import dataclasses
+    import importlib.util
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from vs_seg_tpu_torch.cli import inference
+    from vs_seg_tpu_torch.core.config import parse_cli
+    from vs_seg_tpu_torch.data import nifti
+    from vs_seg_tpu_torch.data.dataset import (CacheDataset, DataLoader,
+                                               load_split_csv)
+    from vs_seg_tpu_torch.data.synthetic import generate_dataset
+    from vs_seg_tpu_torch.data.transforms import get_transforms
+    from vs_seg_tpu_torch.infer.engine import run_inference
+    from vs_seg_tpu_torch.train.checkpoint import save_checkpoint
+
+    root = REPO / "build" / "chip_smoke_cli"
+    shutil.rmtree(root, ignore_errors=True)
+    t = time.perf_counter()
+    split = generate_dataset(str(root), n_train=0, n_val=0, n_test=CLI_CASES,
+                             shape=VOLUME, seed=SEED)
+    log(f"  {CLI_CASES} synthetic test cases of {VOLUME} written in "
+        f"{time.perf_counter() - t:.1f} s")
+    argv = ["--data_root", str(root), "--split", split,
+            "--results_folder_name", "kernels", "--device", "cuda:0",
+            "--routes", "dsconv", "--sw_batch_size", str(SW_BATCH)]
+    cfg = parse_cli(argv)
+    # phase 3's flagship weights as the port's checkpoint
+    save_checkpoint(str(Path(cfg.model_path) / "best_metric_model.ckpt"),
+                    {"model": model.state_dict()})
+    figs = importlib.util.find_spec("matplotlib") is not None
+    log(f"  matplotlib {'found' if figs else 'not found'}: figures "
+        f"{'on' if figs else 'off'}")
+
+    torch.cuda.synchronize()
+    reset_counts()
+    t = time.perf_counter()
+    dice_k, times_k = inference.main(argv, make_figures=figs)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    wall = time.perf_counter() - t
+    forwards = CLI_CASES          # one 8-window batch per volume
+    check_counts(counts, {
+        "ds_conv": 3 * forwards, "ru_block": 4 * forwards,
+        "l2_block": 3 * forwards, "attgate": 3 * forwards,
+        "conv333": EVAL_CONV333 * forwards, "blend_scatter": forwards,
+        "conv333_dw": 0, "ru_block2d": 0, "l2_block2d": 0, "tail_block": 0,
+        "fused_attention_gate": 0}, "CLI (--routes dsconv)")
+
+    # the plain path: same data, weights and routes, every kernel site on
+    # its plain twin, exported beside the kernel path's results
+    plain_cfg = dataclasses.replace(cfg, results_folder_name="plain")
+    _, _, test_files = load_split_csv(cfg.split_csv, cfg.dataset,
+                                      cfg.data_root)
+    loader = DataLoader(CacheDataset(test_files,
+                                     get_transforms(cfg.pad_crop_shape_test)[2],
+                                     num_workers=cfg.num_workers))
+    dice_p, times_p = run_inference(plain_cfg, model, loader, device=dev,
+                                    make_figures=False, use_kernels=False)
+
+    agree = []
+    for f in test_files:
+        case = Path(f["label"]).parent.name
+        base = Path(f["label"]).name
+        ref = nifti.load(f["label"])
+        outs = [nifti.load(str(Path(c.results_folder_path)
+                               / "inferred_segmentations_nifti" / case
+                               / base))
+                for c in (cfg, plain_cfg)]
+        for o in outs:
+            if o.data.shape != ref.data.shape or not np.allclose(
+                    o.affine, ref.affine):
+                raise AssertionError(f"{case}: export {o.data.shape} "
+                                     f"{o.affine.tolist()} vs original "
+                                     f"{ref.data.shape} {ref.affine.tolist()}")
+            if not set(np.unique(o.data)) <= {0.0, 1.0}:
+                raise AssertionError(f"{case}: labels {np.unique(o.data)}")
+        agree.append(float((outs[0].data == outs[1].data).mean()))
+    log(f"  exports read back with the original affine and shape "
+        f"{ref.data.shape}; labelmap agreement kernel vs plain {agree} "
+        f"(min {ARGMAX_MIN})")
+    log(f"  Dice kernel path {dice_k.tolist()}, plain path {dice_p.tolist()}")
+    if min(agree) < ARGMAX_MIN:
+        raise AssertionError(f"labelmap agreement {agree} < {ARGMAX_MIN}")
+    if not (np.isfinite(dice_k).all() and np.isfinite(dice_p).all()
+            and np.abs(dice_k - dice_p).max() <= 1e-2):
+        raise AssertionError(f"Dice differs: {dice_k} vs {dice_p}")
+    if figs and not (Path(cfg.figures_path)
+                     / "best_model_output_dice_score_histogram.png").is_file():
+        raise AssertionError("the CLI wrote no figures")
+    log(f"CLI --routes dsconv, kernel path: compute s/volume {times_k!r} "
+        f"(whole CLI {wall:.1f} s wall) on {card}")
+    log(f"CLI plain path: compute s/volume {times_p!r} on {card}")
+    return counts
 
 
 def main() -> int:
@@ -966,7 +1148,7 @@ def main() -> int:
     log(f"python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
-    names = ("conv333", "conv333_dw", "attgate", "blend")
+    names = ("conv333", "conv333_dw", "attgate", "blend", "dsconv")
     with ThreadPoolExecutor(len(names)) as pool:   # one nvcc per source
         list(pool.map(_build.build, names))
     for name in names:
@@ -986,11 +1168,18 @@ def main() -> int:
     log("phase 7: kd = 1 route kernels vs plain twins at flagship shapes")
     rec.update(kd1_kernel_checks(dev, gen, card))
     log("phase 8: flagship whole-volume inference under route "
-        "configurations A and B")
+        "configurations A, B and C")
     route_counts = routes_run(dev, gen, card, model, staged, default_logits)
-    del model, staged, default_logits
+    del staged, default_logits
+    log("phase 9: ds_conv vs its plain twin at the flagship's downsample "
+        "sites")
+    rec.update(dsconv_checks(dev, gen, card))
+    log("phase 10: the inference CLI end to end (NIFTI in, Dice + NIFTI "
+        "out) under --routes dsconv, and the plain path")
+    cli_counts = cli_run(dev, card, model)
+    del model
     counts = {k: infer_counts[k] + train_counts[k] + route_counts[k]
-              for k in infer_counts}
+              + cli_counts[k] for k in infer_counts}
     for k, r in rec.items():
         lib = "-" if r["library_ms"] is None else f"{r['library_ms']:.3f}"
         ms, by, moved, f16, f32 = r["bound"]
@@ -1013,6 +1202,7 @@ def main() -> int:
         "l2_block2d": ("block2d.py", exp + "pallas_block2d.py:226"),
         "tail_block": ("tail2d.py", exp + "pallas_tail2d.py:239"),
         "fused_attention_gate": ("att.py", exp + "pallas_att.py:146"),
+        "ds_conv": ("csrc/dsconv.cu", exp + "pallas_dsconv.py:145"),
     }
     kernels = [{"name": k, "route": "cuda", "source": pkg + meta[k][0],
                 "replaces": meta[k][1], "launches": counts[k],

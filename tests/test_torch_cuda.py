@@ -1,7 +1,8 @@
 """The port's hand-written CUDA kernels against their plain PyTorch twins on
 the card, at small and ragged shapes that the flagship path does not reach
 (channel counts that are not multiples of 8 or 16, W not a multiple of 16,
-H not a multiple of 8, more than 64 output channels).
+H not a multiple of 8, more than 64 output channels, odd sizes for the
+stride-2 ds_conv), and the inference CLI on a small synthetic dataset.
 
 These tests need an NVIDIA GPU and nvcc: they carry the `gpu` marker and
 skip without CUDA. They import no JAX, so on the GPU machine they run
@@ -20,7 +21,8 @@ import pytest
 import torch
 
 from vs_seg_tpu_torch.ops import (att, blend, block2d, conv333, conv333_dw,
-                                  l2block, rublock, tail2d, train_conv)
+                                  dsconv, l2block, rublock, tail2d,
+                                  train_conv)
 
 TOL = 2e-2
 DW_TOL = 1e-4
@@ -262,3 +264,69 @@ def test_fused_attention_gate_kernel_matches_plain(dev, kd, cm, cx, n_x,
     assert len(got[1]) == n_x
     for o, r in zip(got[1], ref[1]):
         _check(o, r)
+
+
+@pytest.mark.parametrize("shape,cin,cout", [
+    ((2, 5, 7, 9), 5, 7),             # every size odd, nothing aligned
+    ((1, 6, 34, 21), 80, 80),         # Cout = 80: two N tiles; ragged tiles
+    ((3, 1, 2, 3), 16, 1),            # one depth plane, Cout = 1
+])
+def test_ds_conv_kernel_matches_plain(dev, shape, cin, cout):
+    g = _g()
+    x = _x(g, dev, *shape, cin)
+    args = (_w(g, dev, (3, 3, 3), cin, cout), _v(g, dev, cout, .5, 1.5),
+            _v(g, dev, cout, -.2, .2), _v(g, dev, 1, .1, .3))
+    n0 = dsconv.ds_conv.launches
+    got = dsconv.ds_conv(x, *args)
+    assert dsconv.ds_conv.launches == n0 + 1
+    assert tuple(got.shape) == (shape[0], *((s - 1) // 2 + 1
+                                            for s in shape[1:]), cout)
+    _check(got, dsconv.ds_conv_plain(x, *args))
+
+
+def test_inference_cli_on_the_card(dev, tmp_path, monkeypatch):
+    """cli.inference.main on cuda under --routes dsconv over two synthetic
+    48x48x16 cases (--debug: the flagship at a 128x128x32 ROI), against
+    run_inference's plain path on the same weights."""
+    import dataclasses
+    from pathlib import Path
+
+    from vs_seg_tpu_torch.cli import inference
+    from vs_seg_tpu_torch.core.config import parse_cli
+    from vs_seg_tpu_torch.data import nifti
+    from vs_seg_tpu_torch.data.dataset import (CacheDataset, DataLoader,
+                                               load_split_csv)
+    from vs_seg_tpu_torch.data.synthetic import generate_dataset
+    from vs_seg_tpu_torch.data.transforms import get_transforms
+    from vs_seg_tpu_torch.infer.engine import run_inference
+    from vs_seg_tpu_torch.models import build_model
+    from vs_seg_tpu_torch.train.checkpoint import save_checkpoint
+
+    monkeypatch.chdir(Path(__file__).resolve().parents[1])  # ./params/
+    generate_dataset(str(tmp_path))   # the cases split_debug.csv names
+    argv = ["--debug", "--data_root", str(tmp_path), "--device", "cuda",
+            "--routes", "dsconv"]
+    cfg = parse_cli(argv)
+    model = build_model(cfg, device=dev,
+                        generator=torch.Generator().manual_seed(0))
+    save_checkpoint(str(Path(cfg.model_path) / "best_metric_model.ckpt"),
+                    {"model": model.state_dict()})
+    n0 = dsconv.ds_conv.launches
+    dice, times = inference.main(argv, make_figures=False)
+    assert dsconv.ds_conv.launches == n0 + 3 * 2     # 3 sites x 2 volumes
+    assert dice.shape == (2,) and np.isfinite(dice).all() and len(times) == 2
+    _, _, files = load_split_csv(cfg.split_csv, cfg.dataset, cfg.data_root)
+    for f in files:
+        case = Path(f["label"]).parent.name
+        out = nifti.load(str(Path(cfg.results_folder_path)
+                             / "inferred_segmentations_nifti" / case
+                             / Path(f["label"]).name))
+        ref = nifti.load(f["label"])
+        assert out.data.shape == ref.data.shape
+        np.testing.assert_allclose(out.affine, ref.affine)
+    loader = DataLoader(CacheDataset(files, get_transforms(
+        cfg.pad_crop_shape_test)[2]))
+    plain, _ = run_inference(dataclasses.replace(
+        cfg, results_folder_name="plain"), model, loader, device=dev,
+        export=False, make_figures=False, use_kernels=False)
+    np.testing.assert_allclose(dice, plain, atol=1e-2)

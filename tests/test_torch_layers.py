@@ -231,9 +231,11 @@ def test_port_imports_no_jax():
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'optax', 'vs_seg_tpu')]\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'msgpack', 'vs_seg_tpu')]\n"
         "assert not bad, bad\n"
         "assert 'vs_seg_tpu_torch.ops.conv333' in sys.modules\n"
-        "assert 'vs_seg_tpu_torch.train.trainer' in sys.modules\n")
+        "assert 'vs_seg_tpu_torch.ops.dsconv' in sys.modules\n"
+        "assert 'vs_seg_tpu_torch.train.trainer' in sys.modules\n"
+        "assert 'vs_seg_tpu_torch.cli.inference' in sys.modules\n")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120,
                    cwd=str(__import__("pathlib").Path(__file__).parents[1]))

@@ -225,13 +225,18 @@ def test_dice_score_matches_jax():
 
 
 def test_config_defaults_match_jax():
-    """Every field the port's Config has keeps the JAX default and debug
-    override; the derived model path is the same."""
+    """Every field the port's Config shares with JAX keeps the JAX default
+    and debug override (`device` and `routes` are the port's own, standing
+    for what JAX selects through its environment); the derived paths are
+    the same."""
     for debug in (False, True):
         j, t = JConfig(debug=debug), Config(debug=debug)
         for f in dataclasses.fields(Config):
+            if f.name in ("device", "routes"):
+                continue
             assert getattr(t, f.name) == getattr(j, f.name), f.name
-        assert t.model_path == j.model_path
+        for path in ("model_path", "logs_path", "figures_path"):
+            assert getattr(t, path) == getattr(j, path)
 
 
 def test_to_device_batch_matches_jax():

@@ -1,8 +1,10 @@
 """vs_seg_tpu_torch: the PyTorch + CUDA port of vs_seg_tpu, for one H100.
 
 The JAX package `vs_seg_tpu` stays the reference; this package mirrors its
-layout (`nn/`, `models/`, `ops/`, `infer/`) so each counterpart sits under
-the same path. It imports torch and numpy only, never jax or vs_seg_tpu.
+layout (`nn/`, `models/`, `ops/`, `infer/`, `train/`, `data/`, `eval/`,
+`core/`, `compat/`) so each counterpart sits under the same path, and
+`cli/inference.py` is the counterpart of VS_inference.py. It imports torch,
+numpy and scipy only, never jax, flax, msgpack or vs_seg_tpu.
 
 Conventions shared with the JAX package:
   - activations are (N, D, H, W, C), depth adjacent to batch;

@@ -1,9 +1,12 @@
 """Explicit device selection: the caller names the device, and a CUDA device
-that is not there is an error, never a silent move to the CPU."""
+that is not there is an error, never a silent move to the CPU. `DTYPES` maps
+the configuration's dtype names (compute_dtype, infer_dtype) to torch's."""
 
 from __future__ import annotations
 
 import torch
+
+DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
 def resolve_device(device) -> torch.device:

@@ -13,17 +13,19 @@ The loop per volume: gather a batch of windows -> predictor -> blend the
 batch into f32 accumulators (ops/blend.py: the hand-written kernel on CUDA)
 -> out / w -> crop -> (H, W, D, O).
 
-The port runs the JAX package's main-path configuration only: the predictor
+The port runs the JAX package's main-path configuration: the predictor
 takes the model's D-first (N, D, H, W, C) windows (JAX predictor_layout=
-"dfirst") and the blend is Gaussian. JAX's shape bucketing and transfer
-dtypes other than float32/uint8 have no caller in the port yet.
+"dfirst") and the blend is Gaussian. `stage_volume` has the JAX package's
+shape bucketing (window placement stays on the unbucketed extent, so results
+are bit-identical) and transfer dtypes (float32, a bf16/f16 cast rounded on
+the host, or uint8 quantization).
 """
 
 from __future__ import annotations
 
 import math
 from functools import lru_cache
-from typing import Callable, Sequence, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -117,20 +119,30 @@ class StagedVolume:
 
 def stage_volume(volume: np.ndarray, roi_size: Sequence[int], *, device,
                  overlap: float = 0.25, sw_batch_size: int = 4,
+                 bucket: Optional[Sequence[int]] = None,
+                 transfer_dtype: Optional[torch.dtype] = None,
                  quantize: bool = False) -> StagedVolume:
     """Host prep + upload: D-first transpose, pad to roi, window placement,
     optional uint8 quantization of the transfer (max error ~0.02 of the
     value range, below bf16 resolution for the predictor's bf16 compute).
 
-    volume: (H, W, D, C) host array; roi_size in (H, W, D). The padded
-    D-first buffer is filled on the host (pinned when `device` is CUDA) and
-    copied with one non_blocking copy; without quantize it is float32."""
+    volume: (H, W, D, C) host array; roi_size and `bucket` in (H, W, D).
+    `bucket` rounds the padded shape up to multiples of it; the margin gets
+    no window and lies outside the crops. `transfer_dtype` (torch.bfloat16
+    or torch.float16) casts the buffer on the host, rounding to nearest
+    even as the JAX package's host cast does; quantize takes precedence.
+    The padded D-first buffer is filled on the host (pinned when `device`
+    is CUDA) and copied with one non_blocking copy."""
     device = resolve_device(device)
     volume = np.asarray(volume, dtype=np.float32)
     if volume.ndim != 4:
         raise ValueError(f"expected (H, W, D, C), got {volume.shape}")
     roi_size = tuple(int(r) for r in roi_size)
     roi_size = (roi_size[2], roi_size[0], roi_size[1])
+    if bucket is not None:
+        bucket = (int(bucket[2]), int(bucket[0]), int(bucket[1]))
+    cast = (not quantize and transfer_dtype is not None
+            and transfer_dtype != torch.float32)
     dequant = None
     pad_value = 0
     if quantize:
@@ -157,6 +169,8 @@ def stage_volume(volume: np.ndarray, roi_size: Sequence[int], *, device,
         crops.append((half, half + dim))
     padded_shape = [d + p0 + p1 for d, (p0, p1) in zip(src.shape[:3], pads)]
     starts = dense_patch_starts(tuple(padded_shape), roi_size, overlap)
+    if bucket is not None:
+        padded_shape = [p + (-p) % b for p, b in zip(padded_shape, bucket)]
 
     n = starts.shape[0]
     n_pad = -(-n // sw_batch_size) * sw_batch_size
@@ -167,7 +181,7 @@ def stage_volume(volume: np.ndarray, roi_size: Sequence[int], *, device,
 
     shape = (*padded_shape, src.shape[3])
     host = torch.from_numpy(np.empty(shape, out_dtype))
-    if device.type == "cuda":
+    if device.type == "cuda" and not cast:
         host = host.pin_memory()
     buf = host.numpy()
     buf.fill(pad_value)
@@ -180,6 +194,10 @@ def stage_volume(volume: np.ndarray, roi_size: Sequence[int], *, device,
         block = src
     buf[a0:a0 + src.shape[0], b0:b0 + src.shape[1],
         c0:c0 + src.shape[2]] = block
+    if cast:
+        host = host.to(transfer_dtype)
+        if device.type == "cuda":
+            host = host.pin_memory()
     vol_dev = host.to(device, non_blocking=True)
     return StagedVolume(vol_dev, crops, starts_padded, mask, roi_size,
                         dequant)

@@ -33,7 +33,9 @@ opt-in env gates) sends them to kernels: rublock2d the encoder units
 (ops/tail2d.py, a1 from the library conv) before l2block2d
 (ops/block2d.py:l2_block2d, the i == 0 logit head included). A block route
 replaces upatt_i + up_i, whose chain is then not computed; att_fuse takes
-the upatt_i sites no block route took (AttentionBlock1). As in the JAX package,
+the upatt_i sites no block route took (AttentionBlock1), and dsconv the
+(3,3,3) stride-(2,2,2) downsample_i (Convolution -> ops/dsconv.py; the
+flagship's downsample_2/3/4). As in the JAX package,
 the port routes on semantics alone: the TPU kernels' tiling preconditions
 are not copied. With use_kernels=False every routed site runs its kernels'
 plain PyTorch twins instead; on CPU tensors both choices run the plain
@@ -123,8 +125,8 @@ class UNet2d5_spvPA(nn.Module):
         for i in range(n):
             x = getattr(self, f"down_{i}")(x, generator=generator, **kw)
             skips.append(x)
-            x = getattr(self, f"downsample_{i}")(
-                x, use_kernels=use_kernels, train=train, generator=generator)
+            x = getattr(self, f"downsample_{i}")(x, generator=generator,
+                                                 **kw)
         att_maps = []
         if self.attention_module:
             att, x = self.bottom_att(x, gate=True, **kw)

@@ -2,7 +2,8 @@
 
   Convolution     eval: conv (or transpose conv) -> folded BatchNorm -> act;
                   train: conv -> BatchNorm (batch stats) -> Dropout -> act;
-                  or conv_only
+                  or conv_only; with Routes.dsconv the eval (3,3,3)
+                  stride-(2,2,2) ones run as ops/dsconv.py:ds_conv
   ResidualUnit    `subunits` Convolutions + residual (1x1 conv when the
                   channels change); the conv-only logit head folds its
                   residual into the conv (the JAX `_headfold_apply` algebra);
@@ -41,7 +42,7 @@ from vs_seg_tpu_torch.nn.layers import (
     same_padding,
 )
 from vs_seg_tpu_torch.ops import att as fused_att
-from vs_seg_tpu_torch.ops import block2d, rublock
+from vs_seg_tpu_torch.ops import block2d, dsconv, rublock
 
 
 def folded_conv_affine(unit: "Convolution"):
@@ -76,11 +77,36 @@ class Convolution(nn.Module):
                         else None)
         self.act = PReLU(device=device) if self.act_name == "prelu" else None
 
+    def _dsconv(self, x, train: bool, routes: Routes) -> bool:
+        """The eval sites ops/dsconv.py takes under routes.dsconv: a (3,3,3)
+        stride-(2,2,2) conv on one input, act PReLU/ReLU/none (the
+        semantics of vs_seg_tpu/nn/blocks.py:_dsconv_fusable; its Mosaic
+        shape gate is not copied)."""
+        conv = self.conv
+        return (routes.dsconv and not train and not self.conv_only
+                and isinstance(conv, Conv3d)
+                and not isinstance(x, (tuple, list))
+                and conv.kernel_size == (3, 3, 3)
+                and conv.strides == (2, 2, 2) and conv.padding == (1, 1, 1)
+                and self.act_name in ("prelu", "relu", None))
+
     def forward(self, x, use_kernels: bool = True, train: bool = False,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                routes: Routes = Routes()):
         kw = dict(train=train, use_kernels=use_kernels)
         if self.conv_only:
             return self.conv(x, **kw)
+        if self._dsconv(x, train, routes):
+            if self.norm is not None:
+                scale, shift = folded_conv_affine(self)
+            else:
+                scale, shift = None, self.conv.bias
+            alpha = (self.act.alpha if self.act_name == "prelu"
+                     else torch.zeros(1, device=x.device)
+                     if self.act_name == "relu" else None)
+            fn = dsconv.ds_conv if use_kernels else dsconv.ds_conv_plain
+            return fn(x.to(self.conv.dtype), self.conv.kernel, scale, shift,
+                      alpha)
         if train:
             y = self.conv(x, **kw)
             if self.norm is not None:
@@ -180,7 +206,8 @@ class ResidualUnit(nn.Module):
                       br=self.residual.bias)
         cx = x
         for su in range(self.subunits):
-            cx = getattr(self, f"unit{su}")(cx, use_kernels, train, generator)
+            cx = getattr(self, f"unit{su}")(cx, use_kernels, train, generator,
+                                            routes)
         if self.residual is not None:
             res = self.residual(x, train=train, use_kernels=use_kernels)
         else:

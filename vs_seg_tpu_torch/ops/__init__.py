@@ -15,6 +15,8 @@ and their plain PyTorch twins:
   att.py      fused_attention_gate
                              <- vs_seg_tpu/ops/experimental/pallas_att.py:
                                 fused_attention_gate (csrc/attgate.cu)
+  dsconv.py   ds_conv        <- vs_seg_tpu/ops/experimental/pallas_dsconv.py:
+                                ds_conv (csrc/dsconv.cu)
   blend.py    blend_scatter  <- vs_seg_tpu/ops/pallas_blend.py:
                                 pallas_blend_scatter
   conv333_dw.py  conv333_dw  <- vs_seg_tpu/ops/experimental/pallas_train.py:

@@ -29,12 +29,10 @@ import numpy as np
 import torch
 from torch import nn
 
-from vs_seg_tpu_torch.core.device import resolve_device
+from vs_seg_tpu_torch.core.device import DTYPES, resolve_device
 from vs_seg_tpu_torch.eval.metrics import dice_score
 from vs_seg_tpu_torch.losses.dice import dice_spvpa_loss
 from vs_seg_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
-
-DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
 def make_optimizer(params: Iterable[torch.Tensor], learning_rate: float,

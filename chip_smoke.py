@@ -11,7 +11,9 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
      build/vs_seg_tpu_torch/.
   2. Each hand-written kernel against its plain PyTorch twin on the card, at
      the flagship shapes of the whole-volume path (batch of 8 windows of
-     384x384x64, D-first): conv333 single and pair+residual, attgate,
+     384x384x64, D-first): the ring probe (csrc/ring.cuh, one (16,128) f32
+     plane per depth slice of the volume, bit-equal), conv333 single and
+     pair+residual, attgate,
      ru_block at down_2/down_3, l2_block at up_2/up_3, and the blend over
      the full 448x448x80 volume with its 8 overlapping windows. Kernel and
      plain times come from CUDA events.
@@ -60,6 +62,11 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
      back with the original affine and shape, labelmaps and Dice of the
      two paths agree, and each path's compute seconds per volume. Figures
      are drawn when matplotlib is installed.
+ 11. conv333 at each of its sites (CONV_SITES): the 14 launches of one
+     8-window forward, the 7 kd = 1 conv sites of configuration A and three
+     train dgrad shapes, each against its plain twin, with the kernel's
+     time, one channels-last F.conv3d's, the bound, TFLOP/s and GB/s, and
+     the host's enqueue time of one call at the bottom site.
 
 The kernels are built in parallel, one nvcc per source. Every kernel record
 carries its time, its plain twin's, the time of one library call computing
@@ -197,7 +204,8 @@ def kernel_checks(dev, gen):
 
     from vs_seg_tpu_torch.infer.sliding_window import (
         dense_patch_starts, gaussian_importance_map)
-    from vs_seg_tpu_torch.ops import blend, conv333, l2block, rublock
+    from vs_seg_tpu_torch.ops import (blend, conv333, l2block, ring_probe,
+                                      rublock)
 
     def randn(*shape):
         return torch.randn(shape, generator=gen).to(dev, torch.bfloat16)
@@ -228,6 +236,22 @@ def kernel_checks(dev, gen):
 
     rec = {}
     B = SW_BATCH
+    # the ring probe (csrc/ring.cuh): one plane per depth slice of the
+    # volume, bit-equal to its twin; drawn from its own generator, so the
+    # later phases' draws (the model's weights among them) stay as they were
+    xp = torch.randn((VOLUME[2] * 16, 128),
+                     generator=torch.Generator().manual_seed(SEED + 1)).to(dev)
+    got = ring_probe.ring_probe(xp)
+    e0 = compare(f"ring_probe {VOLUME[2]} planes of (16,128) f32", got,
+                 ring_probe.ring_probe_plain(xp), 0.0)
+    if not torch.equal(got, ring_probe.ring_probe_plain(xp)):
+        raise AssertionError("ring_probe: not bit-equal to its twin")
+    rec["ring_probe"] = dict(
+        max_abs_err=e0, shape=f"{VOLUME[2]} planes of (16,128) f32",
+        ms=cuda_ms(lambda: ring_probe.ring_probe(xp)),
+        plain_ms=cuda_ms(lambda: ring_probe.ring_probe_plain(xp)),
+        library_ms=None,
+        bound=bound(2 * nbytes(xp), f32_flop=3 * xp.numel()))
     # conv333, single input + epilogue, at down_2 unit0 (32 -> 48)
     x = randn(B, 64, 96, 96, 32)
     w = weight((3, 3, 3), 32, 48)
@@ -355,8 +379,8 @@ def kernel_checks(dev, gen):
 
 def _wrappers():
     from vs_seg_tpu_torch.ops import (att, blend, block2d, conv333,
-                                      conv333_dw, dsconv, l2block, rublock,
-                                      tail2d)
+                                      conv333_dw, dsconv, l2block, ring_probe,
+                                      rublock, tail2d)
     return {"conv333": conv333.conv333, "attgate": l2block.attgate,
             "ru_block": rublock.ru_block, "l2_block": l2block.l2_block,
             "blend_scatter": blend.blend_scatter,
@@ -365,12 +389,13 @@ def _wrappers():
             "l2_block2d": block2d.l2_block2d,
             "tail_block": tail2d.tail_block,
             "fused_attention_gate": att.fused_attention_gate,
-            "ds_conv": dsconv.ds_conv}
+            "ds_conv": dsconv.ds_conv, "ring_probe": ring_probe.ring_probe}
 
 
-# launches of the routed kernels in a run that takes no route
+# launches of the routed kernels in a run that takes no route (and of the
+# ring probe, which is on no path)
 NO_KD1 = {"ru_block2d": 0, "l2_block2d": 0, "tail_block": 0,
-          "fused_attention_gate": 0, "ds_conv": 0}
+          "fused_attention_gate": 0, "ds_conv": 0, "ring_probe": 0}
 
 
 def reset_counts():
@@ -882,7 +907,7 @@ def routes_run(dev, gen, card: str, model, staged, default_logits):
     from vs_seg_tpu_torch.infer.sliding_window import sliding_window_inference
 
     base = {"ru_block": 4, "l2_block": 3, "blend_scatter": 1,
-            "conv333_dw": 0, "ds_conv": 0}
+            "conv333_dw": 0, "ds_conv": 0, "ring_probe": 0}
     configs = {
         # ru_block2d x 2 (2 conv333 each), tail_block at up_1 (1 attgate +
         # 1 conv333), l2_block2d at the up_0 head (1 attgate + 2 conv333)
@@ -1021,6 +1046,147 @@ def dsconv_checks(dev, gen, card: str):
     return {"ds_conv": rec}
 
 
+# conv333's sites for the sweep of phase 11: (site, (N, D, H, W), input
+# channels (a pair has two), Cout, kd, residual input channels (None: no
+# residual; "x": the conv's own input, as the decoder blocks pass it),
+# epilogue: "bn" scale/shift/PReLU, "relu" bias + ReLU, "head" bias only,
+# "none" the bare conv of a dgrad)
+# level i of one window batch (D-first; levels 0-2 keep D, then it halves)
+_L = {i: (SW_BATCH, ROI[2] >> max(0, i - 2), ROI[0] >> i, ROI[1] >> i)
+      for i in range(6)}
+_BOT = _L[5]
+CONV_SITES = (
+    # the 14 conv333 launches of one 8-window forward (default routes):
+    # ru_block at down_2/3/4 and the bottom (conv0, then conv1 + residual
+    # from the block input), l2_block at up_2/3/4 (conv1 + ReLU, then the
+    # gated pair's conv0 + its pair residual)
+    ("down_2 unit0", _L[2], (32,), 48, 3, None, "bn"),
+    ("down_2 unit1", _L[2], (48,), 48, 3, (32,), "bn"),
+    ("down_3 unit0", _L[3], (48,), 64, 3, None, "bn"),
+    ("down_3 unit1", _L[3], (64,), 64, 3, (48,), "bn"),
+    ("down_4 unit0", _L[4], (64,), 80, 3, None, "bn"),
+    ("down_4 unit1", _L[4], (80,), 80, 3, (64,), "bn"),
+    ("bottom unit0", _BOT, (80,), 96, 3, None, "bn"),
+    ("bottom unit1", _BOT, (96,), 96, 3, (80,), "bn"),
+    ("up_2 conv1", _L[2], (48, 48), 48, 3, None, "relu"),
+    ("up_2 conv0", _L[2], (48, 48), 48, 3, "x", "bn"),
+    ("up_3 conv1", _L[3], (64, 64), 64, 3, None, "relu"),
+    ("up_3 conv0", _L[3], (64, 64), 64, 3, "x", "bn"),
+    ("up_4 conv1", _L[4], (80, 80), 80, 3, None, "relu"),
+    ("up_4 conv0", _L[4], (80, 80), 80, 3, "x", "bn"),
+    # the kd = 1 conv sites of configuration A (ru_block2d at down_0/1,
+    # tail_block at up_1, l2_block2d at the up_0 logit head)
+    ("A down_0 unit0", _L[0], (1,), 16, 1, None, "bn"),
+    ("A down_0 unit1", _L[0], (16,), 16, 1, (1,), "bn"),
+    ("A down_1 unit0", _L[1], (16,), 32, 1, None, "bn"),
+    ("A down_1 unit1", _L[1], (32,), 32, 1, (16,), "bn"),
+    ("A up_1 tail conv0", _L[1], (32, 32), 32, 1, "x", "bn"),
+    ("A up_0 conv1", _L[0], (16, 16), 16, 1, None, "relu"),
+    ("A up_0 head conv0", _L[0], (16, 16), 2, 1, "x", "head"),
+    # the train dgrad (batch 1): dx = conv(dy, flipped w^T), no epilogue
+    ("dgrad down_2 unit0", (1,) + _L[2][1:], (48,), 32, 3, None, "none"),
+    ("dgrad up_3 half", (1,) + _L[3][1:], (64,), 64, 3, None, "none"),
+    ("dgrad bottom unit0", (1,) + _BOT[1:], (96,), 80, 3, None, "none"),
+)
+
+
+def conv333_sweep(dev, card: str):
+    """Phase 11: conv333 at each of its sites against its plain twin, with
+    kernel, F.conv3d (channels-last) and bound times; the host's enqueue
+    time of one call at the bottom site. Inputs are drawn on the card from
+    a seeded generator (the level-0 sites hold 1.2 G values)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from vs_seg_tpu_torch.ops import conv333
+
+    gen = torch.Generator(dev).manual_seed(SEED)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev,
+                           dtype=torch.bfloat16)
+
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, device=dev)
+
+    rows = []
+    for site, shape, cins, cout, kd, res, epi in CONV_SITES:
+        xs = tuple(randn(*shape, c) for c in cins)
+        x = xs if len(xs) > 1 else xs[0]
+        b = 1.0 / np.sqrt(9 * kd * sum(cins))
+        w = (rand(3, 3, kd, sum(cins), cout) * 2 - 1) * b
+
+        def vec(c, lo, hi):
+            return rand(c) * (hi - lo) + lo
+
+        args = {"bn": (vec(cout, .5, 1.5), vec(cout, -.2, .2),
+                       vec(1, .1, .3)),
+                "relu": (None, vec(cout, -.2, .2),
+                         torch.zeros(1, device=dev)),
+                "head": (None, vec(cout, -.2, .2), None),
+                "none": (None, None, None)}[epi]
+        resid, rin = None, ()
+        if res is not None:
+            rin = xs if res == "x" else tuple(randn(*shape, c) for c in res)
+            cr = sum(v.shape[-1] for v in rin)
+            resid = (rin if len(rin) > 1 else rin[0],
+                     (rand(1, 1, 1, cr, cout) * 2 - 1) / np.sqrt(cr),
+                     vec(cout, -.2, .2))
+
+        def run():
+            return conv333.conv333(x, w, *args, residual=resid)
+
+        got = run()
+        err = compare(f"conv333 sweep {site}", got,
+                      conv333.conv333_plain(x, w, *args, residual=resid),
+                      KERNEL_TOL)
+        k_ms = cuda_ms(run)
+        # the library yardstick: one cuDNN conv of the (concatenated) input,
+        # channels-last, without the residual
+        xc = torch.cat(xs, -1) if len(xs) > 1 else xs[0]
+        wt = w.to(torch.bfloat16).permute(4, 3, 2, 0, 1).contiguous()
+        lib_ms = cuda_ms(lambda: F.conv3d(xc.permute(0, 4, 1, 2, 3), wt,
+                                          padding=(kd // 2, 1, 1)))
+        vox = xc[..., 0].numel()
+        cr = sum(v.shape[-1] for v in rin)
+        flop = 2 * vox * cout * (9 * kd * sum(cins) + cr)
+        moved = nbytes(*xs, w, got, *(t for t in args if t is not None))
+        if resid is not None:
+            moved += nbytes(resid[1], resid[2])
+            if res != "x":
+                moved += nbytes(*rin)
+        bd = bound(moved, flop)
+        row = dict(site=site, shape=[*shape], cin=list(cins), cout=cout,
+                   kd=kd, residual=cr, ms=k_ms, conv3d_ms=lib_ms,
+                   bound_ms=bd[0], bound_by=bd[1], tflops=flop / k_ms / 1e9,
+                   gbs=moved / k_ms / 1e6, max_abs_err=err)
+        if site.startswith("bottom unit1"):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(REPS):
+                run()
+            row["host_enqueue_ms"] = (time.perf_counter() - t) * 1e3 / REPS
+            torch.cuda.synchronize()
+        rows.append(row)
+        log(f"  {site} {tuple(shape)} {cins}->{cout} kd {kd} res {cr}: "
+            f"kernel {k_ms!r} ms, F.conv3d {lib_ms!r} ms, bound {bd[0]!r} "
+            f"ms ({bd[1]}), {row['tflops']!r} TFLOP/s, {row['gbs']!r} GB/s"
+            + (f", host enqueue {row['host_enqueue_ms']!r} ms/call"
+               if "host_enqueue_ms" in row else "") + f" on {card}")
+        del xs, x, rin, resid, got, xc
+    torch.cuda.synchronize()
+    for part in ("eval", "A ", "dgrad"):
+        sel = [r for r in rows if (r["site"].startswith(part) if part != "eval"
+                                   else not r["site"].startswith(("A ", "dgrad")))]
+        log(f"  conv333 {part.strip()} sites: kernel "
+            f"{sum(r['ms'] for r in sel)!r} ms, F.conv3d "
+            f"{sum(r['conv3d_ms'] for r in sel)!r} ms, bound "
+            f"{sum(r['bound_ms'] for r in sel)!r} ms over {len(sel)} sites "
+            f"on {card}")
+    return rows
+
+
 CLI_CASES = 2            # synthetic test cases of phase 10
 
 
@@ -1075,7 +1241,7 @@ def cli_run(dev, card: str, model):
         "l2_block": 3 * forwards, "attgate": 3 * forwards,
         "conv333": EVAL_CONV333 * forwards, "blend_scatter": forwards,
         "conv333_dw": 0, "ru_block2d": 0, "l2_block2d": 0, "tail_block": 0,
-        "fused_attention_gate": 0}, "CLI (--routes dsconv)")
+        "fused_attention_gate": 0, "ring_probe": 0}, "CLI (--routes dsconv)")
 
     # the plain path: same data, weights and routes, every kernel site on
     # its plain twin, exported beside the kernel path's results
@@ -1148,7 +1314,12 @@ def main() -> int:
     log(f"python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
-    names = ("conv333", "conv333_dw", "attgate", "blend", "dsconv")
+
+    def phase(msg: str) -> None:
+        log(f"{msg} [{time.perf_counter() - t0:.1f} s]")
+
+    names = ("conv333", "conv333_dw", "attgate", "blend", "dsconv",
+             "ring_probe")
     with ThreadPoolExecutor(len(names)) as pool:   # one nvcc per source
         list(pool.map(_build.build, names))
     for name in names:
@@ -1157,27 +1328,30 @@ def main() -> int:
         f"(nvcc seconds {_build.BUILD_SECONDS})")
 
     gen = torch.Generator().manual_seed(SEED)
-    log("phase 2: kernels vs plain twins at flagship shapes")
+    phase("phase 2: kernels vs plain twins at flagship shapes")
     rec = kernel_checks(dev, gen)
-    log("phase 3: flagship whole-volume inference")
+    phase("phase 3: flagship whole-volume inference")
     infer_counts, model, staged, default_logits = model_run(dev, gen, card)
-    log("phase 5: training kernels vs plain twins")
+    phase("phase 5: training kernels vs plain twins")
     rec.update(train_kernel_checks(dev, gen, card))
-    log("phase 6: flagship training at full width")
+    phase("phase 6: flagship training at full width")
     train_counts = train_run(dev, card)
-    log("phase 7: kd = 1 route kernels vs plain twins at flagship shapes")
+    phase("phase 7: kd = 1 route kernels vs plain twins at flagship shapes")
     rec.update(kd1_kernel_checks(dev, gen, card))
-    log("phase 8: flagship whole-volume inference under route "
-        "configurations A, B and C")
+    phase("phase 8: flagship whole-volume inference under route "
+          "configurations A, B and C")
     route_counts = routes_run(dev, gen, card, model, staged, default_logits)
     del staged, default_logits
-    log("phase 9: ds_conv vs its plain twin at the flagship's downsample "
-        "sites")
+    phase("phase 9: ds_conv vs its plain twin at the flagship's downsample "
+          "sites")
     rec.update(dsconv_checks(dev, gen, card))
-    log("phase 10: the inference CLI end to end (NIFTI in, Dice + NIFTI "
-        "out) under --routes dsconv, and the plain path")
+    phase("phase 10: the inference CLI end to end (NIFTI in, Dice + NIFTI "
+          "out) under --routes dsconv, and the plain path")
     cli_counts = cli_run(dev, card, model)
     del model
+    phase("phase 11: conv333 at each of its sites (one 8-window forward, "
+          "configuration A's kd = 1 sites, the train dgrad)")
+    conv333_sweep(dev, card)
     counts = {k: infer_counts[k] + train_counts[k] + route_counts[k]
               + cli_counts[k] for k in infer_counts}
     for k, r in rec.items():
@@ -1203,6 +1377,7 @@ def main() -> int:
         "tail_block": ("tail2d.py", exp + "pallas_tail2d.py:239"),
         "fused_attention_gate": ("att.py", exp + "pallas_att.py:146"),
         "ds_conv": ("csrc/dsconv.cu", exp + "pallas_dsconv.py:145"),
+        "ring_probe": ("csrc/ring_probe.cu", "tools/ring_probe.py:45"),
     }
     kernels = [{"name": k, "route": "cuda", "source": pkg + meta[k][0],
                 "replaces": meta[k][1], "launches": counts[k],

@@ -12,8 +12,9 @@ without the JAX test setup:
 
 Tolerance: bf16 kernel vs plain twin, max|diff| <= 2e-2 * max|plain| (both
 round to bf16 at different points and sum in different orders); the blend
-is exact (same f32 operation order); conv333_dw and its twin sum the same
-exact bf16 products in float32 in other orders: 1e-4.
+is exact (same f32 operation order), and so is the ring probe; conv333_dw
+and its twin sum the same exact bf16 products in float32 in other orders:
+1e-4.
 """
 
 import numpy as np
@@ -21,8 +22,8 @@ import pytest
 import torch
 
 from vs_seg_tpu_torch.ops import (att, blend, block2d, conv333, conv333_dw,
-                                  dsconv, l2block, rublock, tail2d,
-                                  train_conv)
+                                  dsconv, l2block, ring_probe, rublock,
+                                  tail2d, train_conv)
 
 TOL = 2e-2
 DW_TOL = 1e-4
@@ -68,6 +69,9 @@ def _check(got, ref, tol=TOL):
     ((1, 4, 16, 16), (24, 40), 80, True),     # pair, two Cout tiles
     ((1, 2, 12, 20), (3,), 130, False),       # > 2 Cout tiles
     ((2, 1, 8, 16), (16,), 16, True),         # single depth plane
+    ((1, 1, 16, 16), (16,), 32, True),        # a single 16x16 tile
+    # 402 tiles: more than the persistent grid and not a multiple of it
+    ((1, 67, 32, 48), (32,), 48, True),
 ])
 def test_conv333_kernel_matches_plain(dev, shape, cins, cout, res):
     g = _g()
@@ -82,6 +86,31 @@ def test_conv333_kernel_matches_plain(dev, shape, cins, cout, res):
     got = conv333.conv333(x, *args, residual=residual)
     assert conv333.conv333.launches == n0 + 1
     _check(got, conv333.conv333_plain(x, *args, residual=residual))
+
+
+def test_conv333_kernel_is_deterministic(dev):
+    """Two calls are bit-equal: each output is summed by one block in a
+    fixed order, whatever the order in which the persistent blocks run."""
+    g = _g()
+    x = _x(g, dev, 2, 37, 40, 24, 48)
+    w = _w(g, dev, (3, 3, 3), 48, 80)
+    args = (w, _v(g, dev, 80, .5, 1.5), _v(g, dev, 80, -.2, .2),
+            _v(g, dev, 1, .1, .3))
+    residual = (x, _w(g, dev, (1, 1, 1), 48, 80), _v(g, dev, 80, -.2, .2))
+    a = conv333.conv333(x, *args, residual=residual)
+    b = conv333.conv333(x, *args, residual=residual)
+    assert torch.equal(a, b)
+    _check(a, conv333.conv333_plain(x, *args, residual=residual))
+
+
+@pytest.mark.parametrize("d", [1, 2, 5, 64])
+def test_ring_probe_kernel_is_bit_equal(dev, d):
+    """The TMA ring (slot reuse, zero-filled plane past the end)."""
+    x = torch.randn((d * 16, 128), generator=_g()).to(dev)
+    n0 = ring_probe.ring_probe.launches
+    got = ring_probe.ring_probe(x)
+    assert ring_probe.ring_probe.launches == n0 + 1
+    assert torch.equal(got, ring_probe.ring_probe_plain(x))
 
 
 def test_conv333_kernel_rejects_float32(dev):
@@ -184,6 +213,8 @@ def test_conv333_train_backward_matches_plain_autograd(dev):
 @pytest.mark.parametrize("shape,cins,cout,res", [
     ((2, 3, 9, 13), (1,), 16, False),         # Cin = 1 (down_0 unit0)
     ((1, 2, 12, 20), (8, 8), 2, True),        # pair + residual, Cout = 2
+    ((1, 3, 16, 16), (16,), 2, False),        # Cout = 2: N = 8
+    ((2, 2, 20, 24), (16, 16), 16, True),     # pair + pair residual
 ])
 def test_conv333_kd1_kernel_matches_plain(dev, shape, cins, cout, res):
     g = _g()

@@ -105,7 +105,7 @@ def test_conv333_residual_form(pair):
 @pytest.mark.parametrize("cins,cout", [((48,), 48), ((12, 20), 33),
                                        ((80, 80), 80)])
 def test_packed_weights_layout(cins, cout):
-    """The packed (taps, kp, cop) weight the CUDA kernel reads, contracted in
+    """The packed (taps, kp, cop) weight csrc/dsconv.cu reads, contracted in
     the kernel's order (per input, per tap, over the padded channel block),
     equals the plain conv: pins the tap order and the channel/Cout padding."""
     rng = np.random.default_rng(2)
@@ -134,6 +134,93 @@ def test_packed_weights_layout(cins, cout):
                                 w.to(torch.bfloat16).float())
     assert _rel_err(out[..., :cout], ref.numpy()) <= 1e-5
     assert not out[..., cout:].any()   # padded Cout columns stay zero
+
+
+@pytest.mark.parametrize("cins,cout,kd", [
+    ((48,), 48, 3), ((80, 80), 80, 3),
+    ((1,), 16, 1),                # Cin 1 (down_0 unit0)
+    ((16, 16), 2, 1),             # the logit head: N = 8
+    ((5,), 7, 3),                 # nothing aligned
+    ((3,), 130, 3),               # two N tiles of 80
+])
+def test_packed_weights_gmma_layout(cins, cout, kd):
+    """The wgmma-layout weight csrc/conv333.cu reads (main and residual),
+    contracted in the kernel's order (N tile, 16-channel chunk, depth tap,
+    tap, core matrix), equals the plain conv: pins the chunk and tap order,
+    the core-matrix layout and the channel/Cout padding."""
+    rng = np.random.default_rng(7)
+    shape = (1, 3, 5, 6)
+    xs = [T(rng.normal(size=(*shape, c)).astype(np.float32)) for c in cins]
+    w = T(_w(rng, (3, 3, kd), sum(cins), cout))
+    wr = T(_w(rng, (1, 1, 1), sum(cins), cout))
+    n_t, cop = conv333._ntile(cout)
+    assert n_t in conv333.N_TILES and cop % n_t == 0 and cop >= cout
+    assert cop - cout < 16 * (cop // n_t)
+    wm = conv333.pack_weights_gmma(w, cins, n_t).float()
+    wrm = conv333.pack_weights_gmma(wr, cins, n_t).float()
+    chunks = sum(-(-c // 16) for c in cins)
+    assert tuple(wm.shape) == (cop // n_t, chunks, kd, 9, n_t // 8, 2, 8, 8)
+    assert tuple(wrm.shape) == (cop // n_t, chunks, 1, 1, n_t // 8, 2, 8, 8)
+    n, d, h, wd = shape
+    out = torch.zeros((*shape, cop))
+    res = torch.zeros((*shape, cop))
+    for nt in range(cop // n_t):
+        cols = slice(nt * n_t, (nt + 1) * n_t)
+        j = 0
+        for x in xs:
+            c = x.shape[-1]
+            xc = torch.nn.functional.pad(x, (0, -(-c // 16) * 16 - c))
+            xp = torch.nn.functional.pad(xc, (0, 0, 1, 1, 1, 1, kd // 2,
+                                              kd // 2))
+            for c0 in range(0, xc.shape[-1], 16):
+                # [ng, half, row co, ci] -> (16 ci, n_t co)
+                def slab(t):
+                    return t.permute(1, 3, 0, 2).reshape(16, n_t)
+                for p in range(kd):
+                    for kh in range(3):
+                        for kw in range(3):
+                            tap = xp[:, p:p + d, kh:kh + h, kw:kw + wd,
+                                     c0:c0 + 16]
+                            out[..., cols] += tap @ slab(
+                                wm[nt, j, p, kh * 3 + kw])
+                res[..., cols] += xc[..., c0:c0 + 16] @ slab(wrm[nt, j, 0, 0])
+                j += 1
+        assert j == chunks
+    xin = tuple(xs) if len(xs) > 1 else xs[0]
+    # the plain twin sees bf16-rounded weights, as the kernel does
+    ref = conv333.conv333_plain(xin, w.to(torch.bfloat16).float())
+    ref_r = conv333.conv333_plain(xin, wr.to(torch.bfloat16).float())
+    assert _rel_err(out[..., :cout], ref.numpy()) <= 1e-5
+    assert _rel_err(res[..., :cout], ref_r.numpy()) <= 1e-5
+    assert not out[..., cout:].any() and not res[..., cout:].any()
+
+
+def test_packed_weights_cache():
+    """The packed weight is cached on the weight tensor: a second call hits,
+    an in-place update (w._version) or another N misses, and a deep copy
+    of the tensor starts with no cache. ds_conv's pack shares the cache
+    under its own key."""
+    import copy
+    rng = np.random.default_rng(8)
+    w = T(_w(rng, (3, 3, 3), 16, 32))
+    p1 = conv333.packed_weights(w, "conv333", [16], 32, "cpu")
+    assert conv333.packed_weights(w, "conv333", [16], 32, "cpu") is p1
+    ds = conv333.packed_weights(w, "ds_conv", [16], 32, "cpu",
+                                pack=conv333.pack_weights)
+    assert tuple(ds.shape) == (27, 16, 32)
+    assert conv333.packed_weights(w, "conv333", [16], 32, "cpu") is p1
+    assert conv333.packed_weights(w, "ds_conv", [16], 32, "cpu",
+                                  pack=conv333.pack_weights) is ds
+    assert conv333.packed_weights(w, "conv333", [16], 48, "cpu") is not p1
+    w.add_(1)
+    p2 = conv333.packed_weights(w, "conv333", [16], 32, "cpu")
+    assert p2 is not p1
+    assert torch.equal(p2, conv333.pack_weights_gmma(w, [16], 32))
+    assert not torch.equal(p2, p1)
+    assert conv333.packed_weights(w, "conv333", [16], 32, "cpu") is p2
+    wc = copy.deepcopy(w)
+    assert not wc._vs_packed
+    assert conv333.packed_weights(wc, "conv333", [16], 32, "cpu") is not p2
 
 
 def _ru_params(rng, cin, cout):

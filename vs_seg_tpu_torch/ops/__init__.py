@@ -25,6 +25,8 @@ and their plain PyTorch twins:
                              <- vs_seg_tpu/ops/experimental/pallas_train.py:
                                 conv333_train (dx via conv333, dw/db via
                                 conv333_dw)
+  ring_probe.py  ring_probe  <- tools/ring_probe.py:_kernel (the Mosaic ring
+                                probe; csrc/ring.cuh's first user)
 
 Importing these modules builds nothing.
 """

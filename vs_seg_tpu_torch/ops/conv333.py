@@ -13,7 +13,10 @@ ops/tail2d.py at kd = 1 (the (3,3,1) "2.5D" levels).
 
 `conv333` runs the hand-written kernel (csrc/conv333.cu) for CUDA tensors and
 `conv333_plain`, the PyTorch twin, for CPU tensors; any other device raises.
-The CUDA route counts its launches in `conv333.launches`.
+The CUDA route counts its launches in `conv333.launches`. The kernel reads
+its weights in wgmma's core-matrix layout (`pack_weights_gmma`), packed once
+per weight tensor and cached on it (`packed_weights`) until the tensor is
+changed in place.
 """
 
 from __future__ import annotations
@@ -26,8 +29,13 @@ import torch.nn.functional as F
 
 from vs_seg_tpu_torch.ops import _build
 
-KC = 16        # the kernel's K chunk: input channels are padded to this
-CO_MAX = 64    # output channels per block (4 WMMA N tiles)
+KC = 16        # the kernels' K chunk: input channels are padded to this
+# csrc/dsconv.cu and csrc/conv333_dw.cu: output channels per block (4 WMMA
+# N tiles)
+CO_MAX = 64
+# csrc/conv333.cu: the N widths (output channels per block) it is built
+# for; a wider Cout is split into equal N tiles
+N_TILES = (8, 16, 32, 48, 64, 80, 96)
 
 
 def as_pair(x) -> tuple:
@@ -82,11 +90,21 @@ def conv333_plain(x, w: torch.Tensor, scale: Optional[torch.Tensor] = None,
 
 def _tiles(cout: int):
     """(nfrag, cop): 16-wide N tiles per block and the padded Cout that the
-    grid's Cout tiles cover (csrc/conv333.cu)."""
+    grid's Cout tiles cover (csrc/dsconv.cu, csrc/conv333_dw.cu)."""
     nf = -(-cout // 16)
     ntiles = -(-nf // (CO_MAX // 16))
     nfrag = -(-nf // ntiles)
     return nfrag, ntiles * nfrag * 16
+
+
+def _ntile(cout: int):
+    """(N, cop): conv333.cu's N width and the padded Cout its N tiles cover:
+    Cout split into ceil(Cout / 96) equal parts, each rounded up to the
+    next width of N_TILES."""
+    parts = -(-cout // N_TILES[-1])
+    per = -(-cout // parts)
+    n = next(t for t in N_TILES if t >= per)
+    return n, parts * n
 
 
 def _pad16(c: int) -> int:
@@ -108,6 +126,63 @@ def pack_weights(w: torch.Tensor, cins: Sequence[int], cop: int
         blocks.append(F.pad(blk, (0, cop - cout, 0, _pad16(ci) - ci)))
         c0 += ci
     return torch.cat(blocks, dim=1).to(torch.bfloat16).contiguous()
+
+
+def pack_weights_gmma(w: torch.Tensor, cins: Sequence[int], n: int
+                      ) -> torch.Tensor:
+    """(kh, kw, kd, sum Ci, Cout) -> bf16 (ntiles, chunks, kd, kh*kw, n/8,
+    2, 8, 8) as csrc/conv333.cu reads it: per N tile of n output channels,
+    per 16-channel chunk (each input's channels zero-padded to a multiple of
+    16, the inputs stacked), per depth tap, per tap kh*3 + kw, the 16 x n
+    slab as wgmma's K-major core matrices [8 output channels][8-channel
+    half][output channel][input channel]. Cout is zero-padded to
+    ntiles * n."""
+    kh, kw, kd, _, cout = w.shape
+    ntiles = -(-cout // n)
+    blocks = []
+    c0 = 0
+    for ci in cins:
+        blk = w[:, :, :, c0:c0 + ci, :]
+        blocks.append(F.pad(blk, (0, ntiles * n - cout, 0, _pad16(ci) - ci)))
+        c0 += ci
+    wp = torch.cat(blocks, dim=3)
+    chunks = wp.shape[3] // KC
+    # (kh, kw, kd, chunk, half, ci, nt, ng, co)
+    wp = wp.reshape(kh, kw, kd, chunks, 2, 8, ntiles, n // 8, 8)
+    wp = wp.permute(6, 3, 2, 0, 1, 7, 4, 8, 5)
+    return wp.reshape(ntiles, chunks, kd, kh * kw, n // 8, 2, 8, 8).to(
+        torch.bfloat16).contiguous()
+
+
+class _PackCache(dict):
+    """Packed copies of one weight tensor, by use: (key, packed). A copy or a
+    pickle of the tensor starts with an empty cache."""
+
+    def __deepcopy__(self, memo):
+        return _PackCache()
+
+    def __reduce__(self):
+        return (_PackCache, ())
+
+
+def packed_weights(w: torch.Tensor, use: str, cins: Sequence[int], n: int,
+                   device, pack=None) -> torch.Tensor:
+    """w packed for a kernel (`pack(w_on_device, cins, n)`, by default
+    pack_weights_gmma), cached on w itself under `use` and keyed by
+    (w._version, cins, n, device): an in-place update of w (an optimizer
+    step, load_state_dict) repacks; a new tensor starts with no cache."""
+    key = (w._version, tuple(int(c) for c in cins), int(n),
+           str(torch.device(device)))
+    cache = w.__dict__.get("_vs_packed")
+    if cache is None:
+        cache = w._vs_packed = _PackCache()
+    hit = cache.get(use)
+    if hit is not None and hit[0] == key:
+        return hit[1]
+    with torch.no_grad():
+        p = (pack or pack_weights_gmma)(w.detach().to(device), cins, n)
+    cache[use] = (key, p)
+    return p
 
 
 def _vec(v: Optional[torch.Tensor], cout: int, cop: int, default: float,
@@ -139,13 +214,48 @@ def _check_act(xs, name: str, ref_shape=None):
                              f"{tuple(v.shape[:4])} vs {tuple(ref_shape)}")
 
 
+def _epi(v: Optional[torch.Tensor], cout: int, dev, one: bool = False):
+    """An epilogue vector as conv333.cu reads it in place: None stays None
+    (the kernel's default), else contiguous float32 on `dev` with cout
+    entries (or 1, where `one` allows a single value)."""
+    if v is None:
+        return None
+    v = v.reshape(-1).to(dev, torch.float32)
+    if v.numel() == 1 and not one:
+        v = v.expand(cout)
+    if v.numel() not in ((1, cout) if one else (cout,)):
+        raise ValueError(f"epilogue vector has {v.numel()} entries, "
+                         f"expected 1 or {cout}")
+    return v.contiguous()
+
+
+def _tma_ready(xs, memo: dict):
+    """The activations as csrc/conv333.cu's TMA maps take them: channels a
+    multiple of 8 (zero-padded, in a copy) and a 16-byte aligned base; a
+    tensor met twice (the decoder blocks' residual is the conv's own input)
+    is prepared once."""
+    out = []
+    for v in xs:
+        got = memo.get(id(v))
+        if got is None:
+            c = int(v.shape[-1])
+            got = v
+            if c % 8:
+                got = F.pad(v, (0, 8 - c % 8))
+            elif v.data_ptr() % 16:
+                got = v.clone()
+            memo[id(v)] = got
+        out.append(got)
+    return out
+
+
 def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else ctypes.c_void_p(t.data_ptr())
 
 
 _ARGTYPES = ([ctypes.c_void_p, ctypes.c_int] * 4
-             + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10
-             + [ctypes.c_void_p])
+             + [ctypes.c_void_p] * 5 + [ctypes.c_int] + [ctypes.c_void_p] * 2
+             + [ctypes.c_int] * 9 + [ctypes.c_void_p])
 
 
 def _lib():
@@ -180,11 +290,11 @@ def conv333(x, w: torch.Tensor, scale: Optional[torch.Tensor] = None,
         raise ValueError(f"conv333: weight {tuple(w.shape)} does not match "
                          f"inputs with {cins} channels")
     cout = int(w.shape[4])
-    nfrag, cop = _tiles(cout)
-    wm = pack_weights(w.to(dev), cins, cop)
-    eps = [_vec(scale, cout, cop, 1.0, dev), _vec(shift, cout, cop, 0.0, dev),
-           _vec(alpha, cout, cop, 1.0, dev)]
-    rs, wrp = (), None
+    n_t, cop = _ntile(cout)
+    wm = packed_weights(w, "conv333", cins, n_t, dev)
+    scale, shift = _epi(scale, cout, dev), _epi(shift, cout, dev)
+    alpha = _epi(alpha, cout, dev, one=True)
+    rs, wrp, rbias = (), None, None
     if residual is not None:
         xr, wr, br = residual
         rs = as_pair(xr)
@@ -195,25 +305,24 @@ def conv333(x, w: torch.Tensor, scale: Optional[torch.Tensor] = None,
         if tuple(wr.shape) != (1, 1, 1, sum(crs), cout):
             raise ValueError(f"conv333: residual weight {tuple(wr.shape)} "
                              f"does not match {crs} -> {cout}")
-        wrp = pack_weights(wr.to(dev), crs, cop)[0].contiguous()
-        eps.append(_vec(br, cout, cop, 0.0, dev))
-    else:
-        eps.append(torch.zeros(cop, dtype=torch.float32, device=dev))
-    eps = torch.stack(eps).contiguous()
+        wrp = packed_weights(wr, "conv333", crs, n_t, dev)
+        rbias = _epi(br, cout, dev)
     n, d, h, wd = (int(s) for s in shape)
-    if n * d > 65535:
-        raise ValueError(f"conv333: N*D = {n * d} exceeds the grid limit")
     out = torch.empty((n, d, h, wd, cout), dtype=torch.bfloat16, device=dev)
+    memo = {}
+    xs, rs = _tma_ready(xs, memo), _tma_ready(rs, memo)
     xa, xb = xs[0], (xs[1] if len(xs) > 1 else None)
     ra = rs[0] if rs else None
     rb = rs[1] if len(rs) > 1 else None
     lib = _lib()
     err = lib.conv333_launch(
-        _ptr(xa), cins[0], _ptr(xb), cins[1] if xb is not None else 0,
+        _ptr(xa), int(xa.shape[-1]), _ptr(xb),
+        int(xb.shape[-1]) if xb is not None else 0,
         _ptr(ra), int(ra.shape[-1]) if ra is not None else 0,
         _ptr(rb), int(rb.shape[-1]) if rb is not None else 0,
-        _ptr(wm), _ptr(wrp), _ptr(eps), _ptr(out),
-        n, d, h, wd, cout, nfrag, cop, int(wm.shape[1]), int(w.shape[2]),
+        _ptr(wm), _ptr(wrp), _ptr(scale), _ptr(shift), _ptr(alpha),
+        alpha.numel() if alpha is not None else 1, _ptr(rbias), _ptr(out),
+        n, d, h, wd, cout, n_t, cop, int(w.shape[2]),
         dev.index if dev.index is not None else torch.cuda.current_device(),
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     _build.check(lib, err, "conv333")

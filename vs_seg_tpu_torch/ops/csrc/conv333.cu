@@ -7,12 +7,10 @@
 // vs_seg_tpu/ops/pallas_l2block.py:l2_block. With kd = 1 (the "2.5D" levels
 // 0-1) it is, through ops/block2d.py and ops/tail2d.py, the conv of
 // vs_seg_tpu/ops/experimental/pallas_block2d.py:ru_block2d/l2_block2d and
-// pallas_tail2d.py:tail_block. None of the TPU design (Toeplitz band
+// pallas_tail2d.py:tail_block, and through ops/train_conv.py the dgrad of
+// pallas_train.py:conv333_train. None of the TPU design (Toeplitz band
 // matrices, 64-lane channel padding, (rows, 128) flat views, depth-plane
 // rings, tap packing) is carried over: those exist for the MXU and VMEM.
-// kd is a runtime argument: the depth loop runs over the weight's kd planes
-// (dz = d + kdi - kd/2), so the kd = 3 launches do exactly what they did
-// before kd existed.
 //
 //   out[v, co] = act(sum_{taps, ci} x[v + tap, ci] * w[tap, ci, co] * scale[co]
 //                    + shift[co])
@@ -23,283 +21,707 @@
 // x may be a pair (xa, xb) standing for its channel concat, and so may the
 // residual input r; nothing is concatenated in memory.
 //
-// Layout: activations NDHWC bf16. Weights are packed by the wrapper
-// (ops/conv333.py:pack_weights) as bf16 (9*kd, kp, cop): tap = (kd*3+kh)*3+kw,
-// each input's channels zero-padded to a multiple of 16 and stacked along
-// kp, Cout zero-padded to cop. The residual weight is bf16 (krp, cop). eps is
-// f32 (4, cop): scale, shift, alpha, residual bias. Accumulation is f32;
-// the output is rounded to bf16 once, after the whole epilogue.
+// Layout: activations NDHWC bf16 with C % 8 == 0 and 16-byte aligned bases
+// (the wrapper pads other channel counts). The epilogue vectors are f32 and
+// read where they lie: scale (Cout) or null (1), shift (Cout) or null (0),
+// alpha (1 or Cout values) or null (1: identity), residual bias (Cout) or
+// null (0), so a call stages nothing for them. The wrapper
+// (ops/conv333.py:pack_weights_gmma) packs the weights once per weight
+// tensor as bf16 core matrices, the
+// operand layout wgmma reads: (ntiles, chunks, kd, 9 taps, N/8, 2, 8, 8) =
+// [N tile][16-channel chunk of the inputs, stacked][depth tap][tap kh*3+kw]
+// [8 output channels][8-channel half of the chunk][output channel][input
+// channel]; the residual weight (ntiles, rchunks, 1, 1, N/8, 2, 8, 8).
+// Accumulation is f32; the output is rounded to bf16 once.
 //
-// Design: implicit GEMM on the tensor cores through WMMA (bf16 16x16x16,
-// f32 accumulate). One block of 8 warps computes an 8 (H) x 16 (W) tile of
-// output voxels of one (n, d) plane for a slice of up to 64 output channels;
-// warp i owns output row h0+i (one 16-row M tile) and NFRAG 16-column N
-// tiles. The K loop runs over (input, 16-channel chunk, kd); each round
-// stages the (8+2) x (16+2) x 16 input halo of plane d+kd-1 and the 9 taps'
-// 16 x cout-slice weights in shared memory, then every warp issues 9 taps x
-// NFRAG mma. The residual is one more K loop with only the centre tap, into
-// separate accumulators, so it is added after the activation.
+// What bounds it on the H100: at the (3,3,3) sites (Cin 32-192, Cout
+// 48-96) the tensor cores (27 Cin MACs per output value against ~4 bytes
+// moved); at the kd = 1 sites of levels 0-1 (16-32 channels) HBM.
 //
-// What bounds it on the H100: at the flagship (3,3,3) shapes (Cin 32-160,
-// Cout 48-96) the conv is compute-heavy (27*Cin MACs per output), but this
-// first version does not keep the tensor cores fed: each round is load ->
-// sync -> compute with no overlap, and the weight slice is re-read from L2
-// by every block. Double buffering with cp.async/TMA and wgmma are the next
-// steps. At the kd = 1 sites two shapes waste tensor-core work (known costs,
-// left for a later change): Cin = 1 at down_0 unit0 pads K to 16 channels,
-// 16x the useful MACs (packing the 9 taps into K would fix it), and
-// Cout = 2 at the up_0 logit head fills 2 of a 16-wide N tile (8x). Both
-// sites are memory-bound anyway (few MACs per byte at 16 channels).
-// Bounds: N*D <= 65535 (grid.y), Cout unbounded (grid.z tiles of 64).
-
-#include <mma.h>
+// Design.
+// - Implicit GEMM on wgmma: M = output voxels, N = Cout (the whole of it
+//   up to 96, rounded up to 8, 16, 32, 48, 64, 80 or 96; wider Cout is
+//   split into equal N tiles), K = (input, 16-channel chunk, kd, kh, kw).
+//   A block is two warpgroups and owns a TH (H) x 16 (W) tile of one
+//   (n, d) plane, cut into 8 x 8 m64 tiles, MT per warpgroup: MT = 4 (TH =
+//   32, M = 512) for N <= 48, MT = 2 (TH = 16, M = 256) above, as far as
+//   the registers allow. One K step is m64nNk16 with both operands in
+//   shared memory (descriptors, no swizzle): the staged halo keeps each
+//   position's two 8-channel halves in two planes of 16-byte rows, so the
+//   8 output voxels of one row of an m64 tile are one 8 x 16 B core matrix
+//   at any (kh, kw) shift. A tap is only a descriptor start address: LBO =
+//   one half plane, SBO = one halo row (18 x 16 B).
+// - Persistent tile walk: as many blocks per SM as the shared memory holds
+//   (the launcher asks the occupancy API); block b takes tiles b, b + grid,
+//   ... with (h, w) fastest, then the N tile, then d, so blocks that read
+//   the same input planes run together and the 3x re-read of a plane comes
+//   from L2.
+// - One flat stream of stages per block: (tile, input, chunk, kd plane),
+//   then the residual's chunks (centre tap only); depth planes outside the
+//   volume are skipped. A STAGES-slot ring (csrc/ring.cuh) keeps
+//   STAGES - 1 stages in flight, filled by one producer thread: per stage
+//   two TMA box copies of the (TH+2) x (16+2) x 8-channel halo halves
+//   (zero-filled outside the volume by the TMA) and one bulk copy of the 9
+//   taps' 16 x N weight slab (a flat piece of the packed weight), all on
+//   the slot's `full` mbarrier. The consumers only wait on barriers and
+//   issue wgmma, so the next tile's loads overlap this tile's MMAs and its
+//   epilogue. Why one producer thread: staging with per-thread cp.async
+//   and a __syncthreads per stage took 75 % of the time at down_2 unit0
+//   even with no MMA at all; thread-side address arithmetic and barriers,
+//   not loads or MMAs, bounded it.
+// - Epilogue from the accumulator registers: after the last main stage of
+//   a tile, scale/shift -> PReLU (+ rbias) in place; the residual's MMAs
+//   then accumulate onto the activated value in the same registers; one
+//   bf16 rounding at the store. When the residual's input is the conv's
+//   own (the decoder blocks), the residual is fused (F): its centre tap
+//   runs on the centre plane's main stages, whose slot also carries the
+//   residual's 16 x N slab, into a second accumulator set added after the
+//   activation, so its halos are not staged twice (for N <= 48, where both
+//   accumulator sets fit in the registers).
+// - Sizing: one main stage of an M = 256 block is 2 * 256 * 144 * N FLOP
+//   (3.5 MFLOP at N = 48) against a 10.4 KB halo and a 288 N byte weight
+//   slab (13.8 KB) read from L2. The slab per stage, not HBM, bounds a
+//   small M tile: M = 128 was 1.5x slower than M = 256 at down_2 unit0,
+//   and M = 512 (where the accumulators fit) is faster again. Three slots
+//   beat four and five: more blocks per SM hide more than a deeper ring.
+// - Results do not depend on the schedule: every output value is summed
+//   by one block in the stream's fixed order.
+// Bounds: any N, D, H, W; tiles <= 2^31.
 
 #include "common.cuh"
-
-using namespace nvcuda;
+#include "ring.cuh"
 
 namespace {
 
-constexpr int TW = 16;            // output W positions per block (WMMA M)
-constexpr int TH = 8;             // output H rows per block, one per warp
-constexpr int NWARP = TH;
-constexpr int NTHREADS = NWARP * 32;
-constexpr int KC = 16;            // input channels per staging round (WMMA K)
-constexpr int SW = TW + 2;        // staged halo width
-constexpr int SH = TH + 2;        // staged halo height
-// Shared weight rows are CO_T + WPAD bf16 long: a WMMA B load reads 8 rows
-// of 16 B per phase, and with an unpadded 128 B stride (CO_T = 64) all 8
-// would start on the same bank.
-constexpr int WPAD = 8;
+constexpr int TW = 16, HW = TW + 2;      // output tile width, halo width
+constexpr int NWG = 2;                   // consumer warpgroups per block
+constexpr int NTHREADS = 128 * NWG;
+constexpr int NWARPS = NTHREADS / 32;
+constexpr int STAGES = 3;                // ring slots
+constexpr int KC = 16;                   // input channels per stage (wgmma K)
+constexpr int MT4_MAX_N = 48;            // N up to which MT = 4
 
-struct Args {
-  const __nv_bfloat16* x[2];      // main inputs (pair halves; x[1] may be null)
-  int cx[2];                      // their channel counts (0 = absent)
-  const __nv_bfloat16* r[2];      // residual inputs (may be null)
-  int cr[2];
-  const __nv_bfloat16* wm;        // (27, kp, cop)
-  const __nv_bfloat16* wr;        // (krp, cop) or null: no residual
-  const float* eps;               // (4, cop)
-  __nv_bfloat16* out;             // (N, D, H, W, cout)
-  int N, D, H, W, cout, cop, kp, tiles_w;
-  int kd;                         // depth taps of the weight: 1 or 3
+template <int N>
+struct Cfg {
+  static constexpr int MT = N <= MT4_MAX_N ? 4 : 2;  // m64 tiles / warpgroup
+  // a fused residual's second accumulator set fits beside the first (at
+  // N >= 64 it spilled and was slower than the separate residual stages)
+  static constexpr bool FUSE = N <= MT4_MAX_N;
+  static constexpr int TH = 8 * MT;          // tile height (rows of 2 m64)
+  static constexpr int HH = TH + 2;          // halo height
+  static constexpr int HALF_BYTES = HH * HW * 16;   // an 8-channel half plane
+  static constexpr int HALF_PITCH = (HALF_BYTES + 127) / 128 * 128;  // TMA dst
+  static constexpr int HALO_BYTES = 2 * HALF_PITCH;
+  static constexpr int WBYTES = 9 * KC * N * 2;    // a main stage's slab
+  static constexpr int RBYTES = KC * N * 2;         // a residual slab
 };
 
-// Stage the (SH, SW, KC) halo tile of plane dz, channels [c0, c0+16), zeros
-// outside the volume and past C.
-__device__ __forceinline__ void stage_x(__nv_bfloat16* in_s,
-                                        const __nv_bfloat16* x, int C, int c0,
-                                        int n, int dz, int h0, int w0,
+// A ring slot: the halo, the main slab and, when the residual is fused into
+// the main stages (F), the residual slab; a multiple of 128 bytes.
+template <int N, bool F>
+struct Ring {
+  static constexpr int SLOT =
+      Cfg<N>::HALO_BYTES + Cfg<N>::WBYTES + (F ? Cfg<N>::RBYTES : 0);
+  static constexpr int SMEM = STAGES * SLOT + 2 * STAGES * 8;
+};
+
+// The residual accumulators of a fused kernel (a dummy otherwise).
+template <int N, bool F>
+using RAcc = float[F ? Cfg<N>::MT : 1][F ? N / 2 : 1];
+
+// TMA maps of the inputs: x[0], x[1], r[0], r[1] (unused ones zero)
+struct Maps {
+  CUtensorMap m[4];
+};
+
+struct Args {
+  int nch[2], rch[2];             // 16-channel chunks of each input
+  int nch_all, rch_all;           // ... summed (rch_all 0: no residual)
+  int res_stages;                 // residual stages per tile (0 when fused)
+  const __nv_bfloat16* wm;        // packed main weight
+  const __nv_bfloat16* wr;        // packed residual weight, or null
+  const float *scale, *shift, *alpha, *rbias;   // each may be null
+  int alpha_n;                    // 1 (one slope) or cout
+  __nv_bfloat16* out;             // (N, D, H, W, cout)
+  int Nb, D, H, W, cout, kd;
+  int th, tiles_w, tiles_hw, ntiles, total;   // tile height, tile counts
+};
+
+// wgmma m64nNk16, bf16 x bf16 -> f32, A and B from shared memory by
+// descriptor (both K-major), accumulating into d.
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
+                                         uint64_t db);
+
+template <>
+__device__ __forceinline__ void wgmma_ss<8>(float (&d)[4], uint64_t da,
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, "
+      "%4, %5, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<16>(float (&d)[8], uint64_t da,
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "%8, %9, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<32>(float (&d)[16], uint64_t da,
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<48>(float (&d)[24], uint64_t da,
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %26, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23}, "
+      "%24, %25, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t da,
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<80>(float (&d)[40], uint64_t da,
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %42, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39}, "
+      "%40, %41, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<96>(float (&d)[48], uint64_t da,
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47}, "
+      "%48, %49, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+template <int R>
+__device__ __forceinline__ void fence_regs(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// Shared-memory matrix descriptor, no swizzle: start address, leading byte
+// offset (between the two 8-element K halves) and stride byte offset
+// (between 8-row groups), each in 16-byte units.
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32);
+}
+
+// A position in the block's stream of stages. Divisions happen only when
+// the walk moves to the next tile.
+struct Walk {
+  int tile;                  // >= total: done
+  int n, d, h0, w0, nt;      // the tile
+  int plo, phi;              // depth taps inside the volume
+  int j, p;                  // chunk (over both inputs), depth tap
+  bool res;                  // in the residual's chunks
+
+  __device__ __forceinline__ void start(int t, const Args& a) {
+    tile = t;
+    if (t >= a.total) return;
+    const int hw = t % a.tiles_hw;
+    int rest = t / a.tiles_hw;
+    nt = rest % a.ntiles;
+    rest /= a.ntiles;
+    d = rest % a.D;
+    n = rest / a.D;
+    h0 = (hw / a.tiles_w) * a.th;
+    w0 = (hw % a.tiles_w) * TW;
+    const int c = a.kd / 2;
+    plo = max(0, c - d);
+    phi = min(a.kd - 1, a.D - 1 - d + c);
+    j = 0;
+    p = plo;
+    res = false;
+  }
+  __device__ __forceinline__ bool last_main(const Args& a) const {
+    return !res && p == phi && j == a.nch_all - 1;
+  }
+  __device__ __forceinline__ bool last(const Args& a) const {
+    return res ? j == a.res_stages - 1
+               : (a.res_stages == 0 && last_main(a));
+  }
+  __device__ __forceinline__ void advance(const Args& a) {
+    if (last(a)) {
+      start(tile + gridDim.x, a);
+    } else if (res) {
+      ++j;
+    } else if (p < phi) {
+      ++p;
+    } else if (j < a.nch_all - 1) {
+      p = plo;
+      ++j;
+    } else {
+      res = true;
+      j = 0;
+    }
+  }
+};
+
+// The producer: announce and issue the copies of stage w into `slot`.
+template <int N, bool F>
+__device__ __forceinline__ void produce(const Walk& w, char* slot,
+                                        uint64_t* full, const Maps& maps,
                                         const Args& a) {
-  const bool vec = (C % 8 == 0) &&
-                   ((reinterpret_cast<uintptr_t>(x) & 15) == 0);
-  for (int i = threadIdx.x; i < SH * SW * 2; i += NTHREADS) {
-    const int pos = i >> 1, half = i & 1;
-    const int hh = pos / SW, ww = pos - hh * SW;
-    const int h = h0 - 1 + hh, w = w0 - 1 + ww;
-    const int c = c0 + half * 8;
-    union {
-      uint4 u;
-      unsigned short e[8];
-    } v;
-    v.u = make_uint4(0u, 0u, 0u, 0u);
-    if (h >= 0 && h < a.H && w >= 0 && w < a.W && c < C) {
-      const __nv_bfloat16* src =
-          x + ((((size_t)n * a.D + dz) * a.H + h) * a.W + w) * C + c;
-      if (vec) {
-        v.u = *reinterpret_cast<const uint4*>(src);
-      } else {
+  int xi, c0, dz;
+  const __nv_bfloat16* wsrc;
+  uint32_t wbytes;
+  if (!w.res) {
+    xi = w.j < a.nch[0] ? 0 : 1;
+    c0 = (w.j - (xi ? a.nch[0] : 0)) * KC;
+    dz = w.d + w.p - a.kd / 2;
+    wsrc = a.wm +
+           (((size_t)w.nt * a.nch_all + w.j) * a.kd + w.p) * 9 * KC * N;
+    wbytes = Cfg<N>::WBYTES;
+  } else {
+    xi = w.j < a.rch[0] ? 2 : 3;
+    c0 = (w.j - (xi == 3 ? a.rch[0] : 0)) * KC;
+    dz = w.d;
+    wsrc = a.wr + ((size_t)w.nt * a.rch_all + w.j) * KC * N;
+    wbytes = KC * N * 2;
+  }
+  // the fused residual's slab of chunk j rides on the centre plane's stage
+  const bool fres = F && !w.res && w.p == a.kd / 2;
+  mbar_expect_tx(full, 2 * Cfg<N>::HALF_BYTES + wbytes +
+                           (fres ? Cfg<N>::RBYTES : 0));
+  const CUtensorMap* m = &maps.m[xi];
+  tma_load_5d(slot, m, full, c0, w.w0 - 1, w.h0 - 1, dz, w.n);
+  tma_load_5d(slot + Cfg<N>::HALF_PITCH, m, full, c0 + 8, w.w0 - 1,
+              w.h0 - 1, dz, w.n);
+  bulk_load(slot + Cfg<N>::HALO_BYTES, wsrc, wbytes, full);
+  if (fres)
+    bulk_load(slot + Cfg<N>::HALO_BYTES + Cfg<N>::WBYTES,
+              a.wr + ((size_t)w.nt * a.rch_all + w.j) * KC * N,
+              Cfg<N>::RBYTES, full);
+}
+
+// The MMAs of one stage: 9 taps (main) or the centre tap (residual), MT
+// m64 tiles per warpgroup; a fused kernel's centre-plane main stage also
+// runs the residual's centre tap into racc.
+template <int N, bool F>
+__device__ __forceinline__ void compute(bool main, bool fres,
+                                        const char* slot,
+                                        float (&acc)[Cfg<N>::MT][N / 2],
+                                        RAcc<N, F>& racc) {
+  constexpr int MT = Cfg<N>::MT, PITCH = Cfg<N>::HALF_PITCH;
+  const int wg = threadIdx.x >> 7;
+  const uint32_t halo = smem_u32(slot);
+  const uint32_t wts = halo + Cfg<N>::HALO_BYTES;
 #pragma unroll
-        for (int j = 0; j < 8; ++j)
-          if (c + j < C) v.e[j] = __bfloat16_as_ushort(src[j]);
+  for (int m = 0; m < MT; ++m) fence_regs(acc[m]);
+  if constexpr (F) {
+#pragma unroll
+    for (int m = 0; m < MT; ++m) fence_regs(racc[m]);
+  }
+  wgmma_fence();
+  if (main) {
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap) {
+      const int kh = tap / 3, kw = tap - kh * 3;
+      const uint64_t db = gmma_desc(wts + tap * KC * N * 2, 128, 256);
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        const int mt = wg * MT + m;
+        const int pos = ((mt >> 1) * 8 + kh) * HW + (mt & 1) * 8 + kw;
+        wgmma_ss<N>(acc[m], gmma_desc(halo + pos * 16, PITCH, HW * 16),
+                    db);
       }
     }
-    *reinterpret_cast<uint4*>(in_s + pos * KC + half * 8) = v.u;
-  }
-}
-
-// Stage ntaps x (KC, CO_T) weight tiles, rows CO_T + WPAD apart; `base`
-// points at [tap 0][k0][co0].
-template <int CO_T>
-__device__ __forceinline__ void stage_w(__nv_bfloat16* w_s,
-                                        const __nv_bfloat16* base, int ntaps,
-                                        size_t tap_stride, int cop) {
-  constexpr int NV = CO_T / 8;    // 16-byte words per weight row
-  for (int i = threadIdx.x; i < ntaps * KC * NV; i += NTHREADS) {
-    const int t = i / (KC * NV);
-    const int rem = i - t * KC * NV;
-    const int k = rem / NV, v = rem - k * NV;
-    const uint4* src = reinterpret_cast<const uint4*>(
-                           base + t * tap_stride + (size_t)k * cop) + v;
-    reinterpret_cast<uint4*>(w_s + (t * KC + k) * (CO_T + WPAD))[v] = *src;
-  }
-}
-
-template <int NFRAG>
-__global__ void __launch_bounds__(NTHREADS) conv333_kernel(Args a) {
-  constexpr int CO_T = NFRAG * 16;
-  __shared__ __align__(128) __nv_bfloat16 in_s[SH * SW * KC];
-  constexpr int LDW = CO_T + WPAD;  // shared weight row stride
-  __shared__ __align__(128) __nv_bfloat16 w_s[9 * KC * LDW];
-  __shared__ __align__(128) float scr[NWARP][2][256];
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int tw = blockIdx.x % a.tiles_w, th = blockIdx.x / a.tiles_w;
-  const int w0 = tw * TW, h0 = th * TH;
-  const int n = blockIdx.y / a.D, d = blockIdx.y - n * a.D;
-  const int co0 = blockIdx.z * CO_T;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[NFRAG], racc[NFRAG];
+    if constexpr (F) {
+      if (fres) {
+        const uint64_t dr = gmma_desc(wts + Cfg<N>::WBYTES, 128, 256);
 #pragma unroll
-  for (int j = 0; j < NFRAG; ++j) {
-    wmma::fill_fragment(acc[j], 0.f);
-    wmma::fill_fragment(racc[j], 0.f);
-  }
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa;
-  wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fb;
-
-  // ---- main conv: K = (input, 16-channel chunk, kd, kh, kw) -------------
-  int kbase = 0;
-  for (int xi = 0; xi < 2; ++xi) {
-    const int C = a.cx[xi];
-    if (C == 0) continue;
-    for (int c0 = 0; c0 < C; c0 += KC) {
-      for (int kd = 0; kd < a.kd; ++kd) {
-        const int dz = d + kd - a.kd / 2;
-        if (dz < 0 || dz >= a.D) continue;   // zero plane: contributes nothing
-        __syncthreads();
-        stage_x(in_s, a.x[xi], C, c0, n, dz, h0, w0, a);
-        stage_w<CO_T>(w_s,
-                      a.wm + ((size_t)(kd * 9) * a.kp + kbase + c0) * a.cop + co0,
-                      9, (size_t)a.kp * a.cop, a.cop);
-        __syncthreads();
-#pragma unroll
-        for (int kh = 0; kh < 3; ++kh) {
-#pragma unroll
-          for (int kw = 0; kw < 3; ++kw) {
-            wmma::load_matrix_sync(fa, in_s + ((warp + kh) * SW + kw) * KC, KC);
-#pragma unroll
-            for (int j = 0; j < NFRAG; ++j) {
-              wmma::load_matrix_sync(fb, w_s + (kh * 3 + kw) * KC * LDW + j * 16,
-                                     LDW);
-              wmma::mma_sync(acc[j], fa, fb, acc[j]);
-            }
-          }
+        for (int m = 0; m < MT; ++m) {
+          const int mt = wg * MT + m;
+          const int pos = ((mt >> 1) * 8 + 1) * HW + (mt & 1) * 8 + 1;
+          wgmma_ss<N>(racc[m], gmma_desc(halo + pos * 16, PITCH, HW * 16),
+                      dr);
         }
       }
     }
-    kbase += (C + KC - 1) / KC * KC;
-  }
-
-  // ---- fused 1x1x1 residual: centre tap only, separate accumulators ----
-  const bool has_res = a.wr != nullptr;
-  if (has_res) {
-    int rbase = 0;
-    for (int xi = 0; xi < 2; ++xi) {
-      const int C = a.cr[xi];
-      if (C == 0) continue;
-      for (int c0 = 0; c0 < C; c0 += KC) {
-        __syncthreads();
-        stage_x(in_s, a.r[xi], C, c0, n, d, h0, w0, a);
-        stage_w<CO_T>(w_s, a.wr + (size_t)(rbase + c0) * a.cop + co0, 1, 0,
-                      a.cop);
-        __syncthreads();
-        wmma::load_matrix_sync(fa, in_s + ((warp + 1) * SW + 1) * KC, KC);
+  } else {
+    const uint64_t db = gmma_desc(wts, 128, 256);
 #pragma unroll
-        for (int j = 0; j < NFRAG; ++j) {
-          wmma::load_matrix_sync(fb, w_s + j * 16, LDW);
-          wmma::mma_sync(racc[j], fa, fb, racc[j]);
+    for (int m = 0; m < MT; ++m) {
+      const int mt = wg * MT + m;
+      const int pos = ((mt >> 1) * 8 + 1) * HW + (mt & 1) * 8 + 1;
+      wgmma_ss<N>(acc[m], gmma_desc(halo + pos * 16, PITCH, HW * 16),
+                  db);
+    }
+  }
+  wgmma_commit();
+  wgmma_wait_all();
+#pragma unroll
+  for (int m = 0; m < MT; ++m) fence_regs(acc[m]);
+  if constexpr (F) {
+#pragma unroll
+    for (int m = 0; m < MT; ++m) fence_regs(racc[m]);
+  }
+}
+
+// Accumulator element e of an m64 tile: row (voxel of the tile) and column
+// (output channel of the N tile), the wgmma D fragment layout.
+__device__ __forceinline__ int frag_row(int e) {
+  const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
+  return warp * 16 + (lane >> 2) + ((e >> 1) & 1) * 8;
+}
+__device__ __forceinline__ int frag_col(int e) {
+  return (e >> 2) * 8 + (threadIdx.x & 3) * 2 + (e & 1);
+}
+
+// scale/shift -> PReLU (+ residual bias, + a fused residual's sum) in
+// place.
+template <int N, bool F>
+__device__ __forceinline__ void activate(float (&acc)[Cfg<N>::MT][N / 2],
+                                         RAcc<N, F>& racc, int nt,
+                                         const Args& a) {
+  constexpr int MT = Cfg<N>::MT;
+#pragma unroll
+  for (int e = 0; e < N / 2; ++e) {
+    // padded columns (co >= cout) read channel cout - 1 and are not stored
+    const int co = min(nt * N + frag_col(e), a.cout - 1);
+    const float s = a.scale ? __ldg(a.scale + co) : 1.f;
+    const float h = a.shift ? __ldg(a.shift + co) : 0.f;
+    const float al =
+        a.alpha ? __ldg(a.alpha + (a.alpha_n == 1 ? 0 : co)) : 1.f;
+    const float rb = a.rbias ? __ldg(a.rbias + co) : 0.f;
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+      float v = acc[m][e] * s + h;
+      v = v >= 0.f ? v : al * v;
+      if constexpr (F) {
+        v += racc[m][e];
+        racc[m][e] = 0.f;
+      }
+      acc[m][e] = v + rb;
+    }
+  }
+}
+
+// Round to bf16 and store the tile's outputs; zero the accumulators.
+template <int N>
+__device__ __forceinline__ void store(float (&acc)[Cfg<N>::MT][N / 2],
+                                      const Walk& t, const Args& a) {
+  constexpr int MT = Cfg<N>::MT;
+  const int wg = threadIdx.x >> 7;
+  const bool even = (a.cout & 1) == 0;
+#pragma unroll
+  for (int m = 0; m < MT; ++m) {
+    const int mt = wg * MT + m;
+#pragma unroll
+    for (int e = 0; e < N / 2; e += 2) {
+      const int row = frag_row(e);
+      const int h = t.h0 + (mt >> 1) * 8 + (row >> 3);
+      const int w = t.w0 + (mt & 1) * 8 + (row & 7);
+      const int co = t.nt * N + frag_col(e);
+      if (h < a.H && w < a.W && co < a.cout) {
+        __nv_bfloat16* dst =
+            a.out +
+            ((((size_t)t.n * a.D + t.d) * a.H + h) * a.W + w) * a.cout + co;
+        if (even) {
+          *reinterpret_cast<__nv_bfloat162*>(dst) =
+              __floats2bfloat162_rn(acc[m][e], acc[m][e + 1]);
+        } else {
+          dst[0] = __float2bfloat16_rn(acc[m][e]);
+          if (co + 1 < a.cout) dst[1] = __float2bfloat16_rn(acc[m][e + 1]);
         }
       }
-      rbase += (C + KC - 1) / KC * KC;
+      acc[m][e] = 0.f;
+      acc[m][e + 1] = 0.f;
     }
+  }
+}
+
+template <int N, bool F>
+__global__ void __launch_bounds__(NTHREADS)
+    conv333_kernel(const __grid_constant__ Maps maps, const Args a) {
+  constexpr int SLOT = Ring<N, F>::SLOT;
+  extern __shared__ __align__(128) char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + STAGES * SLOT);
+  uint64_t* empty = full + STAGES;
+  const bool producer = threadIdx.x == 0;
+  if (producer) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], NWARPS);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+  float acc[Cfg<N>::MT][N / 2];
+#pragma unroll
+  for (int m = 0; m < Cfg<N>::MT; ++m)
+#pragma unroll
+    for (int e = 0; e < N / 2; ++e) acc[m][e] = 0.f;
+  RAcc<N, F> racc;
+  if constexpr (F) {
+#pragma unroll
+    for (int m = 0; m < Cfg<N>::MT; ++m)
+#pragma unroll
+      for (int e = 0; e < N / 2; ++e) racc[m][e] = 0.f;
   }
 
-  // ---- epilogue: scale/shift -> PReLU -> + residual, one bf16 rounding --
-  const float* scale = a.eps;
-  const float* shift = a.eps + a.cop;
-  const float* alpha = a.eps + 2 * a.cop;
-  const float* rbias = a.eps + 3 * a.cop;
-  float* s_acc = scr[warp][0];
-  float* s_res = scr[warp][1];
-  const int m = lane >> 1, nb = (lane & 1) * 8;
-  const int h = h0 + warp, w = w0 + m;
-  const bool inside = h < a.H && w < a.W;
-  const bool vec_out = (a.cout % 8 == 0) &&
-                       ((reinterpret_cast<uintptr_t>(a.out) & 15) == 0);
-  const size_t vox = (((size_t)n * a.D + d) * a.H + h) * a.W + w;
-#pragma unroll
-  for (int j = 0; j < NFRAG; ++j) {
-    wmma::store_matrix_sync(s_acc, acc[j], 16, wmma::mem_row_major);
-    if (has_res) wmma::store_matrix_sync(s_res, racc[j], 16, wmma::mem_row_major);
-    __syncwarp();
-    const int cb = co0 + j * 16 + nb;
-    if (inside && cb < a.cout) {
-      float y[8];
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        const int co = cb + e;    // < cop: the packed vectors cover every tile
-        float v = s_acc[m * 16 + nb + e] * scale[co] + shift[co];
-        v = v >= 0.f ? v : alpha[co] * v;
-        if (has_res) v += s_res[m * 16 + nb + e] + rbias[co];
-        y[e] = v;
-      }
-      __nv_bfloat16* dst = a.out + vox * a.cout + cb;
-      if (vec_out && cb + 8 <= a.cout) {
-        *reinterpret_cast<uint4*>(dst) = pack8(y);
-      } else {
-#pragma unroll
-        for (int e = 0; e < 8; ++e)
-          if (cb + e < a.cout) dst[e] = __float2bfloat16_rn(y[e]);
-      }
+  Walk prod, cons;
+  prod.start(blockIdx.x, a);
+  cons = prod;
+  if (producer) {
+    for (int s = 0; s < STAGES - 1 && prod.tile < a.total; ++s) {
+      produce<N, F>(prod, smem + s * SLOT, &full[s], maps, a);
+      prod.advance(a);
+    }
+  }
+  // stage k sits in slot k % STAGES, its use k / STAGES of that slot
+  for (int k = 0; cons.tile < a.total; ++k) {
+    const int slot = k % STAGES;
+    if (producer && prod.tile < a.total) {
+      // stage k + STAGES - 1 reuses the slot of stage k - 1
+      const int ps = (k + STAGES - 1) % STAGES;
+      if (k >= 1) mbar_wait(&empty[ps], ((k - 1) / STAGES) & 1);
+      produce<N, F>(prod, smem + ps * SLOT, &full[ps], maps, a);
+      prod.advance(a);
     }
     __syncwarp();
+    mbar_wait(&full[slot], (k / STAGES) & 1);
+    compute<N, F>(!cons.res, F && !cons.res && cons.p == a.kd / 2,
+                  smem + slot * SLOT, acc, racc);
+    __syncwarp();
+    if ((threadIdx.x & 31) == 0) mbar_arrive(&empty[slot]);
+    if (cons.last_main(a)) activate<N, F>(acc, racc, cons.nt, a);
+    if (cons.last(a)) store<N>(acc, cons, a);
+    cons.advance(a);
   }
+}
+
+// TMA map of one NDHWC bf16 input: dims (C, W, H, D, N), box (8, 18, hh, 1,
+// 1): one 8-channel half plane of a halo.
+cudaError_t input_map(CUtensorMap* map, const void* x, int c, int hh,
+                      const Args& a) {
+  const uint64_t dims[5] = {(uint64_t)c, (uint64_t)a.W, (uint64_t)a.H,
+                            (uint64_t)a.D, (uint64_t)a.Nb};
+  const uint64_t s1 = (uint64_t)c * 2;
+  const uint64_t strides[4] = {s1, s1 * a.W, s1 * a.W * a.H,
+                               s1 * a.W * a.H * a.D};
+  const uint32_t box[5] = {8, HW, (uint32_t)hh, 1, 1};
+  return encode_tiled(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, x, dims,
+                      strides, box);
+}
+
+template <int N, bool F>
+int launch(const void* const* ins, const int* cs, Args a, int device,
+           cudaStream_t s) {
+  constexpr int SMEM = Ring<N, F>::SMEM;
+  a.res_stages = F ? 0 : a.rch_all;
+  // blocks per SM the shared memory allows, asked once per device
+  static int per_sm[64] = {0};
+  static int sms[64] = {0};
+  if (device < 0 || device >= 64)
+    return static_cast<int>(cudaErrorInvalidDevice);
+  if (per_sm[device] == 0) {
+    cudaError_t err = cudaFuncSetAttribute(
+        conv333_kernel<N, F>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        SMEM);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    int nb = 0, nsm = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &nb, conv333_kernel<N, F>, NTHREADS, SMEM);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    err = cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, device);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (nb < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+    sms[device] = nsm;
+    per_sm[device] = nb;
+  }
+  Maps maps = {};
+  for (int i = 0; i < 4; ++i) {
+    if (!ins[i]) continue;
+    const cudaError_t err = input_map(&maps.m[i], ins[i], cs[i], Cfg<N>::HH, a);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  a.th = Cfg<N>::TH;
+  a.tiles_hw = a.tiles_w * ((a.H + a.th - 1) / a.th);
+  const long long total = (long long)a.Nb * a.D * a.ntiles * a.tiles_hw;
+  if (total > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  a.total = (int)total;
+  const long long cap = (long long)per_sm[device] * sms[device];
+  const int grid = (int)(a.total < cap ? a.total : cap);
+  conv333_kernel<N, F><<<grid, NTHREADS, SMEM, s>>>(maps, a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int N>
+int launch_any(bool fused, const void* const* ins, const int* cs,
+               const Args& a, int device, cudaStream_t s) {
+  if constexpr (Cfg<N>::FUSE) {
+    if (fused) return launch<N, true>(ins, cs, a, device, s);
+  }
+  return launch<N, false>(ins, cs, a, device, s);
 }
 
 }  // namespace
 
 extern "C" int conv333_launch(const void* xa, int ca, const void* xb, int cb,
                               const void* ra, int cra, const void* rb, int crb,
-                              const void* wm, const void* wr, const void* eps,
+                              const void* wm, const void* wr,
+                              const void* scale, const void* shift,
+                              const void* alpha, int alpha_n,
+                              const void* rbias,
                               void* out, int n, int d, int h, int w, int cout,
-                              int nfrag, int cop, int kp, int kd, int device,
+                              int ntile, int cop, int kd, int device,
                               void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (nfrag < 1 || nfrag > 4 || cop % (nfrag * 16) != 0 || n * d > 65535 ||
-      (kd != 1 && kd != 3))
+  const void* ins[4] = {xa, xb, ra, rb};
+  const int cs[4] = {ca, xb ? cb : 0, ra ? cra : 0, rb ? crb : 0};
+  if (ntile < 8 || cop % ntile != 0 || cop < cout || (kd != 1 && kd != 3) ||
+      !xa || n < 1 || d < 1 || h < 1 || w < 1 || cout < 1 ||
+      (wr != nullptr) != (ra != nullptr) || (alpha_n != 1 && alpha_n != cout))
     return static_cast<int>(cudaErrorInvalidValue);
+  for (int i = 0; i < 4; ++i)
+    if (ins[i] && (cs[i] < 8 || cs[i] % 8 != 0 ||
+                   (reinterpret_cast<uintptr_t>(ins[i]) & 15) != 0))
+      return static_cast<int>(cudaErrorInvalidValue);
   Args a;
-  a.x[0] = static_cast<const __nv_bfloat16*>(xa);
-  a.x[1] = static_cast<const __nv_bfloat16*>(xb);
-  a.cx[0] = ca;
-  a.cx[1] = xb ? cb : 0;
-  a.r[0] = static_cast<const __nv_bfloat16*>(ra);
-  a.r[1] = static_cast<const __nv_bfloat16*>(rb);
-  a.cr[0] = ra ? cra : 0;
-  a.cr[1] = rb ? crb : 0;
-  a.wm = static_cast<const __nv_bfloat16*>(wm);
-  a.wr = static_cast<const __nv_bfloat16*>(wr);
-  a.eps = static_cast<const float*>(eps);
-  a.out = static_cast<__nv_bfloat16*>(out);
-  a.N = n;
+  a.Nb = n;
   a.D = d;
   a.H = h;
   a.W = w;
+  for (int i = 0; i < 2; ++i) {
+    a.nch[i] = (cs[i] + KC - 1) / KC;
+    a.rch[i] = (cs[2 + i] + KC - 1) / KC;
+  }
+  a.nch_all = a.nch[0] + a.nch[1];
+  a.rch_all = a.rch[0] + a.rch[1];
+  // the decoder blocks pass the conv's own input as the residual's: its
+  // centre tap then runs on the main stages' halos
+  const bool fused = ra && ra == xa && rb == xb && cs[2] == cs[0] &&
+                     cs[3] == cs[1];
+  a.wm = static_cast<const __nv_bfloat16*>(wm);
+  a.wr = static_cast<const __nv_bfloat16*>(wr);
+  a.scale = static_cast<const float*>(scale);
+  a.shift = static_cast<const float*>(shift);
+  a.alpha = static_cast<const float*>(alpha);
+  a.alpha_n = alpha_n;
+  a.rbias = static_cast<const float*>(rbias);
+  a.out = static_cast<__nv_bfloat16*>(out);
   a.cout = cout;
-  a.cop = cop;
-  a.kp = kp;
   a.kd = kd;
   a.tiles_w = (w + TW - 1) / TW;
-  const int tiles_h = (h + TH - 1) / TH;
-  dim3 grid(a.tiles_w * tiles_h, n * d, cop / (nfrag * 16));
+  a.ntiles = cop / ntile;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (nfrag) {
-    case 1: conv333_kernel<1><<<grid, NTHREADS, 0, s>>>(a); break;
-    case 2: conv333_kernel<2><<<grid, NTHREADS, 0, s>>>(a); break;
-    case 3: conv333_kernel<3><<<grid, NTHREADS, 0, s>>>(a); break;
-    default: conv333_kernel<4><<<grid, NTHREADS, 0, s>>>(a); break;
+  switch (ntile) {
+    case 8: return launch_any<8>(fused, ins, cs, a, device, s);
+    case 16: return launch_any<16>(fused, ins, cs, a, device, s);
+    case 32: return launch_any<32>(fused, ins, cs, a, device, s);
+    case 48: return launch_any<48>(fused, ins, cs, a, device, s);
+    case 64: return launch_any<64>(fused, ins, cs, a, device, s);
+    case 80: return launch_any<80>(fused, ins, cs, a, device, s);
+    case 96: return launch_any<96>(fused, ins, cs, a, device, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }

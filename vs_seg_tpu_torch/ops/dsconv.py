@@ -16,7 +16,8 @@ copied: any shape is taken.
 
 `ds_conv` runs the hand-written kernel (csrc/dsconv.cu) for CUDA tensors and
 `ds_conv_plain`, the PyTorch twin, for CPU tensors; any other device raises.
-The CUDA route counts its launches in `ds_conv.launches`.
+The CUDA route counts its launches in `ds_conv.launches`. The packed weight
+is cached on the weight tensor (ops/conv333.py:packed_weights).
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ import torch.nn.functional as F
 
 from vs_seg_tpu_torch.ops import _build
 from vs_seg_tpu_torch.ops.conv333 import (_check_act, _pad16, _ptr, _tiles,
-                                          _vec, pack_weights)
+                                          _vec, pack_weights, packed_weights)
 
 
 def ds_conv_plain(x: torch.Tensor, w: torch.Tensor,
@@ -86,7 +87,7 @@ def ds_conv(x: torch.Tensor, w: torch.Tensor,
                          f"an input with {cin} channels")
     cout = int(w.shape[4])
     nfrag, cop = _tiles(cout)
-    wm = pack_weights(w.to(dev), [cin], cop)
+    wm = packed_weights(w, "ds_conv", [cin], cop, dev, pack=pack_weights)
     eps = torch.stack([_vec(scale, cout, cop, 1.0, dev),
                        _vec(shift, cout, cop, 0.0, dev),
                        _vec(alpha, cout, cop, 1.0, dev)]).contiguous()

@@ -67,6 +67,17 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
      train dgrad shapes, each against its plain twin, with the kernel's
      time, one channels-last F.conv3d's, the bound, TFLOP/s and GB/s, and
      the host's enqueue time of one call at the bottom site.
+ 12. The nine Mosaic probes of tools/mosaic_probe.py (csrc/mosaic_probe.cu)
+     at the tool's shapes, every scheme of each (the group sums as a
+     segmented shuffle, a shared-memory reduce and a tensor-core product):
+     bit-equal to the twin on the tool's all-ones inputs, and on seeded
+     normals within PROBE_TOL (bit-equal for 3droll and repeat); each
+     scheme's time beside the case's bound, at the tool's shapes and with
+     the leading size scaled by PROBE_SCALE.
+ 13. attgate at each of its sites (ATT_SITES: up_2/3/4 at kd = 3, A's up_1
+     tail and up_0 head and B's upatt_0/1 at kd = 1) against its plain
+     twin, with kernel, plain and bound ms, and its ms per volume under
+     the default routes, A and B.
 
 The kernels are built in parallel, one nvcc per source. Every kernel record
 carries its time, its plain twin's, the time of one library call computing
@@ -379,8 +390,9 @@ def kernel_checks(dev, gen):
 
 def _wrappers():
     from vs_seg_tpu_torch.ops import (att, blend, block2d, conv333,
-                                      conv333_dw, dsconv, l2block, ring_probe,
-                                      rublock, tail2d)
+                                      conv333_dw, dsconv, l2block,
+                                      mosaic_probe, ring_probe, rublock,
+                                      tail2d)
     return {"conv333": conv333.conv333, "attgate": l2block.attgate,
             "ru_block": rublock.ru_block, "l2_block": l2block.l2_block,
             "blend_scatter": blend.blend_scatter,
@@ -389,13 +401,15 @@ def _wrappers():
             "l2_block2d": block2d.l2_block2d,
             "tail_block": tail2d.tail_block,
             "fused_attention_gate": att.fused_attention_gate,
-            "ds_conv": dsconv.ds_conv, "ring_probe": ring_probe.ring_probe}
+            "ds_conv": dsconv.ds_conv, "ring_probe": ring_probe.ring_probe,
+            "mosaic_probe": mosaic_probe.probe}
 
 
 # launches of the routed kernels in a run that takes no route (and of the
-# ring probe, which is on no path)
+# probes, which are on no path)
 NO_KD1 = {"ru_block2d": 0, "l2_block2d": 0, "tail_block": 0,
-          "fused_attention_gate": 0, "ds_conv": 0, "ring_probe": 0}
+          "fused_attention_gate": 0, "ds_conv": 0, "ring_probe": 0,
+          "mosaic_probe": 0}
 
 
 def reset_counts():
@@ -907,7 +921,8 @@ def routes_run(dev, gen, card: str, model, staged, default_logits):
     from vs_seg_tpu_torch.infer.sliding_window import sliding_window_inference
 
     base = {"ru_block": 4, "l2_block": 3, "blend_scatter": 1,
-            "conv333_dw": 0, "ds_conv": 0, "ring_probe": 0}
+            "conv333_dw": 0, "ds_conv": 0, "ring_probe": 0,
+            "mosaic_probe": 0}
     configs = {
         # ru_block2d x 2 (2 conv333 each), tail_block at up_1 (1 attgate +
         # 1 conv333), l2_block2d at the up_0 head (1 attgate + 2 conv333)
@@ -1187,6 +1202,181 @@ def conv333_sweep(dev, card: str):
     return rows
 
 
+# mosaic probes vs their twins on seeded normals: f32 sums of up to 4608
+# terms taken in another order (the tensor-core schemes keep ~21 bits of
+# each term: x split into two TF32 parts against an exact 0/1 matrix)
+PROBE_TOL = 1e-5
+PROBE_REPS = 50
+# the probes again with the leading size scaled by this factor (the group
+# sums at 226 MB of f32), where launch overhead no longer sets the time
+PROBE_SCALE = 256
+
+
+def mosaic_probe_checks(dev, card: str):
+    """Phase 12: the nine Mosaic probes (csrc/mosaic_probe.cu) against
+    their twins at the tool's shapes, every scheme: bit-equal on the tool's
+    all-ones inputs, and on seeded normals bit-equal (3droll, repeat) or
+    within PROBE_TOL; each scheme's time beside the case's bound; then the
+    same on seeded normals with the leading size scaled by PROBE_SCALE.
+    The record's times are the tool's shapes' (default schemes, summed)."""
+    import torch
+
+    from vs_seg_tpu_torch.ops import mosaic_probe as mp
+
+    rows, errs = [], []
+    total = dict(ms=0.0, plain_ms=0.0, bound=0.0, moved=0)
+    for i, case in enumerate(mp.CASES):
+        ones = mp.inputs(case, dev)
+        seeded = mp.inputs(case, dev, seed=SEED + 2 + i)
+        ref1, ref = mp.plain(case, *ones), mp.plain(case, *seeded)
+        times = {}
+        for scheme in mp.SCHEMES[case]:
+            tag = f"mosaic_probe {case} ({scheme})"
+            if not torch.equal(mp.probe(case, *ones, scheme=scheme), ref1):
+                raise AssertionError(f"{tag}: all-ones input, not the twin's "
+                                     "result bit for bit")
+            got = mp.probe(case, *seeded, scheme=scheme)
+            if case in mp.EXACT:
+                if not torch.equal(got, ref):
+                    raise AssertionError(f"{tag}: not bit-equal to its twin")
+                errs.append(0.0)
+            else:
+                errs.append(compare(tag + " seeded", got, ref, PROBE_TOL))
+            times[scheme] = cuda_ms(
+                lambda s=scheme: mp.probe(case, *seeded, scheme=s),
+                PROBE_REPS)
+        p_ms = cuda_ms(lambda: mp.plain(case, *seeded), PROBE_REPS)
+        moved = mp.moved_bytes(case, ones, ref1)
+        b = bound(moved)
+        default = mp.SCHEMES[case][0]
+        total["ms"] += times[default]
+        total["plain_ms"] += p_ms
+        total["bound"] += b[0]
+        total["moved"] += moved
+        rows.append(dict(case=case, ms=times, plain_ms=p_ms, bound_ms=b[0],
+                         bytes=moved))
+        log(f"  mosaic_probe {case}: " + ", ".join(
+            f"{k} {v!r} ms" for k, v in times.items())
+            + f"; plain {p_ms!r} ms; bound {b[0]!r} ms (bytes: {moved}) "
+            f"on {card}")
+    # the schemes at scale: seeded normals drawn on the card
+    gen = torch.Generator(dev).manual_seed(SEED + 2)
+    for case in mp.CASES:
+        rows0 = mp._shapes(case)[0][0]
+        data = [torch.randn(sh, generator=gen, device=dev)
+                for sh in mp._shapes(case, rows0 * PROBE_SCALE)]
+        ins = tuple(data) + ((mp.group_matrix(dev),)
+                             if case in ("dotreduce", "dotbcast") else ())
+        ref = mp.plain(case, *ins)
+        times = {}
+        for scheme in mp.SCHEMES[case]:
+            tag = f"mosaic_probe {case} x{PROBE_SCALE} ({scheme})"
+            got = mp.probe(case, *ins, scheme=scheme)
+            if case in mp.EXACT:
+                if not torch.equal(got, ref):
+                    raise AssertionError(f"{tag}: not bit-equal to its twin")
+            else:
+                errs.append(compare(tag, got, ref, PROBE_TOL))
+            del got
+            times[scheme] = cuda_ms(
+                lambda s=scheme: mp.probe(case, *ins, scheme=s))
+        p_ms = cuda_ms(lambda: mp.plain(case, *ins))
+        moved = mp.moved_bytes(case, ins, ref)
+        b = bound(moved)
+        rows.append(dict(case=case, scale=PROBE_SCALE, ms=times,
+                         plain_ms=p_ms, bound_ms=b[0], bytes=moved))
+        log(f"  mosaic_probe {case} x{PROBE_SCALE} {tuple(data[0].shape)}: "
+            + ", ".join(f"{k} {v!r} ms" for k, v in times.items())
+            + f"; plain {p_ms!r} ms; bound {b[0]!r} ms (bytes: {moved}) "
+            f"on {card}")
+        del data, ins, ref
+    torch.cuda.synchronize()
+    log(f"  mosaic_probe rows: {json.dumps(rows)}")
+    return {"mosaic_probe": dict(
+        shape="nine cases at the tool's shapes, default schemes, summed",
+        max_abs_err=max(errs), ms=total["ms"], plain_ms=total["plain_ms"],
+        library_ms=None,
+        bound=(total["bound"], "bytes", total["moved"], 0.0, 0.0))}
+
+
+# attgate's sites on one 8-window batch (D-first): (site, wrapper, (N, D,
+# H, W), Ca, Cx, kd). "attgate" is ops/l2block.py:attgate (the middle stage
+# of l2_block, l2_block2d and tail_block, two gated inputs and the map);
+# "fused" is ops/att.py:fused_attention_gate (two gated inputs, compact map)
+ATT_SITES = (
+    ("up_2", "attgate", _L[2], 48, 48, 3),
+    ("up_3", "attgate", _L[3], 64, 64, 3),
+    ("up_4", "attgate", _L[4], 80, 80, 3),
+    ("A up_1 tail", "attgate", _L[1], 32, 32, 1),
+    ("A up_0 head", "attgate", _L[0], 16, 16, 1),
+    ("B upatt_0", "fused", _L[0], 16, 16, 1),
+    ("B upatt_1", "fused", _L[1], 32, 32, 1),
+)
+
+
+def attgate_sweep(dev, card: str):
+    """Phase 13: attgate at each of its sites (ATT_SITES) against its plain
+    twin, with the kernel's, the twin's and the bound's times. Inputs are
+    drawn on the card from a seeded generator."""
+    import numpy as np
+    import torch
+
+    from vs_seg_tpu_torch.ops import att, l2block
+
+    gen = torch.Generator(dev).manual_seed(SEED + 1)
+    rows = []
+    for site, kind, shape, ca, cx, kd in ATT_SITES:
+        a1 = torch.randn((*shape, ca), generator=gen, device=dev,
+                         dtype=torch.bfloat16).relu_()
+        xa, xb = (torch.randn((*shape, cx), generator=gen, device=dev,
+                              dtype=torch.bfloat16) for _ in range(2))
+        w2 = ((torch.rand((3, 3, kd, ca, 1), generator=gen, device=dev) * 2
+               - 1) / np.sqrt(9 * kd * ca))
+        b2 = torch.rand(1, generator=gen, device=dev) * .4 - .2
+        if kind == "attgate":
+            def run():
+                return l2block.attgate(a1, w2, b2, xa, xb)
+
+            def twin():
+                return l2block.attgate_plain(a1, w2, b2, xa, xb)
+        else:
+            def run():
+                at, (ga, gb) = att.fused_attention_gate(a1, (xa, xb), w2, b2)
+                return at, ga, gb
+
+            def twin():
+                at, (ga, gb) = att.fused_attention_gate_plain(
+                    a1, (xa, xb), w2, b2)
+                return at, ga, gb
+        got, ref = run(), twin()
+        err = max(compare(f"attgate sweep {site} {part}", g, r, KERNEL_TOL)
+                  for part, g, r in zip(("att", "ga", "gb"), got, ref))
+        vox = a1[..., 0].numel()
+        b = bound(nbytes(a1, xa, xb, w2, b2, *got),
+                  f32_flop=(2 * 9 * kd * ca + 4 * cx) * vox)
+        del got, ref
+        k_ms = cuda_ms(run)
+        p_ms = cuda_ms(twin)
+        rows.append(dict(site=site, shape=[*shape], ca=ca, cx=cx, kd=kd,
+                         ms=k_ms, plain_ms=p_ms, bound_ms=b[0],
+                         bound_by=b[1], gbs=b[2] / k_ms / 1e6,
+                         max_abs_err=err))
+        log(f"  attgate {site} {tuple(shape)} Ca {ca} Cx {cx} kd {kd}: "
+            f"kernel {k_ms!r} ms, plain {p_ms!r} ms, bound {b[0]!r} ms "
+            f"({b[1]}: {b[2] / 1e9:.3f} GB) = {b[2] / k_ms / 1e6!r} GB/s "
+            f"on {card}")
+        del a1, xa, xb
+    torch.cuda.synchronize()
+    for name, sel in (("default", ("up_",)), ("A", ("up_", "A ")),
+                      ("B", ("up_", "B "))):
+        rs = [r for r in rows if r["site"].startswith(sel)]
+        log(f"  attgate per volume, routes {name}: kernel "
+            f"{sum(r['ms'] for r in rs)!r} ms, bound "
+            f"{sum(r['bound_ms'] for r in rs)!r} ms over {len(rs)} sites "
+            f"on {card}")
+    return rows
+
+
 CLI_CASES = 2            # synthetic test cases of phase 10
 
 
@@ -1241,7 +1431,8 @@ def cli_run(dev, card: str, model):
         "l2_block": 3 * forwards, "attgate": 3 * forwards,
         "conv333": EVAL_CONV333 * forwards, "blend_scatter": forwards,
         "conv333_dw": 0, "ru_block2d": 0, "l2_block2d": 0, "tail_block": 0,
-        "fused_attention_gate": 0, "ring_probe": 0}, "CLI (--routes dsconv)")
+        "fused_attention_gate": 0, "ring_probe": 0, "mosaic_probe": 0},
+        "CLI (--routes dsconv)")
 
     # the plain path: same data, weights and routes, every kernel site on
     # its plain twin, exported beside the kernel path's results
@@ -1319,7 +1510,7 @@ def main() -> int:
         log(f"{msg} [{time.perf_counter() - t0:.1f} s]")
 
     names = ("conv333", "conv333_dw", "attgate", "blend", "dsconv",
-             "ring_probe")
+             "ring_probe", "mosaic_probe")
     with ThreadPoolExecutor(len(names)) as pool:   # one nvcc per source
         list(pool.map(_build.build, names))
     for name in names:
@@ -1352,6 +1543,10 @@ def main() -> int:
     phase("phase 11: conv333 at each of its sites (one 8-window forward, "
           "configuration A's kd = 1 sites, the train dgrad)")
     conv333_sweep(dev, card)
+    phase("phase 12: the nine Mosaic probes vs their twins, every scheme")
+    rec.update(mosaic_probe_checks(dev, card))
+    phase("phase 13: attgate at each of its sites (default, A and B)")
+    attgate_sweep(dev, card)
     counts = {k: infer_counts[k] + train_counts[k] + route_counts[k]
               + cli_counts[k] for k in infer_counts}
     for k, r in rec.items():
@@ -1378,6 +1573,8 @@ def main() -> int:
         "fused_attention_gate": ("att.py", exp + "pallas_att.py:146"),
         "ds_conv": ("csrc/dsconv.cu", exp + "pallas_dsconv.py:145"),
         "ring_probe": ("csrc/ring_probe.cu", "tools/ring_probe.py:45"),
+        "mosaic_probe": ("csrc/mosaic_probe.cu",
+                         "tools/mosaic_probe.py:47-143"),
     }
     kernels = [{"name": k, "route": "cuda", "source": pkg + meta[k][0],
                 "replaces": meta[k][1], "launches": counts[k],

@@ -14,7 +14,9 @@ Tolerance: bf16 kernel vs plain twin, max|diff| <= 2e-2 * max|plain| (both
 round to bf16 at different points and sum in different orders); the blend
 is exact (same f32 operation order), and so is the ring probe; conv333_dw
 and its twin sum the same exact bf16 products in float32 in other orders:
-1e-4.
+1e-4. The Mosaic probes are f32: bit-equal on the tool's all-ones inputs
+(and for 3droll and repeat on any input); their other sums, taken in
+another order, within PROBE_TOL = 1e-5 of the largest output.
 """
 
 import numpy as np
@@ -22,11 +24,12 @@ import pytest
 import torch
 
 from vs_seg_tpu_torch.ops import (att, blend, block2d, conv333, conv333_dw,
-                                  dsconv, l2block, ring_probe, rublock,
-                                  tail2d, train_conv)
+                                  dsconv, l2block, mosaic_probe, ring_probe,
+                                  rublock, tail2d, train_conv)
 
 TOL = 2e-2
 DW_TOL = 1e-4
+PROBE_TOL = 1e-5
 
 pytestmark = pytest.mark.gpu
 
@@ -127,6 +130,45 @@ def test_attgate_kernel_matches_plain(dev, shape, c):
     for got, ref in zip(l2block.attgate(a1.abs(), w2, b2, xa, xb),
                         l2block.attgate_plain(a1.abs(), w2, b2, xa, xb)):
         _check(got, ref)
+
+
+@pytest.mark.parametrize("shape,ca,cx,kd,n_x,att_out", [
+    ((1, 3, 7, 9), 5, 5, 3, 2, "compact"),      # odd Ca and Cx (Ca padded)
+    ((2, 1, 9, 40), 16, 7, 3, 1, "compact"),    # D = 1, W past one tile
+    ((1, 4, 9, 33), 80, 80, 3, 2, "compact"),   # up_4's Ca, ragged W and H
+    ((1, 2, 6, 70), 32, 16, 1, 1, "none"),      # kd 1, one input, no map
+    ((2, 5, 17, 21), 24, 9, 1, 2, "compact"),   # kd 1, odd Cx
+    ((1, 3, 6, 10), 256, 8, 3, 2, "none"),      # the largest Ca
+])
+def test_attgate_kernel_edge_shapes(dev, shape, ca, cx, kd, n_x, att_out):
+    g = _g()
+    a1 = _x(g, dev, *shape, ca).abs()
+    xs = [_x(g, dev, *shape, cx) for _ in range(n_x)]
+    w2, b2 = _w(g, dev, (3, 3, kd), ca, 1), _v(g, dev, 1, -.2, .2)
+    got = att.fused_attention_gate(a1, xs, w2, b2, att_out=att_out)
+    ref = att.fused_attention_gate_plain(a1, xs, w2, b2, att_out=att_out)
+    if att_out == "compact":
+        _check(got[0], ref[0])
+    for o, r in zip(got[1], ref[1]):
+        _check(o, r)
+
+
+@pytest.mark.parametrize("case", mosaic_probe.CASES)
+def test_mosaic_probe_kernels_match_plain(dev, case):
+    ones = mosaic_probe.inputs(case, dev)
+    seeded = mosaic_probe.inputs(case, dev, seed=7)
+    ref1 = mosaic_probe.plain(case, *ones)
+    ref = mosaic_probe.plain(case, *seeded)
+    for scheme in mosaic_probe.SCHEMES[case]:
+        n0 = mosaic_probe.probe.launches
+        assert torch.equal(
+            mosaic_probe.probe(case, *ones, scheme=scheme), ref1)
+        got = mosaic_probe.probe(case, *seeded, scheme=scheme)
+        assert mosaic_probe.probe.launches == n0 + 2
+        if case in mosaic_probe.EXACT:
+            assert torch.equal(got, ref)
+        else:
+            _check(got, ref, PROBE_TOL)
 
 
 def test_ru_block_and_l2_block_kernels_match_plain(dev):

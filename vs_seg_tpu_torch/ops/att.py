@@ -11,16 +11,22 @@ rolls and can emit the map broadcast over the channel lanes ("wide"); its
 only caller keeps `att[..., :1]`. Here the map is compact, (N, D, H, W, 1),
 or None with att_out="none". The TPU kernel's preconditions (W*Cm % 128,
 H % 8, all xs with a1's channel count) are Mosaic tiling rules: the port
-routes on semantics alone, and the kernel takes any shape.
+routes on semantics alone, and the wrapper takes any shape (Ca <= 256).
 
 `launch_attgate` is the launch shared by this module's wrapper and by
 ops/l2block.py:attgate (the middle stage of l2_block, l2_block2d and
-tail_block), which count their launches apart. Numerics: the conv, the
-sigmoid and the gate run in float32 on the unrounded att; each output is
-rounded to the working dtype once. (The TPU kernel rounds att to the
-working dtype before the gate: a difference of one bf16 ulp of att.)
+tail_block), which count their launches apart. Numerics: the conv sums
+in float32 on the tensor cores with each weight as two bf16 terms (hi +
+lo, about 16 bits), the sigmoid and the gate run in float32 on the
+unrounded att; each output is rounded to the working dtype once. (The
+TPU kernel rounds att to the working dtype before the gate: a difference
+of one bf16 ulp of att.)
 
-What bounds it on the H100: memory (see csrc/attgate.cu).
+What bounds it on the H100: memory (see csrc/attgate.cu). The kernel
+stages a1 by TMA and reduces it in 16-channel tensor-core chunks, so
+`launch_attgate` pads a1 with zero channels to a multiple of 16 in a copy
+(and w2 with zero taps, `pack_w2`) where Ca is not one or a1's base is not
+16-byte aligned; Ca may be at most 256.
 """
 
 from __future__ import annotations
@@ -35,6 +41,8 @@ from vs_seg_tpu_torch.ops import _build
 from vs_seg_tpu_torch.ops.conv333 import _check_act, _ptr
 
 ATT_OUT = ("compact", "none")
+# a1's channels after padding to a multiple of 16: one TMA box row
+MAX_CA = 256
 
 
 def _kd(w2: torch.Tensor) -> int:
@@ -64,6 +72,21 @@ def fused_attention_gate_plain(a1: torch.Tensor, xs: Sequence[torch.Tensor],
     return (att.to(dt) if att_out == "compact" else None), gated
 
 
+def pad_channels(t: torch.Tensor, c: int) -> torch.Tensor:
+    """t (..., C) zero-padded to c >= C channels, in a contiguous copy."""
+    return F.pad(t, (0, c - int(t.shape[-1]))).contiguous()
+
+
+def pack_w2(w2: torch.Tensor, b2: torch.Tensor, ca: int) -> torch.Tensor:
+    """w2 (kh, kw, kd, Ca, 1) and b2 (1,) as the kernel reads them: f32
+    (kd * 9 * ca + 1), the taps (kd, kh, kw)-major with Ca zero-padded to
+    ca channels, then b2. One buffer on w2's device, so the bias needs no
+    host sync."""
+    taps = pad_channels(w2[..., 0].permute(2, 0, 1, 3).float(), ca)
+    return torch.cat([taps.reshape(-1),
+                      b2.reshape(-1).to(taps.device, torch.float32)])
+
+
 def _attgate_lib():
     lib = _build.load("attgate")
     fn = lib.attgate_launch
@@ -91,14 +114,16 @@ def launch_attgate(a1: torch.Tensor, xs: Sequence[torch.Tensor],
     if w2.shape[3] != ca or b2.numel() != 1:
         raise ValueError(f"{name}: w2 {tuple(w2.shape)} / b2 "
                          f"{tuple(b2.shape)} do not match Ca = {ca}")
-    if (kd * 9 * ca + 1) * 4 > 48 * 1024:
-        raise ValueError(f"{name}: Ca = {ca} exceeds the kernel's shared "
-                         f"memory bound at kd = {kd}")
+    # the kernel stages a1 by TMA (one box of Ca channels, at most 256, a
+    # 16-byte aligned base) and reduces it in 16-channel MMA chunks
+    ca16 = -(-ca // 16) * 16
+    if ca16 > MAX_CA:
+        raise ValueError(f"{name}: Ca = {ca} exceeds the kernel's bound of "
+                         f"{MAX_CA} channels")
     dev = a1.device
-    # (kh, kw, kd, Ca, 1) -> (kd, kh, kw, Ca) f32, tap-major as the kernel
-    # reads it, then b2: one device buffer, so no host sync for the bias
-    w2p = torch.cat([w2[..., 0].permute(2, 0, 1, 3).reshape(-1),
-                     b2.reshape(-1)]).to(dev, torch.float32).contiguous()
+    if ca16 != ca or a1.data_ptr() % 16:
+        a1 = pad_channels(a1, ca16)
+    w2p = pack_w2(w2.to(dev), b2.to(dev), ca16)
     gated = tuple(torch.empty_like(x) for x in xs)
     att = (torch.empty((*shape, 1), dtype=torch.bfloat16, device=dev)
            if want_att else None)
@@ -108,7 +133,7 @@ def launch_attgate(a1: torch.Tensor, xs: Sequence[torch.Tensor],
         _ptr(a1), _ptr(w2p), _ptr(xs[0]),
         _ptr(xs[1]) if len(xs) > 1 else None, _ptr(gated[0]),
         _ptr(gated[1]) if len(xs) > 1 else None, _ptr(att),
-        n, d, h, w, ca, cx, kd,
+        n, d, h, w, ca16, cx, kd,
         dev.index if dev.index is not None else torch.cuda.current_device(),
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     _build.check(lib, err, name)

@@ -78,6 +78,11 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
      tail and up_0 head and B's upatt_0/1 at kd = 1) against its plain
      twin, with kernel, plain and bound ms, and its ms per volume under
      the default routes, A and B.
+ 14. conv333_dw at each of the TRAIN_SITES sites of one train step (taken
+     by a hook on Conv333Train's wgrad during a full-width forward and
+     backward, dw_train_sites): two runs bit-equal, within DW_TOL of the
+     plain twin, the kernel's time beside cuDNN's wgrad, the bound,
+     TFLOP/s and the host's enqueue time per call, and their sums.
 
 The kernels are built in parallel, one nvcc per source. Every kernel record
 carries its time, its plain twin's, the time of one library call computing
@@ -1377,6 +1382,121 @@ def attgate_sweep(dev, card: str):
     return rows
 
 
+def dw_train_sites(dev):
+    """The (N, D, H, W), Cin, Cout of every conv333_dw call in one train
+    step of the flagship (the phase-6 configuration: batch 1, 384x384x64
+    crops, bf16), in the order the backward makes them: a hook on
+    Conv333Train's wgrad records each call. The weights and the crop are
+    seeded."""
+    import torch
+
+    from vs_seg_tpu_torch.core.config import Config
+    from vs_seg_tpu_torch.models import UNet2d5_spvPA
+    from vs_seg_tpu_torch.ops import train_conv
+    from vs_seg_tpu_torch.train import trainer as tr
+
+    cfg = Config(data_root=str(REPO / "build" / "chip_smoke_train"), seed=SEED)
+    dtype = tr.DTYPES[cfg.compute_dtype]
+    model = UNet2d5_spvPA(dtype=dtype, device=dev,
+                          generator=torch.Generator().manual_seed(SEED),
+                          **cfg.model_kwargs())
+    h, w, d = cfg.pad_crop_shape
+    gen = torch.Generator(dev).manual_seed(SEED)
+    image = torch.randn((cfg.train_batch_size, d, h, w, cfg.in_channels),
+                        generator=gen, device=dev).to(dtype)
+    sites = []
+    inner = train_conv.conv333_dw
+
+    def hook(x, dy):
+        sites.append((tuple(int(s) for s in x.shape[:4]), int(x.shape[-1]),
+                      int(dy.shape[-1])))
+        return inner(x, dy)
+
+    train_conv.conv333_dw = hook
+    try:
+        logits, atts = model(image, use_kernels=True, train=True,
+                             generator=gen)
+        (logits.float().sum() + sum(a.float().sum() for a in atts)).backward()
+    finally:
+        train_conv.conv333_dw = inner
+    del model, image, logits, atts
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return sites
+
+
+def dw_sweep(dev, card: str, rec):
+    """Phase 14: conv333_dw at each of the TRAIN_SITES sites of one train
+    step (dw_train_sites), seeded bf16 inputs: two runs bit-equal, within
+    DW_TOL of the plain twin, the kernel's time beside cuDNN's wgrad
+    (torch.nn.grad.conv3d_weight, the library yardstick), the bound,
+    TFLOP/s and the host's enqueue time per call; then the sums over the
+    sites. Widens rec["conv333_dw"]'s max_abs_err to every site (its times
+    stay phase 5's at down_2 unit1)."""
+    import torch
+
+    from vs_seg_tpu_torch.ops import conv333_dw as dwm
+
+    sites = dw_train_sites(dev)
+    if len(sites) != TRAIN_SITES:
+        raise AssertionError(f"{len(sites)} conv333_dw sites in one train "
+                             f"step, expected {TRAIN_SITES}")
+    gen = torch.Generator(dev).manual_seed(SEED + 2)
+    rows = []
+    for i, (shape, cin, cout) in enumerate(sites):
+        x = torch.randn((*shape, cin), generator=gen, device=dev,
+                        dtype=torch.bfloat16)
+        dy = torch.randn((*shape, cout), generator=gen, device=dev,
+                         dtype=torch.bfloat16)
+
+        def run():
+            return dwm.conv333_dw(x, dy)
+
+        dw, db = run()
+        dw2, db2 = run()
+        if not (torch.equal(dw, dw2) and torch.equal(db, db2)):
+            raise AssertionError(f"conv333_dw site {i}: two runs differ")
+        pdw, pdb = dwm.conv333_dw_plain(x, dy)
+        tag = f"conv333_dw sweep site {i:02d} {shape}x{cin}->{cout}"
+        err = max(compare(tag + " dw", dw, pdw, DW_TOL),
+                  compare(tag + " db", db, pdb, DW_TOL))
+        del dw2, db2, pdw, pdb
+        k_ms = cuda_ms(run)
+        lib_ms = cuda_ms(lambda: torch.nn.grad.conv3d_weight(
+            x.permute(0, 4, 1, 2, 3), (cout, cin, 3, 3, 3),
+            dy.permute(0, 4, 1, 2, 3), padding=1))
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(REPS):
+            run()
+        enq = (time.perf_counter() - t) * 1e3 / REPS
+        torch.cuda.synchronize()
+        flop = 2 * 27 * cin * cout * x[..., 0].numel()
+        bd = bound(nbytes(x, dy, dw, db), flop)
+        rows.append(dict(site=i, shape=[*shape], cin=cin, cout=cout, ms=k_ms,
+                         cudnn_ms=lib_ms, bound_ms=bd[0], bound_by=bd[1],
+                         tflops=flop / k_ms / 1e9, host_enqueue_ms=enq,
+                         max_abs_err=err))
+        log(f"  {tag}: kernel {k_ms!r} ms ({flop / k_ms / 1e9!r} TFLOP/s), "
+            f"cuDNN wgrad {lib_ms!r} ms, bound {bd[0]!r} ms ({bd[1]}), host "
+            f"enqueue {enq!r} ms/call on {card}")
+        del x, dy, dw, db
+    torch.cuda.synchronize()
+    sums = {k: sum(r[k] for r in rows)
+            for k in ("ms", "cudnn_ms", "bound_ms", "host_enqueue_ms")}
+    log(f"  conv333_dw over the {len(rows)} train sites: kernel "
+        f"{sums['ms']!r} ms, cuDNN wgrad {sums['cudnn_ms']!r} ms, bound "
+        f"{sums['bound_ms']!r} ms, host enqueue {sums['host_enqueue_ms']!r} "
+        f"ms; kernel faster than cuDNN at "
+        f"{sum(r['ms'] < r['cudnn_ms'] for r in rows)} sites on {card}")
+    print(json.dumps({"conv333_dw_sites": rows}), flush=True)
+    if rec is not None:
+        r = rec["conv333_dw"]
+        r["max_abs_err"] = max(r["max_abs_err"],
+                               max(x["max_abs_err"] for x in rows))
+    return rows
+
+
 CLI_CASES = 2            # synthetic test cases of phase 10
 
 
@@ -1547,6 +1667,8 @@ def main() -> int:
     rec.update(mosaic_probe_checks(dev, card))
     phase("phase 13: attgate at each of its sites (default, A and B)")
     attgate_sweep(dev, card)
+    phase("phase 14: conv333_dw at each of the train step's sites")
+    dw_sweep(dev, card, rec)
     counts = {k: infer_counts[k] + train_counts[k] + route_counts[k]
               + cli_counts[k] for k in infer_counts}
     for k, r in rec.items():

@@ -212,15 +212,25 @@ def test_blend_kernel_matches_plain_exactly(dev, dtype):
 
 
 @pytest.mark.parametrize("shape,cin,cout", [
-    ((2, 3, 9, 13), 5, 7),            # nothing aligned
+    ((2, 3, 9, 13), 5, 7),            # nothing aligned, N > 1
     ((1, 4, 16, 16), 24, 1),          # Cout = 1 (an attention conv2)
-    ((1, 2, 12, 20), 40, 80),         # Cin not a multiple of 16, 2 N tiles
+    ((1, 2, 12, 20), 40, 80),         # D = 2, two N tiles of 40
     ((2, 1, 8, 16), 16, 130),         # single depth plane, 3 N tiles
+    ((1, 8, 12, 12), 96, 96),         # the bottom site: 2 slabs, 2 N tiles
+    ((1, 7, 20, 36), 32, 48),         # steps not a multiple of the splits
+    ((1, 1, 8, 16), 16, 16),          # one step: no split, no workspace
+    ((1, 32, 48, 48), 64, 64),        # level 3, 44 splits
+    ((2, 6, 24, 40), 200, 20),        # 4 slabs, Cin 200
 ])
 def test_conv333_dw_kernel_matches_plain_and_is_deterministic(
         dev, shape, cin, cout):
     g = _g()
     x, dy = _x(g, dev, *shape, cin), _x(g, dev, *shape, cout)
+    p = conv333_dw.plan(shape, cin, cout)
+    if shape == (1, 7, 20, 36):
+        assert p.nsplit > 1 and p.steps % p.nsplit != 0
+    if shape == (1, 1, 8, 16):
+        assert p.nsplit == 1
     n0 = conv333_dw.conv333_dw.launches
     dw, db = conv333_dw.conv333_dw(x, dy)
     assert conv333_dw.conv333_dw.launches == n0 + 1

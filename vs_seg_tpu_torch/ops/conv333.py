@@ -30,8 +30,7 @@ import torch.nn.functional as F
 from vs_seg_tpu_torch.ops import _build
 
 KC = 16        # the kernels' K chunk: input channels are padded to this
-# csrc/dsconv.cu and csrc/conv333_dw.cu: output channels per block (4 WMMA
-# N tiles)
+# csrc/dsconv.cu: output channels per block (4 WMMA N tiles)
 CO_MAX = 64
 # csrc/conv333.cu: the N widths (output channels per block) it is built
 # for; a wider Cout is split into equal N tiles
@@ -90,7 +89,7 @@ def conv333_plain(x, w: torch.Tensor, scale: Optional[torch.Tensor] = None,
 
 def _tiles(cout: int):
     """(nfrag, cop): 16-wide N tiles per block and the padded Cout that the
-    grid's Cout tiles cover (csrc/dsconv.cu, csrc/conv333_dw.cu)."""
+    grid's Cout tiles cover (csrc/dsconv.cu)."""
     nf = -(-cout // 16)
     ntiles = -(-nf // (CO_MAX // 16))
     nfrag = -(-nf // ntiles)

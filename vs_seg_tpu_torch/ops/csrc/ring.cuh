@@ -1,6 +1,6 @@
 // A ring of asynchronous global -> shared copies on mbarriers (sm_90a),
-// shared by the kernels that pipeline their loads: csrc/conv333.cu and the
-// probe csrc/ring_probe.cu.
+// shared by the kernels that pipeline their loads: csrc/conv333.cu,
+// csrc/conv333_dw.cu, csrc/attgate.cu and the probe csrc/ring_probe.cu.
 //
 // A ring has S slots in shared memory and two mbarriers per slot. One
 // thread, the producer, fills a slot with TMA copies (cp.async.bulk.tensor,
@@ -70,6 +70,24 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
         : "r"(addr), "r"(parity)
         : "memory");
   } while (!done);
+}
+
+// mbar_wait as one asm statement: the poll loop is hidden from the
+// compiler, so the code after it is not taken for divergent (a wgmma there
+// would be serialized). Traps after 2^28 polls, as mbar_wait does.
+__device__ __forceinline__ void mbar_wait_asm(uint64_t* bar, int parity) {
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .u32 n;\nmov.u32 n, 0;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@p bra DONE;\n"
+      "add.u32 n, n, 1;\n"
+      "setp.eq.u32 p, n, 268435456;\n"
+      "@p trap;\n"
+      "bra WAIT;\n"
+      "DONE:\n}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
 }
 
 // TMA copy of one box of a 2-D / 5-D tensor map into shared memory;

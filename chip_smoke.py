@@ -51,8 +51,11 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
      per-level split of one 8-window forward (CUDA events at the model's
      top-level modules) for the default routes, A and C.
   9. ds_conv (the (3,3,3) stride-(2,2,2) downsample) against its plain twin
-     at the flagship's downsample_2/3/4 shapes of one 8-window batch, with
-     one cuDNN strided conv as the library yardstick.
+     at the flagship's downsample_2/3/4 shapes of one 8-window batch: per
+     site its device time (CUDA-graph replay), its back-to-back event time
+     and the host's enqueue per call, beside one cuDNN strided conv (the
+     library yardstick), the bound and TFLOP/s; a cProfile of its host
+     path at downsample_4.
  10. The inference CLI end to end: CLI_CASES synthetic NIFTI test cases of
      448x448x80 (non-RAS affine) from the port's generate_dataset, phase
      3's weights saved as the port's checkpoint, `cli.inference.main` on
@@ -1008,60 +1011,155 @@ def routes_run(dev, gen, card: str, model, staged, default_logits):
     return total
 
 
+def graph_ms(fn, reps: int = REPS) -> float:
+    """Device time per call of fn(): `reps` calls captured in one CUDA graph
+    (after a warm-up call outside it), the graph replayed once between two
+    CUDA events. The host's enqueue is out of the timing, as in a deep
+    device queue (the model's forward), where a call pays device time."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / reps
+
+
+def host_ms(fn, reps: int = REPS) -> float:
+    """Host time to enqueue one call of fn() (mean of `reps` calls after a
+    synchronise, the device queue not yet full)."""
+    import torch
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    ms = (time.perf_counter() - t) * 1e3 / reps
+    torch.cuda.synchronize()
+    return ms
+
+
+def host_profile(fn, calls: int, top: int = 8):
+    """cProfile of `calls` calls of fn(): (total ms per call, the `top`
+    entries by own time as (name, own us per call, calls per call))."""
+    import cProfile
+    import pstats
+
+    import torch
+    torch.cuda.synchronize()
+    prof = cProfile.Profile()
+    prof.enable()
+    for _ in range(calls):
+        fn()
+    prof.disable()
+    torch.cuda.synchronize()
+    st = pstats.Stats(prof)
+    rows = sorted(((k, v) for k, v in st.stats.items()),
+                  key=lambda kv: -kv[1][2])[:top]
+    ents = [(f"{Path(k[0]).name}:{k[1]}({k[2]})", v[2] * 1e6 / calls,
+             v[1] / calls) for k, v in rows]
+    return st.total_tt * 1e3 / calls, ents
+
+
 # the flagship's (3,3,3) stride-(2,2,2) sites for one 8-window batch:
 # (name, input (N, D, H, W), channels)
 DS_SITES = (("downsample_2", (SW_BATCH, 64, 96, 96), 48),
             ("downsample_3", (SW_BATCH, 32, 48, 48), 64),
             ("downsample_4", (SW_BATCH, 16, 24, 24), 80))
+DS_PROFILE_CALLS = 200   # calls of ds_conv profiled at downsample_4
+
+
+def ds_site_args(dev, gen, shape, c):
+    """Seeded ds_conv arguments at one site: x, w, scale, shift, alpha."""
+    import numpy as np
+    import torch
+    x = torch.randn((*shape, c), generator=gen).to(dev, torch.bfloat16)
+    bw = 1.0 / np.sqrt(27 * c)
+    w = ((torch.rand((3, 3, 3, c, c), generator=gen) * 2 - 1) * bw).to(dev)
+    s = (torch.rand(c, generator=gen) + .5).to(dev)
+    h = (torch.rand(c, generator=gen) * .4 - .2).to(dev)
+    a = (torch.rand(1, generator=gen) * .2 + .1).to(dev)
+    return x, w, s, h, a
 
 
 def dsconv_checks(dev, gen, card: str):
-    """Phase 9: ds_conv vs its plain twin at the three flagship sites."""
-    import numpy as np
+    """Phase 9: ds_conv vs its plain twin at the three flagship sites. Per
+    site: the kernel's device time (CUDA-graph replay of REPS calls) beside
+    its back-to-back CUDA-event time and the host's enqueue per call, the
+    plain twin's time, one cuDNN strided conv's (graph replay), the bound
+    and TFLOP/s; a JSON record per site; then a cProfile of
+    DS_PROFILE_CALLS calls at downsample_4. The kernel record keeps
+    downsample_2's numbers, its max_abs_err is the largest over the sites.
+    """
     import torch
     import torch.nn.functional as F
 
     from vs_seg_tpu_torch.ops import dsconv
 
-    rec, errs = None, []
+    rec, errs, sites = None, [], []
     for site, shape, c in DS_SITES:
-        x = torch.randn((*shape, c), generator=gen).to(dev, torch.bfloat16)
-        bw = 1.0 / np.sqrt(27 * c)
-        w = ((torch.rand((3, 3, 3, c, c), generator=gen) * 2 - 1) * bw
-             ).to(dev)
-        s = (torch.rand(c, generator=gen) + .5).to(dev)
-        h = (torch.rand(c, generator=gen) * .4 - .2).to(dev)
-        a = (torch.rand(1, generator=gen) * .2 + .1).to(dev)
-        got = dsconv.ds_conv(x, w, s, h, a)
+        x, w, s, h, a = ds_site_args(dev, gen, shape, c)
+
+        def run():
+            return dsconv.ds_conv(x, w, s, h, a)
+
+        got = run()
         name = f"ds_conv {site} {shape}x{c}->{c}"
         errs.append(compare(name, got, dsconv.ds_conv_plain(x, w, s, h, a),
                             KERNEL_TOL))
-        ms = cuda_ms(lambda: dsconv.ds_conv(x, w, s, h, a))
-        # host time to enqueue one call (weight packing + launch): where it
-        # exceeds the kernel's, the event time above is the host's
-        t = time.perf_counter()
-        for _ in range(REPS):
-            dsconv.ds_conv(x, w, s, h, a)
-        host_ms = (time.perf_counter() - t) * 1e3 / REPS
-        torch.cuda.synchronize()
+        dev_ms = graph_ms(run)
+        ev_ms = cuda_ms(run)
+        enq_ms = host_ms(run)
         p_ms = cuda_ms(lambda: dsconv.ds_conv_plain(x, w, s, h, a))
         # the library yardstick: one cuDNN strided conv (+ bias) on the same
         # bf16 NDHWC input (channels_last_3d, no copy)
         wt = w.to(torch.bfloat16).permute(4, 3, 2, 0, 1).contiguous()
         hb = h.to(torch.bfloat16)
-        lib_ms = cuda_ms(lambda: F.conv3d(x.permute(0, 4, 1, 2, 3), wt, hb,
-                                          stride=2, padding=1))
-        b = bound(nbytes(x, w, s, h, a, got),
-                  2 * 27 * c * c * got[..., 0].numel())
-        log(f"  {name}: kernel {ms!r} ms (host enqueue {host_ms!r} ms per "
-            f"call), plain {p_ms!r} ms, cuDNN {lib_ms!r}"
-            f" ms, bound {b[0]!r} ms ({b[1]}: {b[2] / 1e9:.3f} GB, "
-            f"{b[3] / 1e9:.1f} GFLOP) = {b[3] / ms / 1e9!r} TFLOP/s on {card}")
+        lib_ms = graph_ms(lambda: F.conv3d(x.permute(0, 4, 1, 2, 3), wt, hb,
+                                           stride=2, padding=1))
+        flop = 2 * 27 * c * c * got[..., 0].numel()
+        b = bound(nbytes(x, w, s, h, a, got), flop)
+        row = dict(site=site, shape=[*shape], cin=c, cout=c, ms=dev_ms,
+                   event_ms=ev_ms, host_enqueue_ms=enq_ms, plain_ms=p_ms,
+                   cudnn_ms=lib_ms, bound_ms=b[0], bound_by=b[1],
+                   tflops=flop / dev_ms / 1e9, max_abs_err=errs[-1],
+                   card=card)
+        sites.append(row)
+        log(f"  {name}: kernel {dev_ms!r} ms device (graph replay), "
+            f"{ev_ms!r} ms back to back, host enqueue {enq_ms!r} ms/call; "
+            f"plain {p_ms!r} ms, cuDNN {lib_ms!r} ms, bound {b[0]!r} ms "
+            f"({b[1]}: {b[2] / 1e9:.3f} GB, {b[3] / 1e9:.1f} GFLOP) = "
+            f"{row['tflops']!r} TFLOP/s on {card}")
+        print(json.dumps({"ds_conv_site": row}), flush=True)
         if rec is None:
-            rec = dict(shape=name, ms=ms, plain_ms=p_ms, library_ms=lib_ms,
-                       bound=b)
+            rec = dict(shape=name, ms=dev_ms, plain_ms=p_ms,
+                       library_ms=lib_ms, bound=b)
+        if site == DS_SITES[-1][0]:
+            tot, ents = host_profile(run, DS_PROFILE_CALLS)
+            log(f"  ds_conv host profile at {site}, {DS_PROFILE_CALLS} "
+                f"calls: {tot!r} ms/call under cProfile; own us per call:")
+            for fn_name, us, ncalls in ents:
+                log(f"    {us:8.2f} us  x{ncalls:g}  {fn_name}")
         del x, got
     rec["max_abs_err"] = max(errs)
+    log(f"  ds_conv over the {len(sites)} sites: device "
+        f"{sum(r['ms'] for r in sites)!r} ms, cuDNN "
+        f"{sum(r['cudnn_ms'] for r in sites)!r} ms, bound "
+        f"{sum(r['bound_ms'] for r in sites)!r} ms, host enqueue "
+        f"{sum(r['host_enqueue_ms'] for r in sites)!r} ms on {card}")
     torch.cuda.synchronize()
     return {"ds_conv": rec}
 
@@ -1182,12 +1280,7 @@ def conv333_sweep(dev, card: str):
                    bound_ms=bd[0], bound_by=bd[1], tflops=flop / k_ms / 1e9,
                    gbs=moved / k_ms / 1e6, max_abs_err=err)
         if site.startswith("bottom unit1"):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            for _ in range(REPS):
-                run()
-            row["host_enqueue_ms"] = (time.perf_counter() - t) * 1e3 / REPS
-            torch.cuda.synchronize()
+            row["host_enqueue_ms"] = host_ms(run)
         rows.append(row)
         log(f"  {site} {tuple(shape)} {cins}->{cout} kd {kd} res {cr}: "
             f"kernel {k_ms!r} ms, F.conv3d {lib_ms!r} ms, bound {bd[0]!r} "
@@ -1465,12 +1558,7 @@ def dw_sweep(dev, card: str, rec):
         lib_ms = cuda_ms(lambda: torch.nn.grad.conv3d_weight(
             x.permute(0, 4, 1, 2, 3), (cout, cin, 3, 3, 3),
             dy.permute(0, 4, 1, 2, 3), padding=1))
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        for _ in range(REPS):
-            run()
-        enq = (time.perf_counter() - t) * 1e3 / REPS
-        torch.cuda.synchronize()
+        enq = host_ms(run)
         flop = 2 * 27 * cin * cout * x[..., 0].numel()
         bd = bound(nbytes(x, dy, dw, db), flop)
         rows.append(dict(site=i, shape=[*shape], cin=cin, cout=cout, ms=k_ms,
@@ -1629,8 +1717,8 @@ def main() -> int:
     def phase(msg: str) -> None:
         log(f"{msg} [{time.perf_counter() - t0:.1f} s]")
 
-    names = ("conv333", "conv333_dw", "attgate", "blend", "dsconv",
-             "ring_probe", "mosaic_probe")
+    names = ("conv333", "conv333_dw", "attgate", "blend", "ring_probe",
+             "mosaic_probe")
     with ThreadPoolExecutor(len(names)) as pool:   # one nvcc per source
         list(pool.map(_build.build, names))
     for name in names:
@@ -1693,7 +1781,7 @@ def main() -> int:
         "l2_block2d": ("block2d.py", exp + "pallas_block2d.py:226"),
         "tail_block": ("tail2d.py", exp + "pallas_tail2d.py:239"),
         "fused_attention_gate": ("att.py", exp + "pallas_att.py:146"),
-        "ds_conv": ("csrc/dsconv.cu", exp + "pallas_dsconv.py:145"),
+        "ds_conv": ("csrc/conv333.cu", exp + "pallas_dsconv.py:145"),
         "ring_probe": ("csrc/ring_probe.cu", "tools/ring_probe.py:45"),
         "mosaic_probe": ("csrc/mosaic_probe.cu",
                          "tools/mosaic_probe.py:47-143"),

@@ -349,22 +349,36 @@ def test_fused_attention_gate_kernel_matches_plain(dev, kd, cm, cx, n_x,
         _check(o, r)
 
 
-@pytest.mark.parametrize("shape,cin,cout", [
-    ((2, 5, 7, 9), 5, 7),             # every size odd, nothing aligned
-    ((1, 6, 34, 21), 80, 80),         # Cout = 80: two N tiles; ragged tiles
-    ((3, 1, 2, 3), 16, 1),            # one depth plane, Cout = 1
+@pytest.mark.parametrize("shape,cin,cout,th", [
+    ((2, 5, 7, 9), 5, 7, None),       # every size odd, nothing aligned
+    ((1, 6, 34, 21), 80, 80, None),   # Cout = 80: one N tile; ragged tiles
+    ((3, 1, 2, 3), 16, 1, None),      # one depth plane, Cout = 1
+    ((1, 4, 10, 15), 12, 48, None),   # odd W (padded), Cin = 12
+    ((2, 3, 40, 38), 12, 96, 8),      # TH = 8, Cout = 96: two N tiles
+    ((1, 2, 33, 64), 64, 64, 16),     # W = 4 tiles of 16, ragged H
 ])
-def test_ds_conv_kernel_matches_plain(dev, shape, cin, cout):
+def test_ds_conv_kernel_matches_plain(dev, shape, cin, cout, th):
     g = _g()
     x = _x(g, dev, *shape, cin)
     args = (_w(g, dev, (3, 3, 3), cin, cout), _v(g, dev, cout, .5, 1.5),
             _v(g, dev, cout, -.2, .2), _v(g, dev, 1, .1, .3))
     n0 = dsconv.ds_conv.launches
-    got = dsconv.ds_conv(x, *args)
+    got = dsconv.ds_conv(x, *args, th=th)
     assert dsconv.ds_conv.launches == n0 + 1
     assert tuple(got.shape) == (shape[0], *((s - 1) // 2 + 1
                                             for s in shape[1:]), cout)
     _check(got, dsconv.ds_conv_plain(x, *args))
+
+
+def test_ds_conv_kernel_refuses_what_it_cannot_take(dev):
+    g = _g()
+    w = _w(g, dev, (3, 3, 3), 8, 8)
+    with pytest.raises(TypeError):                      # not bf16
+        dsconv.ds_conv(torch.zeros(1, 2, 4, 4, 8, device=dev), w)
+    with pytest.raises(ValueError):                     # zero-size
+        dsconv.ds_conv(_x(g, dev, 1, 0, 4, 4, 8), w)
+    with pytest.raises(ValueError):                     # Cin != w's
+        dsconv.ds_conv(_x(g, dev, 1, 2, 4, 4, 16), w)
 
 
 def test_inference_cli_on_the_card(dev, tmp_path, monkeypatch):

@@ -11,6 +11,17 @@ of the sums differs); bfloat16 1e-2 (both sides round the output to bf16);
 at model level 2e-4 (tests/test_model.py::test_fused_dsconv_matches_
 reference). Shapes the TPU kernel cannot take (odd sizes, Cin > 64) are
 held to the JAX package's strided conv3d, which is the semantics.
+
+The kernel itself (csrc/conv333.cu at stride 2) is held here by its launch
+plan (dsconv.plan) and by an emulation that follows it stage by stage: the
+padded input's (N*D, H, W/2, 2, Cp) view, four zero-filled TMA boxes per
+stage laid out as the kernel's ring slot, each tap's A operand read through
+the kernel's wgmma descriptor arithmetic (start, LBO, SBO) and its B from
+the packed weight slab the same way, depth planes 2 od + kd - 1, the
+epilogue and the masked store. In float32 it must equal ds_conv_plain on
+bf16-rounded weights (the kernel's) to 1e-5 of the largest output, and the
+JAX Pallas ds_conv (interpret mode, at shapes its gate takes); with bf16
+inputs, rounded once at the store, within KERNEL_TOL (chip_smoke.py's band).
 """
 
 import jax
@@ -18,6 +29,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from vs_seg_tpu.models import UNet2d5_spvPA as JUNet
 from vs_seg_tpu.nn.layers import conv3d as jconv3d
@@ -26,9 +38,11 @@ from vs_seg_tpu_torch.compat import load_jax_variables
 from vs_seg_tpu_torch.core.config import Routes
 from vs_seg_tpu_torch.models import UNet2d5_spvPA as TUNet
 from vs_seg_tpu_torch.nn import blocks as tblocks
-from vs_seg_tpu_torch.ops import dsconv
+from vs_seg_tpu_torch.ops import conv333, dsconv
 
 TOL = dict(atol=2e-5, rtol=2e-5)
+EMU_TOL = 1e-5            # float32 emulation vs twin, relative to max|ref|
+KERNEL_TOL = 2e-2         # chip_smoke.py's bf16 band, kernel vs twin
 
 
 def _xw(rng, shape, cin, cout):
@@ -127,6 +141,230 @@ def test_ds_conv_cpu_runs_the_plain_twin_uncounted():
     assert torch.equal(got, dsconv.ds_conv_plain(torch.from_numpy(x),
                                                  torch.from_numpy(w)))
     assert dsconv.ds_conv.launches == n0
+
+
+# ---- the kernel's plan and decomposition ----------------------------------
+
+# (N, D, H, W), Cin, Cout: the flagship's sites (8 windows), then ragged ones
+FLAGSHIP_DS = (((8, 64, 96, 96), 48, 48), ((8, 32, 48, 48), 64, 64),
+               ((8, 16, 24, 24), 80, 80))
+RAGGED_DS = (((2, 5, 7, 9), 5, 7), ((1, 3, 6, 13), 80, 80),
+             ((1, 2, 5, 6), 12, 96), ((1, 3, 34, 21), 24, 20),
+             ((3, 1, 2, 3), 16, 1), ((1, 1, 1, 1), 8, 200))
+
+
+@pytest.mark.parametrize("shape,cin,cout", FLAGSHIP_DS + RAGGED_DS)
+@pytest.mark.parametrize("th", [None, 8])
+def test_ds_plan_covers_every_output_once_within_limits(shape, cin, cout,
+                                                        th):
+    p = dsconv.plan(shape, cin, cout, th)
+    n, d, h, w = shape
+    assert p.out == (n, (d - 1) // 2 + 1, (h - 1) // 2 + 1, (w - 1) // 2 + 1)
+    assert p.th == (th or dsconv.pick_th(p.out, p.cop // p.n_t))
+    assert p.th in dsconv.TH_CHOICES
+    # the tiles cover Ho x Wo with no tile wholly outside; the N tiles Cout
+    _, do, ho, wo = p.out
+    assert (p.tiles_h - 1) * p.th < ho <= p.tiles_h * p.th
+    assert (p.tiles_w - 1) * dsconv.TW < wo <= p.tiles_w * dsconv.TW
+    assert p.n_t in dsconv.DS_TILES and p.cop % p.n_t == 0
+    assert p.cop >= cout and p.cop - p.n_t < cout
+    assert p.tiles == n * do * (p.cop // p.n_t) * p.tiles_h * p.tiles_w
+    assert p.tiles < 2 ** 31
+    # the ring fits a block; the TMA map's box and strides are legal
+    assert p.smem <= dsconv.SMEM_MAX
+    assert all(1 <= b <= 256 for b in p.box) and p.box[0] * 2 % 16 == 0
+    assert all(s % 16 == 0 for s in p.strides)
+    # the view is the padded input: channels to a multiple of 8, W even
+    # (odd W padded by one column)
+    assert p.cp % 8 == 0 and 0 <= p.cp - cin < 8
+    assert p.wp == w + (w % 2) and p.wp % 2 == 0
+    assert p.view == (p.cp, 2, p.wp // 2, h, n * d)
+    elems = torch.empty(n * d, h, p.wp // 2, 2, p.cp).stride()
+    assert p.strides == tuple(2 * s for s in reversed(elems[:-1]))
+
+
+def test_ds_plan_flagship():
+    """The three downsample sites: one N tile of Cout, TH = 16 at
+    downsample_2 and 8 below, and the ring sizes of csrc/conv333.cu's
+    stride-2 instances (3 slots of 4 half planes of (2 TH + 1) x 17 x 16 B
+    plus the 9-tap slab)."""
+    got = [dsconv.plan(s, ci, co) for s, ci, co in FLAGSHIP_DS]
+    assert [(p.n_t, p.cop, p.th) for p in got] == [
+        (48, 48, 16), (64, 64, 8), (80, 80, 8)]
+    assert [p.smem for p in got] == [150576, 112176, 126000]
+    assert [p.tiles for p in got] == [8 * 32 * 3 * 3, 8 * 16 * 3 * 2,
+                                      8 * 8 * 2 * 1]
+    assert [dsconv.plan(s, ci, co, 16).smem for s, ci, co in FLAGSHIP_DS] \
+        == [150576, 164400, 178224]
+    assert dsconv.plan(*FLAGSHIP_DS[0]) is got[0]     # cached per shape
+
+
+def _box(view, start, size):
+    """A TMA box of the view (outermost first), zero-filled outside it."""
+    out = torch.zeros(size, dtype=view.dtype)
+    src, dst = [], []
+    for s0, n, dim in zip(start, size, view.shape):
+        lo, hi = max(s0, 0), min(s0 + n, dim)
+        if hi <= lo:
+            return out
+        src.append(slice(lo, hi))
+        dst.append(slice(lo - s0, hi - s0))
+    out[tuple(dst)] = view[tuple(src)]
+    return out
+
+
+def _desc(flat, start, lbo, sbo, rows):
+    """The rows x 16 operand a no-swizzle K-major wgmma descriptor reads
+    from `flat` (2-byte elements): row r, column k at byte start + (r // 8)
+    * sbo + (r % 8) * 16 + (k // 8) * lbo + (k % 8) * 2."""
+    r = torch.arange(rows)[:, None]
+    k = torch.arange(16)[None, :]
+    byte = start + (r // 8) * sbo + (r % 8) * 16 + (k // 8) * lbo + (k % 8) * 2
+    return flat[byte // 2]
+
+
+def emulate_ds_conv(x, w, scale=None, shift=None, alpha=None, th=None):
+    """csrc/conv333.cu at stride 2, stage by stage, in float32 (the output
+    unrounded): see the module docstring. Also returns how often each
+    output value was stored."""
+    n, d, h, wd, cin = x.shape
+    cout = w.shape[-1]
+    p = dsconv.plan((n, d, h, wd), cin, cout, th)
+    HW, HH = dsconv.TW + 1, 2 * p.th + 1
+    half = HH * HW * 16
+    pitch = -(-half // 128) * 128
+    xp = F.pad(x.float(), (0, p.cp - cin, 0, p.wp - wd))
+    view = xp.reshape(n * d, h, p.wp // 2, 2, p.cp)
+    wm = conv333.pack_weights_gmma(w, [cin], p.n_t).float()
+    tap_bytes = 16 * p.n_t * 2          # one tap's 16 x N slab
+    _, do, ho, wo = p.out
+    out = torch.zeros((*p.out, p.cop))
+    stores = torch.zeros((*p.out, p.cop), dtype=torch.int32)
+    mt_n = 2 * (p.th // 8)              # m64 tiles of a block
+    col_of = torch.arange(p.n_t)
+    for tile in range(p.tiles):         # the kernel's walk order
+        hw = tile % (p.tiles_h * p.tiles_w)
+        rest = tile // (p.tiles_h * p.tiles_w)
+        nt, rest = rest % (p.cop // p.n_t), rest // (p.cop // p.n_t)
+        od, b = rest % do, rest // do
+        oh0, ow0 = (hw // p.tiles_w) * p.th, (hw % p.tiles_w) * dsconv.TW
+        plo, phi = max(0, 1 - 2 * od), min(2, d - 1 - 2 * od + 1)
+        acc = torch.zeros(mt_n, 64, p.n_t)
+        for j in range(wm.shape[1]):
+            for pz in range(plo, phi + 1):
+                dz = 2 * od + pz - 1
+                slot = torch.full((4 * pitch // 2,), float("nan"))
+                for q in range(4):      # (parity, half) = divmod(q, 2)
+                    bx = _box(view, (b * d + dz, 2 * oh0 - 1, ow0 - 1, q >> 1,
+                                     16 * j + 8 * (q & 1)),
+                              (1, HH, HW, 1, 8))
+                    slot[q * pitch // 2:q * pitch // 2 + half // 2] = \
+                        bx.reshape(-1)
+                slab = wm[nt, j, pz].reshape(-1)
+                for tap in range(9):
+                    kh, kw = divmod(tap, 3)
+                    plane = 0 if kw == 1 else 2 * pitch
+                    col = 1 if kw else 0
+                    bmat = _desc(slab, tap * tap_bytes, 128, 256,
+                                 p.n_t)             # (N, 16)
+                    for mt in range(mt_n):
+                        pos = ((mt >> 1) * 16 + kh) * HW + (mt & 1) * 8 + col
+                        amat = _desc(slot, plane + pos * 16, pitch,
+                                     2 * HW * 16, 64)
+                        acc[mt] += amat @ bmat.t()
+        co = torch.clamp(nt * p.n_t + col_of, max=cout - 1)
+        for mt in range(mt_n):
+            v = acc[mt]
+            if scale is not None:
+                v = v * scale.float()[co]
+            if shift is not None:
+                v = v + shift.float()[co]
+            if alpha is not None:
+                a = alpha.float().reshape(-1)
+                a = a[co] if a.numel() > 1 else a
+                v = torch.where(v >= 0, v, a * v)
+            for r in range(64):
+                oh = oh0 + (mt >> 1) * 8 + r // 8
+                ow = ow0 + (mt & 1) * 8 + r % 8
+                if oh < ho and ow < wo:
+                    sl = slice(nt * p.n_t, (nt + 1) * p.n_t)
+                    out[b, od, oh, ow, sl] = v[r]
+                    stores[b, od, oh, ow, sl] += 1
+    return out[..., :cout], stores[..., :cout]
+
+
+def _epilogue(rng, variant, cout):
+    scale = torch.from_numpy((rng.normal(size=(cout,)) * .5 + 1).astype(
+        np.float32))
+    shift = torch.from_numpy(rng.normal(size=(cout,)).astype(np.float32))
+    slope = rng.uniform(.1, .4, size=(cout,)).astype(np.float32)
+    return {"bn": (scale, shift, torch.from_numpy(slope[:1])),
+            "alpha_vec": (scale, shift, torch.from_numpy(slope)),
+            "bias_relu": (None, shift, torch.zeros(1)),
+            "none": (None, None, None)}[variant]
+
+
+def _bf16_w(w):
+    return w.to(torch.bfloat16).float()
+
+
+@pytest.mark.parametrize("variant", ["bn", "alpha_vec", "bias_relu",
+                                     "none"])
+@pytest.mark.parametrize("shape,cin,cout,th", [
+    ((2, 5, 7, 9), 5, 7, None),       # odd D/H/W, Cin % 8 != 0, tiny Cout
+    ((1, 3, 6, 13), 80, 80, None),    # one N tile of 80, odd W
+    ((1, 2, 5, 6), 12, 96, None),     # Cout split into two N tiles of 48
+    ((1, 3, 34, 21), 24, 20, 8),      # TH = 8: three tile rows, ragged
+])
+def test_ds_emulation_matches_plain(shape, cin, cout, th, variant):
+    rng = np.random.default_rng(11)
+    x, w = (torch.from_numpy(a) for a in _xw(rng, shape, cin, cout))
+    epi = _epilogue(rng, variant, cout)
+    got, stores = emulate_ds_conv(x, w, *epi, th=th)
+    assert bool((stores == 1).all())            # every output stored once
+    ref = dsconv.ds_conv_plain(x, _bf16_w(w), *epi)
+    assert got.shape == ref.shape
+    err = float((got - ref).abs().max() / ref.abs().max())
+    assert err <= EMU_TOL, err
+
+
+@pytest.mark.parametrize("shape,cin,cout", [
+    ((1, 4, 8, 32), 48, 48),      # downsample_2-like
+    ((2, 2, 8, 32), 40, 64),      # Cin % 16 != 0, B > 1
+])
+def test_ds_emulation_matches_pallas(shape, cin, cout):
+    rng = np.random.default_rng(12)
+    x, w = _xw(rng, shape, cin, cout)
+    w = np.asarray(_bf16_w(torch.from_numpy(w)))
+    scale, shift, alpha = (t.numpy() for t in _epilogue(rng, "alpha_vec",
+                                                        cout))
+    assert pallas_dsconv.can_ds_conv((*shape, cin), w.shape)
+    ref = np.asarray(pallas_dsconv.ds_conv(
+        jnp.asarray(x), jnp.asarray(w), jnp.asarray(scale),
+        jnp.asarray(shift), jnp.asarray(alpha), interpret=True))
+    got, _ = emulate_ds_conv(torch.from_numpy(x), torch.from_numpy(w),
+                             _t(scale), _t(shift), _t(alpha))
+    err = float(np.abs(got.numpy() - ref).max() / np.abs(ref).max())
+    assert err <= EMU_TOL, err
+
+
+def test_ds_emulation_bf16_matches_pallas_and_plain():
+    """bf16 activations and weights, the output rounded once (the kernel's
+    store): within KERNEL_TOL of the Pallas kernel and of the plain twin."""
+    rng = np.random.default_rng(13)
+    x, w = _xw(rng, (1, 4, 8, 32), 48, 48)
+    scale, shift, alpha = _epilogue(rng, "bn", 48)
+    xb, wb = (torch.from_numpy(a).to(torch.bfloat16) for a in (x, w))
+    got = emulate_ds_conv(xb, wb, scale, shift, alpha)[0].to(torch.bfloat16)
+    ref_p = np.asarray(pallas_dsconv.ds_conv(
+        jnp.asarray(x, jnp.bfloat16), jnp.asarray(w, jnp.bfloat16),
+        _j(scale.numpy()), _j(shift.numpy()), _j(alpha.numpy()),
+        interpret=True), np.float32)
+    ref_t = dsconv.ds_conv_plain(xb, wb, scale, shift, alpha).float()
+    for ref in (ref_p, ref_t.numpy()):
+        err = float(np.abs(got.float().numpy() - ref).max()
+                    / np.abs(ref).max())
+        assert err <= KERNEL_TOL, err
 
 
 # ---- model level ----------------------------------------------------------

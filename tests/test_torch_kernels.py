@@ -102,40 +102,6 @@ def test_conv333_residual_form(pair):
     assert _rel_err(got, ref) <= 1e-5
 
 
-@pytest.mark.parametrize("cins,cout", [((48,), 48), ((12, 20), 33),
-                                       ((80, 80), 80)])
-def test_packed_weights_layout(cins, cout):
-    """The packed (taps, kp, cop) weight csrc/dsconv.cu reads, contracted in
-    the kernel's order (per input, per tap, over the padded channel block),
-    equals the plain conv: pins the tap order and the channel/Cout padding."""
-    rng = np.random.default_rng(2)
-    shape = (1, 3, 5, 6)
-    xs = [T(rng.normal(size=(*shape, c)).astype(np.float32)) for c in cins]
-    w = T(_w(rng, (3, 3, 3), sum(cins), cout))
-    nfrag, cop = conv333._tiles(cout)
-    assert 1 <= nfrag <= 4 and cop % (nfrag * 16) == 0 and cop >= cout
-    wm = conv333.pack_weights(w, cins, cop).float()
-    assert tuple(wm.shape) == (27, sum(-(-c // 16) * 16 for c in cins), cop)
-    out = torch.zeros((*shape, cop))
-    kbase = 0
-    n, d, h, wd = shape
-    for x in xs:
-        c = x.shape[-1]
-        xp = torch.nn.functional.pad(x, (0, 0, 1, 1, 1, 1, 1, 1))
-        for kd in range(3):
-            for kh in range(3):
-                for kw in range(3):
-                    t = (kd * 3 + kh) * 3 + kw
-                    tap = xp[:, kd:kd + d, kh:kh + h, kw:kw + wd, :]
-                    out += tap @ wm[t, kbase:kbase + c, :]
-        kbase += -(-c // 16) * 16
-    # the plain twin sees bf16-rounded weights, as the kernel does
-    ref = conv333.conv333_plain(tuple(xs) if len(xs) > 1 else xs[0],
-                                w.to(torch.bfloat16).float())
-    assert _rel_err(out[..., :cout], ref.numpy()) <= 1e-5
-    assert not out[..., cout:].any()   # padded Cout columns stay zero
-
-
 @pytest.mark.parametrize("cins,cout,kd", [
     ((48,), 48, 3), ((80, 80), 80, 3),
     ((1,), 16, 1),                # Cin 1 (down_0 unit0)
@@ -198,19 +164,20 @@ def test_packed_weights_gmma_layout(cins, cout, kd):
 def test_packed_weights_cache():
     """The packed weight is cached on the weight tensor: a second call hits,
     an in-place update (w._version) or another N misses, and a deep copy
-    of the tensor starts with no cache. ds_conv's pack shares the cache
-    under its own key."""
+    of the tensor starts with no cache. Another use (ds_conv's) or another
+    pack function shares the cache under its own key."""
     import copy
     rng = np.random.default_rng(8)
     w = T(_w(rng, (3, 3, 3), 16, 32))
     p1 = conv333.packed_weights(w, "conv333", [16], 32, "cpu")
     assert conv333.packed_weights(w, "conv333", [16], 32, "cpu") is p1
-    ds = conv333.packed_weights(w, "ds_conv", [16], 32, "cpu",
-                                pack=conv333.pack_weights)
-    assert tuple(ds.shape) == (27, 16, 32)
+    ds = conv333.packed_weights(w, "ds_conv", (16,), 32, "cpu")
+    assert ds is not p1 and torch.equal(ds, p1)
+    flat = conv333.packed_weights(w, "flat", [16], 32, "cpu",
+                                  pack=lambda v, cins, n: v.reshape(-1, n))
+    assert tuple(flat.shape) == (27 * 16, 32)
     assert conv333.packed_weights(w, "conv333", [16], 32, "cpu") is p1
-    assert conv333.packed_weights(w, "ds_conv", [16], 32, "cpu",
-                                  pack=conv333.pack_weights) is ds
+    assert conv333.packed_weights(w, "ds_conv", (16,), 32, "cpu") is ds
     assert conv333.packed_weights(w, "conv333", [16], 48, "cpu") is not p1
     w.add_(1)
     p2 = conv333.packed_weights(w, "conv333", [16], 32, "cpu")

@@ -1,27 +1,42 @@
-"""A/B timing of attgate or conv333_dw builds at their sites, on one GPU.
+"""A/B timing of attgate, conv333_dw or ds_conv builds at their sites, on
+one GPU.
 
     python -m vs_seg_tpu_torch.bench.attgate_ab OTHER.cu [MORE.cu ...]
     python -m vs_seg_tpu_torch.bench.attgate_ab --kernel conv333_dw OTHER.cu
+    python -m vs_seg_tpu_torch.bench.attgate_ab --kernel ds_conv OLD.cu \
+        [--ds-th 16,8]
 
 Builds each given source (a file with the C interface of the kernel's
 csrc/<kernel>.cu: another design, or an earlier commit's kernel, e.g. from
 `git show <rev>:vs_seg_tpu_torch/ops/csrc/attgate.cu > build/attgate_old.cu`)
 with the repo's nvcc flags into build/vs_seg_tpu_torch/ab/, beside the
-tree's source. A conv333_dw source whose C interface differs from the
+tree's source (for ds_conv, csrc/conv333.cu, whose stride-2 instance it
+is). A conv333_dw or ds_conv source whose C interface differs from the
 tree's brings its own wrapper: a .py file of the same stem beside it (that
-commit's ops/conv333_dw.py, e.g. `git show <rev>:vs_seg_tpu_torch/ops/
-conv333_dw.py > build/conv333_dw_old.py`), loaded in place of the tree's.
+commit's ops/conv333_dw.py or ops/dsconv.py, e.g. `git show <rev>:vs_seg_
+tpu_torch/ops/dsconv.py > build/dsconv_old.py`), loaded in place of the
+tree's. A module that wrapper imports from the package and that has changed
+since rides along as STEM.<module>.py (e.g. the parent's ops/conv333.py as
+build/dsconv_old.conv333.py); it stands in for the tree's module while the
+wrapper is loaded.
 
 Sites: attgate at chip_smoke.ATT_SITES, through ops/l2block.py:attgate (two
 gated inputs and the map); conv333_dw at the sites of one train step of the
-flagship (chip_smoke.dw_train_sites). At every site each build is held to
-the plain twin (chip_smoke.KERNEL_TOL or DW_TOL), then timed with CUDA events
-in turns: the given sources, the tree's, then the same reversed (for one
-earlier source: parent, new, new, parent). Prints one line per site with
-the mean of the two turns of each build, its bound and the card, the sums
-over the sites, and a JSON line of all the times last. Run from the repo
-root. --time-only skips the comparison, for diagnostic variants that leave
-out part of the work on purpose (their times say what that part costs).
+flagship (chip_smoke.dw_train_sites); ds_conv at chip_smoke.DS_SITES (each
+build with its own copy of the weight, so no packed-weight cache is
+shared). At every site each build is held to the plain twin
+(chip_smoke.KERNEL_TOL or DW_TOL), then timed in turns: the given sources,
+the tree's, then the same reversed (for one earlier source: parent, new,
+new, parent). attgate and conv333_dw are timed with CUDA events around
+back-to-back calls; ds_conv by CUDA-graph replay (chip_smoke.graph_ms: the
+device's time, without the host's enqueue), with the host's enqueue per
+call (chip_smoke.host_ms) beside it, one cuDNN strided conv in the same
+turns, and --ds-th the tree's kernel at each tile height listed. Prints one
+line per site with the mean of the two turns of each build, its bound and
+the card, the sums over the sites, and a JSON line of all the times last.
+Run from the repo root. --time-only skips the comparison, for diagnostic
+variants that leave out part of the work on purpose (their times say what
+that part costs).
 """
 
 from __future__ import annotations
@@ -38,7 +53,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from vs_seg_tpu_torch.ops import _build, conv333_dw, l2block
+from vs_seg_tpu_torch.ops import _build, conv333_dw, dsconv, l2block
 
 REPS = 10
 
@@ -61,16 +76,40 @@ def _build_lib(kernel: str, name: str, src: Path) -> ctypes.CDLL:
     return lib
 
 
-def _wrapper(src: Path):
-    """conv333_dw's wrapper for a source: OTHER.py beside it, else the
-    tree's module."""
-    py = src.with_suffix(".py")
-    if not py.is_file():
-        return conv333_dw
-    spec = importlib.util.spec_from_file_location(f"ab_{src.stem}", py)
+# the tree's wrapper module and the libraries it loads, per kernel
+TREE = {"attgate": (l2block, ("attgate",)),
+        "conv333_dw": (conv333_dw, ("conv333_dw",)),
+        "ds_conv": (dsconv, ("conv333", "dsconv"))}
+TREE_SRC = {"attgate": "attgate.cu", "conv333_dw": "conv333_dw.cu",
+            "ds_conv": "conv333.cu"}
+
+
+def _load_py(name: str, py: Path):
+    spec = importlib.util.spec_from_file_location(name, py)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def _wrapper(kernel: str, src: Path):
+    """The wrapper for a source: OTHER.py beside it (with its OTHER.<mod>.py
+    stand-ins in sys.modules while it loads), else the tree's module."""
+    py = src.with_suffix(".py")
+    if not py.is_file():
+        return TREE[kernel][0]
+    saved = {}
+    try:
+        for dep in sorted(src.parent.glob(f"{src.stem}.*.py")):
+            full = "vs_seg_tpu_torch.ops." + dep.name.split(".")[1]
+            saved[full] = sys.modules.get(full)
+            sys.modules[full] = _load_py(f"ab_{dep.stem}", dep)
+        return _load_py(f"ab_{src.stem}", py)
+    finally:
+        for full, mod in saved.items():
+            if mod is None:
+                sys.modules.pop(full, None)
+            else:
+                sys.modules[full] = mod
 
 
 def _attgate_sites(cs, dev):
@@ -106,12 +145,42 @@ def _dw_sites(cs, dev):
                lambda mod: mod.conv333_dw(x, dy), (dw, db), cs.DW_TOL, b)
 
 
+def _ds_sites(cs, dev, ths):
+    """ds_conv at DS_SITES: as _attgate_sites, plus cuDNN's strided conv
+    and the tree's kernel at the tile heights `ths` (extra entries)."""
+    import torch.nn.functional as F
+    gen = torch.Generator().manual_seed(cs.SEED + 3)
+    for site, shape, c in cs.DS_SITES:
+        x, w, s, h, a = cs.ds_site_args(dev, gen, shape, c)
+        ws = {}
+
+        def run(mod, th=None, x=x, w=w, s=s, h=h, a=a, ws=ws):
+            wc = ws.setdefault(id(mod), w.clone())
+            if th is None:
+                return (mod.ds_conv(x, wc, s, h, a),)
+            return (mod.ds_conv(x, wc, s, h, a, th=th),)
+
+        wt = w.to(torch.bfloat16).permute(4, 3, 2, 0, 1).contiguous()
+        hb = h.to(torch.bfloat16)
+        extra = {"cudnn": lambda x=x, wt=wt, hb=hb: F.conv3d(
+            x.permute(0, 4, 1, 2, 3), wt, hb, stride=2, padding=1)}
+        for th in ths:
+            extra[f"tree th{th}"] = lambda th=th, run=run: run(dsconv, th)
+        ref = (dsconv.ds_conv_plain(x, w, s, h, a),)
+        b = cs.bound(cs.nbytes(x, w, s, h, a, ref[0]),
+                     2 * 27 * c * c * ref[0][..., 0].numel())
+        yield (f"{site} {shape}x{c}->{c}", run, ref, cs.KERNEL_TOL, b, extra)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("sources", nargs="+", type=Path,
                     help="sources to time beside the tree's")
-    ap.add_argument("--kernel", choices=("attgate", "conv333_dw"),
+    ap.add_argument("--kernel", choices=("attgate", "conv333_dw", "ds_conv"),
                     default="attgate")
+    ap.add_argument("--ds-th", default="",
+                    help="ds_conv: also time the tree's kernel at these "
+                         "tile heights (comma list of 8, 16)")
     ap.add_argument("--time-only", action="store_true",
                     help="time the builds without holding them to the twin")
     args = ap.parse_args(argv)
@@ -126,38 +195,69 @@ def main(argv=None) -> int:
     print(card, flush=True)
     kernel = args.kernel
     srcs = {**{p.stem: p for p in args.sources},
-            "tree": _build.CSRC / f"{kernel}.cu"}
+            "tree": _build.CSRC / TREE_SRC[kernel]}
     with ThreadPoolExecutor(len(srcs)) as pool:
         libs = dict(zip(srcs, pool.map(_build_lib, [kernel] * len(srcs),
                                        srcs, srcs.values())))
-    mods = {name: (_wrapper(src) if kernel == "conv333_dw" else None)
-            for name, src in srcs.items()}
-    mods["tree"] = conv333_dw if kernel == "conv333_dw" else None
+    mods = {name: _wrapper(kernel, src) for name, src in srcs.items()}
+    mods["tree"] = TREE[kernel][0]
+    keys = TREE[kernel][1]
+
+    def use(name):
+        for k in keys:
+            _build._LIBS[k] = libs[name]
+
     dev = torch.device("cuda:0")
-    sites = (_attgate_sites if kernel == "attgate" else _dw_sites)(cs, dev)
-    times, bounds = {}, {}
+    ths = [int(t) for t in args.ds_th.split(",") if t]
+    if kernel == "ds_conv":
+        sites = _ds_sites(cs, dev, ths)
+        timer = cs.graph_ms
+    else:
+        sites = ((*row, {}) for row in (
+            _attgate_sites if kernel == "attgate" else _dw_sites)(cs, dev))
+        timer = cs.cuda_ms
+    times, bounds, host = {}, {}, {}
     names = list(libs)
-    for site, run, ref, tol, b in sites:
+    for site, run, ref, tol, b, extra in sites:
+        use("tree")
         for name in names if not args.time_only else ():
-            _build._LIBS[kernel] = libs[name]
+            use(name)
             for j, (g, r) in enumerate(zip(run(mods[name]), ref)):
                 cs.compare(f"{name} {site} output {j}", g, r, tol)
+        for name, fn in extra.items() if not args.time_only else ():
+            if name.startswith("tree"):
+                use("tree")
+                cs.compare(f"{name} {site}", fn()[0], ref[0], tol)
         del ref
-        for name in names + names[::-1]:
-            _build._LIBS[kernel] = libs[name]
+        order = names + list(extra)
+        for name in order + order[::-1]:
+            fn = extra.get(name)
+            if fn is None:
+                use(name)
+                fn = (lambda name=name: run(mods[name]))
+            else:
+                use("tree")
             times.setdefault(site, {}).setdefault(name, []).append(
-                cs.cuda_ms(lambda: run(mods[name]), REPS))
+                timer(fn, REPS))
+            if kernel == "ds_conv":
+                host.setdefault(site, {}).setdefault(name, []).append(
+                    cs.host_ms(fn, REPS))
         bounds[site] = b[0]
         print(f"  {kernel} {site}: " + ", ".join(
             f"{n} {sum(v) / len(v)!r} ms" for n, v in times[site].items())
             + f"; bound {b[0]!r} ms on {card}", flush=True)
-    _build._LIBS[kernel] = libs["tree"]
+        if host:
+            print(f"  {kernel} {site} host enqueue per call: " + ", ".join(
+                f"{n} {sum(v) / len(v)!r} ms" for n, v in host[site].items()),
+                flush=True)
+    use("tree")
+    entries = list(next(iter(times.values())))
     print(f"  {kernel} over {len(times)} sites: " + ", ".join(
         f"{n} {sum(sum(t[n]) / len(t[n]) for t in times.values())!r} ms"
-        for n in names) + f"; bound {sum(bounds.values())!r} ms on {card}",
+        for n in entries) + f"; bound {sum(bounds.values())!r} ms on {card}",
         flush=True)
     print(json.dumps({"card": card, "kernel": kernel, "ms": times,
-                      "bound_ms": bounds}))
+                      "host_enqueue_ms": host, "bound_ms": bounds}))
     return 0
 
 

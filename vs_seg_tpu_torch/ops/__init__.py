@@ -16,7 +16,7 @@ and their plain PyTorch twins:
                              <- vs_seg_tpu/ops/experimental/pallas_att.py:
                                 fused_attention_gate (csrc/attgate.cu)
   dsconv.py   ds_conv        <- vs_seg_tpu/ops/experimental/pallas_dsconv.py:
-                                ds_conv (csrc/dsconv.cu)
+                                ds_conv (csrc/conv333.cu at stride 2)
   blend.py    blend_scatter  <- vs_seg_tpu/ops/pallas_blend.py:
                                 pallas_blend_scatter
   conv333_dw.py  conv333_dw  <- vs_seg_tpu/ops/experimental/pallas_train.py:

@@ -1,6 +1,6 @@
 """(3,3,kd) stride-1 same-padded conv, kd in {1, 3}, with a fused epilogue
 and an optional fused 1x1x1 residual: the conv primitive of the encoder and
-decoder blocks.
+decoder blocks. Its kernel's stride-2 instance is ops/dsconv.py's.
 
 Replaces vs_seg_tpu/ops/pallas_conv333.py:conv333. As in the JAX package it
 is not dispatched on its own from the model; ops/rublock.py and
@@ -16,7 +16,8 @@ ops/tail2d.py at kd = 1 (the (3,3,1) "2.5D" levels).
 The CUDA route counts its launches in `conv333.launches`. The kernel reads
 its weights in wgmma's core-matrix layout (`pack_weights_gmma`), packed once
 per weight tensor and cached on it (`packed_weights`) until the tensor is
-changed in place.
+changed in place. `launch` is the one call into the kernel's C launcher,
+shared with ops/dsconv.py.
 """
 
 from __future__ import annotations
@@ -30,8 +31,6 @@ import torch.nn.functional as F
 from vs_seg_tpu_torch.ops import _build
 
 KC = 16        # the kernels' K chunk: input channels are padded to this
-# csrc/dsconv.cu: output channels per block (4 WMMA N tiles)
-CO_MAX = 64
 # csrc/conv333.cu: the N widths (output channels per block) it is built
 # for; a wider Cout is split into equal N tiles
 N_TILES = (8, 16, 32, 48, 64, 80, 96)
@@ -87,44 +86,18 @@ def conv333_plain(x, w: torch.Tensor, scale: Optional[torch.Tensor] = None,
     return y.to(xs[0].dtype)
 
 
-def _tiles(cout: int):
-    """(nfrag, cop): 16-wide N tiles per block and the padded Cout that the
-    grid's Cout tiles cover (csrc/dsconv.cu)."""
-    nf = -(-cout // 16)
-    ntiles = -(-nf // (CO_MAX // 16))
-    nfrag = -(-nf // ntiles)
-    return nfrag, ntiles * nfrag * 16
-
-
-def _ntile(cout: int):
+def _ntile(cout: int, widths: Sequence[int] = N_TILES):
     """(N, cop): conv333.cu's N width and the padded Cout its N tiles cover:
-    Cout split into ceil(Cout / 96) equal parts, each rounded up to the
-    next width of N_TILES."""
-    parts = -(-cout // N_TILES[-1])
+    Cout split into ceil(Cout / widths[-1]) equal parts, each rounded up to
+    the next of `widths` (the widths the kernel is built for)."""
+    parts = -(-cout // widths[-1])
     per = -(-cout // parts)
-    n = next(t for t in N_TILES if t >= per)
+    n = next(t for t in widths if t >= per)
     return n, parts * n
 
 
 def _pad16(c: int) -> int:
     return -(-c // KC) * KC
-
-
-def pack_weights(w: torch.Tensor, cins: Sequence[int], cop: int
-                 ) -> torch.Tensor:
-    """(kh, kw, kd, sum Ci, Cout) -> bf16 (taps, kp, cop) as the kernel
-    reads it: taps = kd*kh*kw, tap = (kd*3 + kh)*3 + kw, each input's
-    channel block padded to a multiple of 16 and stacked along kp, Cout
-    padded to cop with zeros."""
-    kh, kw, kd, _, cout = w.shape
-    wt = w.permute(2, 0, 1, 3, 4).reshape(kd * kh * kw, w.shape[3], cout)
-    blocks = []
-    c0 = 0
-    for ci in cins:
-        blk = wt[:, c0:c0 + ci, :]
-        blocks.append(F.pad(blk, (0, cop - cout, 0, _pad16(ci) - ci)))
-        c0 += ci
-    return torch.cat(blocks, dim=1).to(torch.bfloat16).contiguous()
 
 
 def pack_weights_gmma(w: torch.Tensor, cins: Sequence[int], n: int
@@ -170,8 +143,7 @@ def packed_weights(w: torch.Tensor, use: str, cins: Sequence[int], n: int,
     pack_weights_gmma), cached on w itself under `use` and keyed by
     (w._version, cins, n, device): an in-place update of w (an optimizer
     step, load_state_dict) repacks; a new tensor starts with no cache."""
-    key = (w._version, tuple(int(c) for c in cins), int(n),
-           str(torch.device(device)))
+    key = (w._version, tuple(cins), n, torch.device(device))
     cache = w.__dict__.get("_vs_packed")
     if cache is None:
         cache = w._vs_packed = _PackCache()
@@ -182,20 +154,6 @@ def packed_weights(w: torch.Tensor, use: str, cins: Sequence[int], n: int,
         p = (pack or pack_weights_gmma)(w.detach().to(device), cins, n)
     cache[use] = (key, p)
     return p
-
-
-def _vec(v: Optional[torch.Tensor], cout: int, cop: int, default: float,
-         device) -> torch.Tensor:
-    """A per-channel epilogue vector: None -> default, (1,) -> broadcast."""
-    if v is None:
-        return torch.full((cop,), default, dtype=torch.float32, device=device)
-    v = v.reshape(-1).float()
-    if v.numel() == 1:
-        v = v.expand(cout)
-    if v.numel() != cout:
-        raise ValueError(f"epilogue vector has {v.numel()} entries, "
-                         f"expected 1 or {cout}")
-    return F.pad(v, (0, cop - cout), value=default)
 
 
 def _check_act(xs, name: str, ref_shape=None):
@@ -219,7 +177,8 @@ def _epi(v: Optional[torch.Tensor], cout: int, dev, one: bool = False):
     entries (or 1, where `one` allows a single value)."""
     if v is None:
         return None
-    v = v.reshape(-1).to(dev, torch.float32)
+    if v.dim() != 1 or v.dtype != torch.float32 or v.device != dev:
+        v = v.reshape(-1).to(dev, torch.float32)
     if v.numel() == 1 and not one:
         v = v.expand(cout)
     if v.numel() not in ((1, cout) if one else (cout,)):
@@ -249,12 +208,18 @@ def _tma_ready(xs, memo: dict):
 
 
 def _ptr(t: Optional[torch.Tensor]):
-    return None if t is None else ctypes.c_void_p(t.data_ptr())
+    """A tensor's address (None: NULL) for a launcher's c_void_p argument;
+    every launcher declares its argtypes, so ctypes converts the int."""
+    return None if t is None else t.data_ptr()
+
+
+def _ch(t: Optional[torch.Tensor]) -> int:
+    return 0 if t is None else t.shape[-1]
 
 
 _ARGTYPES = ([ctypes.c_void_p, ctypes.c_int] * 4
              + [ctypes.c_void_p] * 5 + [ctypes.c_int] + [ctypes.c_void_p] * 2
-             + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+             + [ctypes.c_int] * 11 + [ctypes.c_void_p])
 
 
 def _lib():
@@ -264,6 +229,35 @@ def _lib():
         fn.argtypes = _ARGTYPES
         fn.restype = ctypes.c_int
     return lib
+
+
+def launch(out: torch.Tensor, xs, wm: torch.Tensor, n_t: int, cop: int,
+           kd: int, scale=None, shift=None, alpha=None, rs=(), wr=None,
+           rbias=None, stride: int = 1, th: int = 0, what: str = "conv333"
+           ) -> None:
+    """One launch of csrc/conv333.cu on the current stream of out's device;
+    raises if the launcher refuses it. The arguments are as the kernel
+    takes them (prepared by conv333 and ops/dsconv.py:ds_conv, which count
+    their own launches): xs/rs up to two TMA-ready inputs each (C % 8 == 0,
+    16-byte aligned), wm/wr packed by pack_weights_gmma for N width n_t
+    over cop output channels, the epilogue vectors from _epi; out the
+    contiguous bf16 output. stride 2 (kd 3, one input, no residual, even
+    W) takes th, the tile height (8 or 16); stride 1 takes th = 0."""
+    xa = xs[0]
+    xb = xs[1] if len(xs) > 1 else None
+    ra = rs[0] if rs else None
+    rb = rs[1] if len(rs) > 1 else None
+    n, d, h, w = xa.shape[:4]
+    dev = out.device
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    lib = _lib()
+    err = lib.conv333_launch(
+        _ptr(xa), xa.shape[-1], _ptr(xb), _ch(xb), _ptr(ra), _ch(ra),
+        _ptr(rb), _ch(rb), _ptr(wm), _ptr(wr), _ptr(scale), _ptr(shift),
+        _ptr(alpha), alpha.numel() if alpha is not None else 1, _ptr(rbias),
+        _ptr(out), n, d, h, w, out.shape[-1], n_t, cop, kd, stride, th,
+        idx, torch._C._cuda_getCurrentRawStream(idx))
+    _build.check(lib, err, what)
 
 
 def conv333(x, w: torch.Tensor, scale: Optional[torch.Tensor] = None,
@@ -306,25 +300,10 @@ def conv333(x, w: torch.Tensor, scale: Optional[torch.Tensor] = None,
                              f"does not match {crs} -> {cout}")
         wrp = packed_weights(wr, "conv333", crs, n_t, dev)
         rbias = _epi(br, cout, dev)
-    n, d, h, wd = (int(s) for s in shape)
-    out = torch.empty((n, d, h, wd, cout), dtype=torch.bfloat16, device=dev)
+    out = torch.empty((*shape, cout), dtype=torch.bfloat16, device=dev)
     memo = {}
-    xs, rs = _tma_ready(xs, memo), _tma_ready(rs, memo)
-    xa, xb = xs[0], (xs[1] if len(xs) > 1 else None)
-    ra = rs[0] if rs else None
-    rb = rs[1] if len(rs) > 1 else None
-    lib = _lib()
-    err = lib.conv333_launch(
-        _ptr(xa), int(xa.shape[-1]), _ptr(xb),
-        int(xb.shape[-1]) if xb is not None else 0,
-        _ptr(ra), int(ra.shape[-1]) if ra is not None else 0,
-        _ptr(rb), int(rb.shape[-1]) if rb is not None else 0,
-        _ptr(wm), _ptr(wrp), _ptr(scale), _ptr(shift), _ptr(alpha),
-        alpha.numel() if alpha is not None else 1, _ptr(rbias), _ptr(out),
-        n, d, h, wd, cout, n_t, cop, int(w.shape[2]),
-        dev.index if dev.index is not None else torch.cuda.current_device(),
-        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
-    _build.check(lib, err, "conv333")
+    launch(out, _tma_ready(xs, memo), wm, n_t, cop, int(w.shape[2]), scale,
+           shift, alpha, _tma_ready(rs, memo), wrp, rbias)
     conv333.launches += 1
     return out
 

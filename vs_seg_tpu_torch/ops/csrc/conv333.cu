@@ -1,5 +1,6 @@
-// conv333 — direct (3,3,kd) stride-1 same-padded convolution for sm_90a,
-// kd in {1, 3}, with a fused epilogue and an optional fused 1x1x1 residual.
+// conv333 — direct (3,3,kd) same-padded convolution for sm_90a, kd in
+// {1, 3}, stride 1 or (at kd = 3, one input, no residual) stride (2,2,2),
+// with a fused epilogue and an optional fused 1x1x1 residual.
 //
 // Replaces the TPU kernel vs_seg_tpu/ops/pallas_conv333.py:conv333
 // (_conv_kernel), and through ops/rublock.py and ops/l2block.py the convs of
@@ -8,12 +9,15 @@
 // 0-1) it is, through ops/block2d.py and ops/tail2d.py, the conv of
 // vs_seg_tpu/ops/experimental/pallas_block2d.py:ru_block2d/l2_block2d and
 // pallas_tail2d.py:tail_block, and through ops/train_conv.py the dgrad of
-// pallas_train.py:conv333_train. None of the TPU design (Toeplitz band
+// pallas_train.py:conv333_train. At stride 2, through ops/dsconv.py, it is
+// vs_seg_tpu/ops/experimental/pallas_dsconv.py:ds_conv (_ds_kernel), the
+// encoder's downsample conv. None of the TPU design (Toeplitz band
 // matrices, 64-lane channel padding, (rows, 128) flat views, depth-plane
-// rings, tap packing) is carried over: those exist for the MXU and VMEM.
+// rings, tap packing, H/W parity streams) is carried over: those exist for
+// the MXU and VMEM.
 //
-//   out[v, co] = act(sum_{taps, ci} x[v + tap, ci] * w[tap, ci, co] * scale[co]
-//                    + shift[co])
+//   out[v, co] = act(sum_{taps, ci} x[S v + tap, ci] * w[tap, ci, co]
+//                    * scale[co] + shift[co])         (S = 1 or 2)
 //                + (sum_ci r[v, ci] * wr[ci, co] + rbias[co])      (optional)
 //   act(y) = y >= 0 ? y : alpha[co] * y     (PReLU; ReLU is alpha = 0,
 //                                            identity is alpha = 1)
@@ -36,7 +40,11 @@
 //
 // What bounds it on the H100: at the (3,3,3) sites (Cin 32-192, Cout
 // 48-96) the tensor cores (27 Cin MACs per output value against ~4 bytes
-// moved); at the kd = 1 sites of levels 0-1 (16-32 channels) HBM.
+// moved); at the kd = 1 sites of levels 0-1 (16-32 channels) HBM; at
+// stride 2 HBM in principle (8 input voxels read per output), in practice
+// the ring: each stage stages a halo that overlaps its neighbours' and
+// re-reads the 16 x N slab, ~1 GB from L2 at downsample_2 against 0.51 GB
+// of HBM traffic.
 //
 // Design.
 // - Implicit GEMM on wgmma: M = output voxels, N = Cout (the whole of it
@@ -86,6 +94,27 @@
 //   beat four and five: more blocks per SM hide more than a deeper ring.
 // - Results do not depend on the schedule: every output value is summed
 //   by one block in the stream's fixed order.
+// - Stride 2 (S = 2; the ds_conv route, kd = 3): output (n, od, oh, ow)
+//   reads input planes 2 od + kd - 1, rows 2 oh + kh - 1 and columns
+//   2 ow + kw - 1. The input's TMA map views the same memory (N, D, H, W,
+//   C) as (N*D, H, W/2, 2, C) (W even; the wrapper pads an odd W with one
+//   zero column, the last output's padding tap): view position q holds
+//   input columns 2q (parity 0) and 2q + 1 (parity 1). Input column
+//   2 ow + kw - 1 is then parity 1 at q = ow - 1 (kw = 0), parity 0 at
+//   q = ow (kw = 1) and parity 1 at q = ow (kw = 2). A stage stages four
+//   boxes of (8 ch, 1, 17, 2 TH + 1, 1): both parities' two 8-channel
+//   halves over view positions ow0 - 1 .. ow0 + 15 and input rows
+//   2 oh0 - 1 .. 2 oh0 + 2 TH - 1; each is a plane of 16-byte rows as at
+//   S = 1, so the 8 output voxels of a row of an m64 tile are again one
+//   core matrix: a tap is a descriptor start (parity plane, row
+//   2 oh + kh, position ow + (kw ? 1 : 0)) with SBO = two halo rows. The
+//   parity is a dimension of its own (not channels [C, 2C) of a (W/2, 2C)
+//   view) so that a chunk's channels past C are zero-filled by the TMA,
+//   as at S = 1. Depth planes outside [0, D) are skipped, never staged,
+//   so N and D share a map dimension. The weight slab is the same. TH =
+//   16 (MT = 2) or 8 (MT = 1), the wrapper's choice (ops/dsconv.py:plan;
+//   8 where 16 leaves SMs idle): TH = 32 does not fit (3 slots of 71 KB
+//   halo + slab).
 // Bounds: any N, D, H, W; tiles <= 2^31.
 
 #include "common.cuh"
@@ -93,7 +122,7 @@
 
 namespace {
 
-constexpr int TW = 16, HW = TW + 2;      // output tile width, halo width
+constexpr int TW = 16;                   // output tile width
 constexpr int NWG = 2;                   // consumer warpgroups per block
 constexpr int NTHREADS = 128 * NWG;
 constexpr int NWARPS = NTHREADS / 32;
@@ -101,33 +130,38 @@ constexpr int STAGES = 3;                // ring slots
 constexpr int KC = 16;                   // input channels per stage (wgmma K)
 constexpr int MT4_MAX_N = 48;            // N up to which MT = 4
 
+// m64 tiles per warpgroup of a stride-1 kernel: 4 (TH = 32, M = 512) as far
+// as the registers allow
 template <int N>
+constexpr int mt_s1() {
+  return N <= MT4_MAX_N ? 4 : 2;
+}
+
+// One kernel instance: N width, fused residual (F), stride S, m64 tiles per
+// warpgroup MT.
+template <int N_, bool F_, int S_, int MT_>
 struct Cfg {
-  static constexpr int MT = N <= MT4_MAX_N ? 4 : 2;  // m64 tiles / warpgroup
-  // a fused residual's second accumulator set fits beside the first (at
-  // N >= 64 it spilled and was slower than the separate residual stages)
-  static constexpr bool FUSE = N <= MT4_MAX_N;
+  static constexpr int N = N_, S = S_, MT = MT_;
+  static constexpr bool F = F_;
   static constexpr int TH = 8 * MT;          // tile height (rows of 2 m64)
-  static constexpr int HH = TH + 2;          // halo height
+  // halo: (TH + 2) rows x 18 positions at S = 1; (2 TH + 1) input rows x
+  // 17 positions of the W-pair view at S = 2
+  static constexpr int HW = S == 1 ? TW + 2 : TW + 1;
+  static constexpr int HH = S == 1 ? TH + 2 : 2 * TH + 1;
   static constexpr int HALF_BYTES = HH * HW * 16;   // an 8-channel half plane
   static constexpr int HALF_PITCH = (HALF_BYTES + 127) / 128 * 128;  // TMA dst
-  static constexpr int HALO_BYTES = 2 * HALF_PITCH;
+  static constexpr int HALO_BYTES = 2 * S * HALF_PITCH;  // S parities x 2
   static constexpr int WBYTES = 9 * KC * N * 2;    // a main stage's slab
   static constexpr int RBYTES = KC * N * 2;         // a residual slab
-};
-
-// A ring slot: the halo, the main slab and, when the residual is fused into
-// the main stages (F), the residual slab; a multiple of 128 bytes.
-template <int N, bool F>
-struct Ring {
-  static constexpr int SLOT =
-      Cfg<N>::HALO_BYTES + Cfg<N>::WBYTES + (F ? Cfg<N>::RBYTES : 0);
+  // a ring slot: the halo, the main slab and, when the residual is fused
+  // into the main stages (F), the residual slab; a multiple of 128 bytes
+  static constexpr int SLOT = HALO_BYTES + WBYTES + (F ? RBYTES : 0);
   static constexpr int SMEM = STAGES * SLOT + 2 * STAGES * 8;
 };
 
 // The residual accumulators of a fused kernel (a dummy otherwise).
-template <int N, bool F>
-using RAcc = float[F ? Cfg<N>::MT : 1][F ? N / 2 : 1];
+template <class C>
+using RAcc = float[C::F ? C::MT : 1][C::F ? C::N / 2 : 1];
 
 // TMA maps of the inputs: x[0], x[1], r[0], r[1] (unused ones zero)
 struct Maps {
@@ -142,8 +176,9 @@ struct Args {
   const __nv_bfloat16* wr;        // packed residual weight, or null
   const float *scale, *shift, *alpha, *rbias;   // each may be null
   int alpha_n;                    // 1 (one slope) or cout
-  __nv_bfloat16* out;             // (N, D, H, W, cout)
-  int Nb, D, H, W, cout, kd;
+  __nv_bfloat16* out;             // (N, Do, Ho, Wo, cout)
+  int Nb, D, H, W, cout, kd;      // input sizes
+  int Do, Ho, Wo;                 // output sizes ((X - 1) / S + 1)
   int th, tiles_w, tiles_hw, ntiles, total;   // tile height, tile counts
 };
 
@@ -315,6 +350,7 @@ __device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo,
 
 // A position in the block's stream of stages. Divisions happen only when
 // the walk moves to the next tile.
+template <int S>
 struct Walk {
   int tile;                  // >= total: done
   int n, d, h0, w0, nt;      // the tile
@@ -329,13 +365,14 @@ struct Walk {
     int rest = t / a.tiles_hw;
     nt = rest % a.ntiles;
     rest /= a.ntiles;
-    d = rest % a.D;
-    n = rest / a.D;
+    d = rest % a.Do;
+    n = rest / a.Do;
     h0 = (hw / a.tiles_w) * a.th;
     w0 = (hw % a.tiles_w) * TW;
+    // depth tap p reads input plane S d + p - c
     const int c = a.kd / 2;
-    plo = max(0, c - d);
-    phi = min(a.kd - 1, a.D - 1 - d + c);
+    plo = max(0, c - S * d);
+    phi = min(a.kd - 1, a.D - 1 - S * d + c);
     j = 0;
     p = plo;
     res = false;
@@ -365,20 +402,21 @@ struct Walk {
 };
 
 // The producer: announce and issue the copies of stage w into `slot`.
-template <int N, bool F>
-__device__ __forceinline__ void produce(const Walk& w, char* slot,
+template <class C>
+__device__ __forceinline__ void produce(const Walk<C::S>& w, char* slot,
                                         uint64_t* full, const Maps& maps,
                                         const Args& a) {
+  constexpr int N = C::N;
   int xi, c0, dz;
   const __nv_bfloat16* wsrc;
   uint32_t wbytes;
   if (!w.res) {
     xi = w.j < a.nch[0] ? 0 : 1;
     c0 = (w.j - (xi ? a.nch[0] : 0)) * KC;
-    dz = w.d + w.p - a.kd / 2;
+    dz = C::S * w.d + w.p - a.kd / 2;
     wsrc = a.wm +
            (((size_t)w.nt * a.nch_all + w.j) * a.kd + w.p) * 9 * KC * N;
-    wbytes = Cfg<N>::WBYTES;
+    wbytes = C::WBYTES;
   } else {
     xi = w.j < a.rch[0] ? 2 : 3;
     c0 = (w.j - (xi == 3 ? a.rch[0] : 0)) * KC;
@@ -387,32 +425,44 @@ __device__ __forceinline__ void produce(const Walk& w, char* slot,
     wbytes = KC * N * 2;
   }
   // the fused residual's slab of chunk j rides on the centre plane's stage
-  const bool fres = F && !w.res && w.p == a.kd / 2;
-  mbar_expect_tx(full, 2 * Cfg<N>::HALF_BYTES + wbytes +
-                           (fres ? Cfg<N>::RBYTES : 0));
+  const bool fres = C::F && !w.res && w.p == a.kd / 2;
+  mbar_expect_tx(full, 2 * C::S * C::HALF_BYTES + wbytes +
+                           (fres ? C::RBYTES : 0));
   const CUtensorMap* m = &maps.m[xi];
-  tma_load_5d(slot, m, full, c0, w.w0 - 1, w.h0 - 1, dz, w.n);
-  tma_load_5d(slot + Cfg<N>::HALF_PITCH, m, full, c0 + 8, w.w0 - 1,
-              w.h0 - 1, dz, w.n);
-  bulk_load(slot + Cfg<N>::HALO_BYTES, wsrc, wbytes, full);
+  if constexpr (C::S == 1) {
+    tma_load_5d(slot, m, full, c0, w.w0 - 1, w.h0 - 1, dz, w.n);
+    tma_load_5d(slot + C::HALF_PITCH, m, full, c0 + 8, w.w0 - 1, w.h0 - 1,
+                dz, w.n);
+  } else {
+    // the W-pair view (C, parity, W/2, H, N*D): half plane (parity, half)
+    // at slot + (2 parity + half) * HALF_PITCH
+    const int nd = w.n * a.D + dz;
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      tma_load_5d(slot + q * C::HALF_PITCH, m, full, c0 + (q & 1) * 8, q >> 1,
+                  w.w0 - 1, 2 * w.h0 - 1, nd);
+  }
+  bulk_load(slot + C::HALO_BYTES, wsrc, wbytes, full);
   if (fres)
-    bulk_load(slot + Cfg<N>::HALO_BYTES + Cfg<N>::WBYTES,
-              a.wr + ((size_t)w.nt * a.rch_all + w.j) * KC * N,
-              Cfg<N>::RBYTES, full);
+    bulk_load(slot + C::HALO_BYTES + C::WBYTES,
+              a.wr + ((size_t)w.nt * a.rch_all + w.j) * KC * N, C::RBYTES,
+              full);
 }
 
 // The MMAs of one stage: 9 taps (main) or the centre tap (residual), MT
 // m64 tiles per warpgroup; a fused kernel's centre-plane main stage also
 // runs the residual's centre tap into racc.
-template <int N, bool F>
+template <class C>
 __device__ __forceinline__ void compute(bool main, bool fres,
                                         const char* slot,
-                                        float (&acc)[Cfg<N>::MT][N / 2],
-                                        RAcc<N, F>& racc) {
-  constexpr int MT = Cfg<N>::MT, PITCH = Cfg<N>::HALF_PITCH;
+                                        float (&acc)[C::MT][C::N / 2],
+                                        RAcc<C>& racc) {
+  constexpr int N = C::N, MT = C::MT, PITCH = C::HALF_PITCH, HW = C::HW;
+  constexpr bool F = C::F;
+  constexpr int SBO = C::S * HW * 16;   // the next output row of a tile
   const int wg = threadIdx.x >> 7;
   const uint32_t halo = smem_u32(slot);
-  const uint32_t wts = halo + Cfg<N>::HALO_BYTES;
+  const uint32_t wts = halo + C::HALO_BYTES;
 #pragma unroll
   for (int m = 0; m < MT; ++m) fence_regs(acc[m]);
   if constexpr (F) {
@@ -425,23 +475,27 @@ __device__ __forceinline__ void compute(bool main, bool fres,
     for (int tap = 0; tap < 9; ++tap) {
       const int kh = tap / 3, kw = tap - kh * 3;
       const uint64_t db = gmma_desc(wts + tap * KC * N * 2, 128, 256);
+      // S = 2: input column 2 ow + kw - 1 is parity 1 at view position
+      // ow - 1 (kw 0; halo position ow - ow0), parity 0 at ow (kw 1) and
+      // parity 1 at ow (kw 2; halo position ow - ow0 + 1)
+      const uint32_t plane = C::S == 1 || kw == 1 ? 0 : 2 * PITCH;
+      const int col = C::S == 1 ? kw : (kw ? 1 : 0);
 #pragma unroll
       for (int m = 0; m < MT; ++m) {
         const int mt = wg * MT + m;
-        const int pos = ((mt >> 1) * 8 + kh) * HW + (mt & 1) * 8 + kw;
-        wgmma_ss<N>(acc[m], gmma_desc(halo + pos * 16, PITCH, HW * 16),
+        const int pos = ((mt >> 1) * 8 * C::S + kh) * HW + (mt & 1) * 8 + col;
+        wgmma_ss<N>(acc[m], gmma_desc(halo + plane + pos * 16, PITCH, SBO),
                     db);
       }
     }
     if constexpr (F) {
       if (fres) {
-        const uint64_t dr = gmma_desc(wts + Cfg<N>::WBYTES, 128, 256);
+        const uint64_t dr = gmma_desc(wts + C::WBYTES, 128, 256);
 #pragma unroll
         for (int m = 0; m < MT; ++m) {
           const int mt = wg * MT + m;
           const int pos = ((mt >> 1) * 8 + 1) * HW + (mt & 1) * 8 + 1;
-          wgmma_ss<N>(racc[m], gmma_desc(halo + pos * 16, PITCH, HW * 16),
-                      dr);
+          wgmma_ss<N>(racc[m], gmma_desc(halo + pos * 16, PITCH, SBO), dr);
         }
       }
     }
@@ -451,8 +505,7 @@ __device__ __forceinline__ void compute(bool main, bool fres,
     for (int m = 0; m < MT; ++m) {
       const int mt = wg * MT + m;
       const int pos = ((mt >> 1) * 8 + 1) * HW + (mt & 1) * 8 + 1;
-      wgmma_ss<N>(acc[m], gmma_desc(halo + pos * 16, PITCH, HW * 16),
-                  db);
+      wgmma_ss<N>(acc[m], gmma_desc(halo + pos * 16, PITCH, SBO), db);
     }
   }
   wgmma_commit();
@@ -477,11 +530,11 @@ __device__ __forceinline__ int frag_col(int e) {
 
 // scale/shift -> PReLU (+ residual bias, + a fused residual's sum) in
 // place.
-template <int N, bool F>
-__device__ __forceinline__ void activate(float (&acc)[Cfg<N>::MT][N / 2],
-                                         RAcc<N, F>& racc, int nt,
+template <class C>
+__device__ __forceinline__ void activate(float (&acc)[C::MT][C::N / 2],
+                                         RAcc<C>& racc, int nt,
                                          const Args& a) {
-  constexpr int MT = Cfg<N>::MT;
+  constexpr int N = C::N, MT = C::MT;
 #pragma unroll
   for (int e = 0; e < N / 2; ++e) {
     // padded columns (co >= cout) read channel cout - 1 and are not stored
@@ -495,7 +548,7 @@ __device__ __forceinline__ void activate(float (&acc)[Cfg<N>::MT][N / 2],
     for (int m = 0; m < MT; ++m) {
       float v = acc[m][e] * s + h;
       v = v >= 0.f ? v : al * v;
-      if constexpr (F) {
+      if constexpr (C::F) {
         v += racc[m][e];
         racc[m][e] = 0.f;
       }
@@ -505,10 +558,10 @@ __device__ __forceinline__ void activate(float (&acc)[Cfg<N>::MT][N / 2],
 }
 
 // Round to bf16 and store the tile's outputs; zero the accumulators.
-template <int N>
-__device__ __forceinline__ void store(float (&acc)[Cfg<N>::MT][N / 2],
-                                      const Walk& t, const Args& a) {
-  constexpr int MT = Cfg<N>::MT;
+template <class C>
+__device__ __forceinline__ void store(float (&acc)[C::MT][C::N / 2],
+                                      const Walk<C::S>& t, const Args& a) {
+  constexpr int N = C::N, MT = C::MT;
   const int wg = threadIdx.x >> 7;
   const bool even = (a.cout & 1) == 0;
 #pragma unroll
@@ -520,10 +573,11 @@ __device__ __forceinline__ void store(float (&acc)[Cfg<N>::MT][N / 2],
       const int h = t.h0 + (mt >> 1) * 8 + (row >> 3);
       const int w = t.w0 + (mt & 1) * 8 + (row & 7);
       const int co = t.nt * N + frag_col(e);
-      if (h < a.H && w < a.W && co < a.cout) {
+      if (h < a.Ho && w < a.Wo && co < a.cout) {
         __nv_bfloat16* dst =
             a.out +
-            ((((size_t)t.n * a.D + t.d) * a.H + h) * a.W + w) * a.cout + co;
+            ((((size_t)t.n * a.Do + t.d) * a.Ho + h) * a.Wo + w) * a.cout +
+            co;
         if (even) {
           *reinterpret_cast<__nv_bfloat162*>(dst) =
               __floats2bfloat162_rn(acc[m][e], acc[m][e + 1]);
@@ -538,10 +592,11 @@ __device__ __forceinline__ void store(float (&acc)[Cfg<N>::MT][N / 2],
   }
 }
 
-template <int N, bool F>
+template <class C>
 __global__ void __launch_bounds__(NTHREADS)
     conv333_kernel(const __grid_constant__ Maps maps, const Args a) {
-  constexpr int SLOT = Ring<N, F>::SLOT;
+  constexpr int N = C::N, MT = C::MT, SLOT = C::SLOT;
+  constexpr bool F = C::F;
   extern __shared__ __align__(128) char smem[];
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + STAGES * SLOT);
   uint64_t* empty = full + STAGES;
@@ -554,25 +609,25 @@ __global__ void __launch_bounds__(NTHREADS)
     mbar_init_fence();
   }
   __syncthreads();
-  float acc[Cfg<N>::MT][N / 2];
+  float acc[MT][N / 2];
 #pragma unroll
-  for (int m = 0; m < Cfg<N>::MT; ++m)
+  for (int m = 0; m < MT; ++m)
 #pragma unroll
     for (int e = 0; e < N / 2; ++e) acc[m][e] = 0.f;
-  RAcc<N, F> racc;
+  RAcc<C> racc;
   if constexpr (F) {
 #pragma unroll
-    for (int m = 0; m < Cfg<N>::MT; ++m)
+    for (int m = 0; m < MT; ++m)
 #pragma unroll
       for (int e = 0; e < N / 2; ++e) racc[m][e] = 0.f;
   }
 
-  Walk prod, cons;
+  Walk<C::S> prod, cons;
   prod.start(blockIdx.x, a);
   cons = prod;
   if (producer) {
     for (int s = 0; s < STAGES - 1 && prod.tile < a.total; ++s) {
-      produce<N, F>(prod, smem + s * SLOT, &full[s], maps, a);
+      produce<C>(prod, smem + s * SLOT, &full[s], maps, a);
       prod.advance(a);
     }
   }
@@ -583,40 +638,51 @@ __global__ void __launch_bounds__(NTHREADS)
       // stage k + STAGES - 1 reuses the slot of stage k - 1
       const int ps = (k + STAGES - 1) % STAGES;
       if (k >= 1) mbar_wait(&empty[ps], ((k - 1) / STAGES) & 1);
-      produce<N, F>(prod, smem + ps * SLOT, &full[ps], maps, a);
+      produce<C>(prod, smem + ps * SLOT, &full[ps], maps, a);
       prod.advance(a);
     }
     __syncwarp();
     mbar_wait(&full[slot], (k / STAGES) & 1);
-    compute<N, F>(!cons.res, F && !cons.res && cons.p == a.kd / 2,
-                  smem + slot * SLOT, acc, racc);
+    compute<C>(!cons.res, F && !cons.res && cons.p == a.kd / 2,
+               smem + slot * SLOT, acc, racc);
     __syncwarp();
     if ((threadIdx.x & 31) == 0) mbar_arrive(&empty[slot]);
-    if (cons.last_main(a)) activate<N, F>(acc, racc, cons.nt, a);
-    if (cons.last(a)) store<N>(acc, cons, a);
+    if (cons.last_main(a)) activate<C>(acc, racc, cons.nt, a);
+    if (cons.last(a)) store<C>(acc, cons, a);
     cons.advance(a);
   }
 }
 
-// TMA map of one NDHWC bf16 input: dims (C, W, H, D, N), box (8, 18, hh, 1,
-// 1): one 8-channel half plane of a halo.
-cudaError_t input_map(CUtensorMap* map, const void* x, int c, int hh,
+// TMA map of one NDHWC bf16 input: one 8-channel half plane of a halo per
+// box. S = 1: dims (C, W, H, D, N), box (8, 18, TH + 2, 1, 1). S = 2: the
+// W-pair view, dims (C, 2, W/2, H, N*D), box (8, 1, 17, 2 TH + 1, 1).
+template <class C>
+cudaError_t input_map(CUtensorMap* map, const void* x, int c,
                       const Args& a) {
-  const uint64_t dims[5] = {(uint64_t)c, (uint64_t)a.W, (uint64_t)a.H,
-                            (uint64_t)a.D, (uint64_t)a.Nb};
   const uint64_t s1 = (uint64_t)c * 2;
-  const uint64_t strides[4] = {s1, s1 * a.W, s1 * a.W * a.H,
-                               s1 * a.W * a.H * a.D};
-  const uint32_t box[5] = {8, HW, (uint32_t)hh, 1, 1};
-  return encode_tiled(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, x, dims,
-                      strides, box);
+  if constexpr (C::S == 1) {
+    const uint64_t dims[5] = {(uint64_t)c, (uint64_t)a.W, (uint64_t)a.H,
+                              (uint64_t)a.D, (uint64_t)a.Nb};
+    const uint64_t strides[4] = {s1, s1 * a.W, s1 * a.W * a.H,
+                                 s1 * a.W * a.H * a.D};
+    const uint32_t box[5] = {8, C::HW, C::HH, 1, 1};
+    return encode_tiled(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, x, dims,
+                        strides, box);
+  } else {
+    const uint64_t dims[5] = {(uint64_t)c, 2, (uint64_t)a.W / 2,
+                              (uint64_t)a.H, (uint64_t)a.Nb * a.D};
+    const uint64_t strides[4] = {s1, 2 * s1, s1 * a.W, s1 * a.W * a.H};
+    const uint32_t box[5] = {8, 1, C::HW, C::HH, 1};
+    return encode_tiled(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, x, dims,
+                        strides, box);
+  }
 }
 
-template <int N, bool F>
+template <class C>
 int launch(const void* const* ins, const int* cs, Args a, int device,
            cudaStream_t s) {
-  constexpr int SMEM = Ring<N, F>::SMEM;
-  a.res_stages = F ? 0 : a.rch_all;
+  constexpr int SMEM = C::SMEM;
+  a.res_stages = C::F ? 0 : a.rch_all;
   // blocks per SM the shared memory allows, asked once per device
   static int per_sm[64] = {0};
   static int sms[64] = {0};
@@ -624,12 +690,12 @@ int launch(const void* const* ins, const int* cs, Args a, int device,
     return static_cast<int>(cudaErrorInvalidDevice);
   if (per_sm[device] == 0) {
     cudaError_t err = cudaFuncSetAttribute(
-        conv333_kernel<N, F>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        conv333_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         SMEM);
     if (err != cudaSuccess) return static_cast<int>(err);
     int nb = 0, nsm = 0;
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &nb, conv333_kernel<N, F>, NTHREADS, SMEM);
+        &nb, conv333_kernel<C>, NTHREADS, SMEM);
     if (err != cudaSuccess) return static_cast<int>(err);
     err = cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, device);
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -640,31 +706,43 @@ int launch(const void* const* ins, const int* cs, Args a, int device,
   Maps maps = {};
   for (int i = 0; i < 4; ++i) {
     if (!ins[i]) continue;
-    const cudaError_t err = input_map(&maps.m[i], ins[i], cs[i], Cfg<N>::HH, a);
+    const cudaError_t err = input_map<C>(&maps.m[i], ins[i], cs[i], a);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  a.th = Cfg<N>::TH;
-  a.tiles_hw = a.tiles_w * ((a.H + a.th - 1) / a.th);
-  const long long total = (long long)a.Nb * a.D * a.ntiles * a.tiles_hw;
+  a.th = C::TH;
+  a.tiles_hw = a.tiles_w * ((a.Ho + a.th - 1) / a.th);
+  const long long total = (long long)a.Nb * a.Do * a.ntiles * a.tiles_hw;
   if (total > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   a.total = (int)total;
   const long long cap = (long long)per_sm[device] * sms[device];
   const int grid = (int)(a.total < cap ? a.total : cap);
-  conv333_kernel<N, F><<<grid, NTHREADS, SMEM, s>>>(maps, a);
+  conv333_kernel<C><<<grid, NTHREADS, SMEM, s>>>(maps, a);
   return static_cast<int>(cudaGetLastError());
 }
 
+// a fused residual's second accumulator set fits beside the first for
+// N <= 48 (at N >= 64 it spilled and was slower than the separate residual
+// stages)
 template <int N>
-int launch_any(bool fused, const void* const* ins, const int* cs,
-               const Args& a, int device, cudaStream_t s) {
-  if constexpr (Cfg<N>::FUSE) {
-    if (fused) return launch<N, true>(ins, cs, a, device, s);
+int launch_s1(bool fused, const void* const* ins, const int* cs,
+              const Args& a, int device, cudaStream_t s) {
+  if constexpr (N <= MT4_MAX_N) {
+    if (fused) return launch<Cfg<N, true, 1, mt_s1<N>()>>(ins, cs, a, device, s);
   }
-  return launch<N, false>(ins, cs, a, device, s);
+  return launch<Cfg<N, false, 1, mt_s1<N>()>>(ins, cs, a, device, s);
+}
+
+// stride 2: TH = 16 (MT = 2) or 8 (MT = 1)
+template <int N>
+int launch_s2(int th, const void* const* ins, const int* cs, const Args& a,
+              int device, cudaStream_t s) {
+  if (th == 8) return launch<Cfg<N, false, 2, 1>>(ins, cs, a, device, s);
+  return launch<Cfg<N, false, 2, 2>>(ins, cs, a, device, s);
 }
 
 }  // namespace
 
+// stride 1 or 2; th: the stride-2 tile height (8 or 16), 0 at stride 1
 extern "C" int conv333_launch(const void* xa, int ca, const void* xb, int cb,
                               const void* ra, int cra, const void* rb, int crb,
                               const void* wm, const void* wr,
@@ -672,8 +750,8 @@ extern "C" int conv333_launch(const void* xa, int ca, const void* xb, int cb,
                               const void* alpha, int alpha_n,
                               const void* rbias,
                               void* out, int n, int d, int h, int w, int cout,
-                              int ntile, int cop, int kd, int device,
-                              void* stream) {
+                              int ntile, int cop, int kd, int stride, int th,
+                              int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const void* ins[4] = {xa, xb, ra, rb};
@@ -681,6 +759,11 @@ extern "C" int conv333_launch(const void* xa, int ca, const void* xb, int cb,
   if (ntile < 8 || cop % ntile != 0 || cop < cout || (kd != 1 && kd != 3) ||
       !xa || n < 1 || d < 1 || h < 1 || w < 1 || cout < 1 ||
       (wr != nullptr) != (ra != nullptr) || (alpha_n != 1 && alpha_n != cout))
+    return static_cast<int>(cudaErrorInvalidValue);
+  // stride 2: kd = 3, one input, no residual, an even W (the W-pair view)
+  if (stride == 1 ? th != 0
+                  : (stride != 2 || kd != 3 || xb || ra || (w & 1) ||
+                     (th != 8 && th != 16)))
     return static_cast<int>(cudaErrorInvalidValue);
   for (int i = 0; i < 4; ++i)
     if (ins[i] && (cs[i] < 8 || cs[i] % 8 != 0 ||
@@ -691,6 +774,9 @@ extern "C" int conv333_launch(const void* xa, int ca, const void* xb, int cb,
   a.D = d;
   a.H = h;
   a.W = w;
+  a.Do = (d - 1) / stride + 1;
+  a.Ho = (h - 1) / stride + 1;
+  a.Wo = (w - 1) / stride + 1;
   for (int i = 0; i < 2; ++i) {
     a.nch[i] = (cs[i] + KC - 1) / KC;
     a.rch[i] = (cs[2 + i] + KC - 1) / KC;
@@ -711,17 +797,26 @@ extern "C" int conv333_launch(const void* xa, int ca, const void* xb, int cb,
   a.out = static_cast<__nv_bfloat16*>(out);
   a.cout = cout;
   a.kd = kd;
-  a.tiles_w = (w + TW - 1) / TW;
+  a.tiles_w = (a.Wo + TW - 1) / TW;
   a.ntiles = cop / ntile;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (stride == 2) {
+    // the N widths of the downsample sites (48, 64, 80 channels)
+    switch (ntile) {
+      case 48: return launch_s2<48>(th, ins, cs, a, device, s);
+      case 64: return launch_s2<64>(th, ins, cs, a, device, s);
+      case 80: return launch_s2<80>(th, ins, cs, a, device, s);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
   switch (ntile) {
-    case 8: return launch_any<8>(fused, ins, cs, a, device, s);
-    case 16: return launch_any<16>(fused, ins, cs, a, device, s);
-    case 32: return launch_any<32>(fused, ins, cs, a, device, s);
-    case 48: return launch_any<48>(fused, ins, cs, a, device, s);
-    case 64: return launch_any<64>(fused, ins, cs, a, device, s);
-    case 80: return launch_any<80>(fused, ins, cs, a, device, s);
-    case 96: return launch_any<96>(fused, ins, cs, a, device, s);
+    case 8: return launch_s1<8>(fused, ins, cs, a, device, s);
+    case 16: return launch_s1<16>(fused, ins, cs, a, device, s);
+    case 32: return launch_s1<32>(fused, ins, cs, a, device, s);
+    case 48: return launch_s1<48>(fused, ins, cs, a, device, s);
+    case 64: return launch_s1<64>(fused, ins, cs, a, device, s);
+    case 80: return launch_s1<80>(fused, ins, cs, a, device, s);
+    case 96: return launch_s1<96>(fused, ins, cs, a, device, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -39,9 +39,12 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
      peak memory of each path.
   7. The kd = 1 ("2.5D") route kernels against their plain twins at the
      flagship shapes of one 8-window batch: ru_block2d at down_0 (1->16) and
-     down_1 (16->32), l2_block2d at up_1 (32||32->32) and the up_0 logit head
-     (16||16->2), tail_block at up_1 and up_0, fused_attention_gate (kd 1) at
-     upatt_0 and upatt_1 and (kd 3) at the upatt_2 shape.
+     down_1 (16->32) (RB_SITES; each also bit-equal over two runs and timed
+     by CUDA-graph replay beside the two-conv333 chain it replaced, the
+     cuDNN chain of its two convs, its bound and the host's enqueue),
+     l2_block2d at up_1 (32||32->32) and the up_0 logit head (16||16->2),
+     tail_block at up_1 and up_0, fused_attention_gate (kd 1) at upatt_0 and
+     upatt_1 and (kd 3) at the upatt_2 shape.
   8. The phase-3 volume under three route configurations (Routes), each
      through the kernels (launch counters reset just before, read just
      after, checked per site) and through the plain path: A = ru_block2d,
@@ -746,6 +749,109 @@ def train_run(dev, card: str):
     return counts
 
 
+# ru_block2d's sites for one 8-window batch (D-first): (site, (N, D, H, W),
+# Cin, Cout)
+RB_SITES = (("down_0", (SW_BATCH, ROI[2], ROI[0], ROI[1]), 1, 16),
+            ("down_1", (SW_BATCH, ROI[2], ROI[0] // 2, ROI[1] // 2), 16, 32))
+
+
+def rb_site_args(dev, gen, shape, cin, cout):
+    """Seeded ru_block2d arguments at one site: x and the unit's params."""
+    import numpy as np
+    import torch
+
+    def weight(k, ci, co):
+        b = 1.0 / np.sqrt(ci * int(np.prod(k)))
+        return ((torch.rand((*k, ci, co), generator=gen) * 2 - 1) * b
+                ).to(dev)
+
+    def vec(c, lo, hi):
+        return (torch.rand(c, generator=gen) * (hi - lo) + lo).to(dev)
+
+    x = torch.randn((*shape, cin), generator=gen).to(dev, torch.bfloat16)
+    return x, dict(w0=weight((3, 3, 1), cin, cout),
+                   bn0_scale=vec(cout, .5, 1.5), bn0_shift=vec(cout, -.2, .2),
+                   alpha0=vec(1, .1, .3), w1=weight((3, 3, 1), cout, cout),
+                   bn1_scale=vec(cout, .5, 1.5),
+                   bn1_shift=vec(cout, -.2, .2), alpha1=vec(1, .1, .3),
+                   wr=weight((1, 1, 1), cin, cout), br=vec(cout, -.2, .2))
+
+
+def rb_chains(x, kw):
+    """What ru_block2d replaced and its library yardstick, as callables:
+    the two conv333 launches (ops/rublock.py:ru_chain) and the cuDNN chain
+    of its two convs (channels-last F.conv3d, no epilogue or residual; no
+    single PyTorch call computes the unit)."""
+    import torch
+    import torch.nn.functional as F
+
+    from vs_seg_tpu_torch.ops import conv333
+    from vs_seg_tpu_torch.ops.rublock import ru_chain
+
+    wt0, wt1 = (kw[k].to(torch.bfloat16).permute(4, 3, 2, 0, 1).contiguous()
+                for k in ("w0", "w1"))
+    xc = x.permute(0, 4, 1, 2, 3)
+
+    def cudnn():
+        u = F.conv3d(xc, wt0, padding=(0, 1, 1))
+        return F.conv3d(u, wt1, padding=(0, 1, 1))
+
+    return (lambda: ru_chain(conv333.conv333, x, **kw)), cudnn
+
+
+def rb_bound(x, kw, out):
+    """ru_block2d's bound: x, the params and out moved once; its MACs."""
+    import torch
+    cin, cout = x.shape[-1], out.shape[-1]
+    vox = x[..., 0].numel()
+    return bound(nbytes(x, out, *[v for v in kw.values()
+                                  if isinstance(v, torch.Tensor)]),
+                 2 * vox * (9 * cin * cout + 9 * cout * cout + cin * cout))
+
+
+def rb_site(dev, gen, site, shape, cin, cout, card: str):
+    """ru_block2d at one site: within KERNEL_TOL of its twin, bit-equal over
+    two runs; its device time by CUDA-graph replay beside the conv333 chain
+    it replaced and the cuDNN chain (both by graph replay), the twin's
+    event time, the bound and the host's enqueue per call. Prints a JSON
+    line; returns its row."""
+    import torch
+
+    from vs_seg_tpu_torch.ops import block2d
+
+    x, kw = rb_site_args(dev, gen, shape, cin, cout)
+    name = f"ru_block2d {site} {shape}x{cin}->{cout}"
+
+    def run():
+        return block2d.ru_block2d(x, **kw)
+
+    got = run()
+    if not torch.equal(got, run()):
+        raise AssertionError(f"{name}: two runs differ")
+    err = compare(name, got, block2d.ru_block2d_plain(x, **kw), KERNEL_TOL)
+    chain, cudnn = rb_chains(x, kw)
+    compare(f"{name}, the conv333 chain", chain(), got, KERNEL_TOL)
+    b = rb_bound(x, kw, got)
+    p = block2d.plan(tuple(shape), cin, cout)
+    row = dict(site=site, shape=[*shape], cin=cin, cout=cout,
+               th=p.th, stages=p.stages, ms=graph_ms(run),
+               chain_ms=graph_ms(chain), cudnn_chain_ms=graph_ms(cudnn),
+               plain_ms=cuda_ms(lambda: block2d.ru_block2d_plain(x, **kw)),
+               host_enqueue_ms=host_ms(run), bound_ms=b[0], bound_by=b[1],
+               max_abs_err=err, card=card)
+    row["tflops"] = b[3] / row["ms"] / 1e9
+    log(f"  {name}: kernel {row['ms']!r} ms device (graph replay, TH "
+        f"{p.th}, {p.stages} slots), host enqueue "
+        f"{row['host_enqueue_ms']!r} ms/call; conv333 chain "
+        f"{row['chain_ms']!r} ms, cuDNN chain {row['cudnn_chain_ms']!r} ms, "
+        f"plain {row['plain_ms']!r} ms, bound {b[0]!r} ms ({b[1]}: "
+        f"{b[2] / 1e9:.3f} GB, {b[3] / 1e9:.1f} GFLOP) = {row['tflops']!r} "
+        f"TFLOP/s on {card}")
+    print(json.dumps({"ru_block2d_site": row}), flush=True)
+    row["bound"] = b
+    return row
+
+
 def kd1_kernel_checks(dev, gen, card: str):
     """Phase 7: the kd = 1 route kernels vs their plain twins at the
     flagship shapes of one 8-window batch."""
@@ -821,22 +927,16 @@ def kd1_kernel_checks(dev, gen, card: str):
         torch.cuda.synchronize()
 
     # ru_block2d at down_0 (1 -> 16) and down_1 (16 -> 32)
-    for site, shape, cin, cout in (("down_0", L0, 1, 16),
-                                   ("down_1", L1, 16, 32)):
-        x = randn(*shape, cin)
-        kw = dict(w0=weight((3, 3, 1), cin, cout),
-                  bn0_scale=vec(cout, .5, 1.5), bn0_shift=vec(cout, -.2, .2),
-                  alpha0=vec(1, .1, .3), w1=weight((3, 3, 1), cout, cout),
-                  bn1_scale=vec(cout, .5, 1.5), bn1_shift=vec(cout, -.2, .2),
-                  alpha1=vec(1, .1, .3), wr=weight((1, 1, 1), cin, cout),
-                  br=vec(cout, -.2, .2))
-        vox = x[..., 0].numel()
-        keep("ru_block2d", check(
-            f"ru_block2d {site} {shape}x{cin}->{cout}", block2d.ru_block2d,
-            block2d.ru_block2d_plain, (x,), kw,
-            (2 * vox * (9 * cin * cout + 9 * cout * cout + cin * cout),),
-            site == "down_0"))
-        del x
+    for site, shape, cin, cout in RB_SITES:
+        row = rb_site(dev, gen, site, shape, cin, cout, card)
+        errs["ru_block2d"] = max(errs.get("ru_block2d", 0.0),
+                                 row["max_abs_err"])
+        if "ru_block2d" not in rec:
+            rec["ru_block2d"] = dict(
+                shape=f"ru_block2d {site} {shape}x{cin}->{cout}",
+                ms=row["ms"], plain_ms=row["plain_ms"], library_ms=None,
+                bound=row["bound"])
+        torch.cuda.synchronize()
 
     # l2_block2d at up_1 (32||32 -> 32) and the up_0 head (16||16 -> 2);
     # tail_block at the same sites, given a1
@@ -932,12 +1032,13 @@ def routes_run(dev, gen, card: str, model, staged, default_logits):
             "conv333_dw": 0, "ds_conv": 0, "ring_probe": 0,
             "mosaic_probe": 0}
     configs = {
-        # ru_block2d x 2 (2 conv333 each), tail_block at up_1 (1 attgate +
-        # 1 conv333), l2_block2d at the up_0 head (1 attgate + 2 conv333)
+        # ru_block2d x 2 (one csrc/rublock2d.cu launch each), tail_block
+        # at up_1 (1 attgate + 1 conv333), l2_block2d at the up_0 head (1
+        # attgate + 2 conv333)
         "A": (Routes(rublock2d=True, l2block2d=True, tail2d1=True),
               dict(base, ru_block2d=2, l2_block2d=1, tail_block=1,
                    fused_attention_gate=0, attgate=3 + 1 + 1,
-                   conv333=EVAL_CONV333 + 2 * 2 + 1 + 2)),
+                   conv333=EVAL_CONV333 + 1 + 2)),
         # upatt_0 and upatt_1
         "B": (Routes(att_fuse=True),
               dict(base, ru_block2d=0, l2_block2d=0, tail_block=0,
@@ -1192,8 +1293,9 @@ CONV_SITES = (
     ("up_3 conv0", _L[3], (64, 64), 64, 3, "x", "bn"),
     ("up_4 conv1", _L[4], (80, 80), 80, 3, None, "relu"),
     ("up_4 conv0", _L[4], (80, 80), 80, 3, "x", "bn"),
-    # the kd = 1 conv sites of configuration A (ru_block2d at down_0/1,
-    # tail_block at up_1, l2_block2d at the up_0 logit head)
+    # the kd = 1 conv sites of configuration A (tail_block at up_1,
+    # l2_block2d at the up_0 logit head), and at down_0/1 the two launches
+    # that ru_block2d's one replaced
     ("A down_0 unit0", _L[0], (1,), 16, 1, None, "bn"),
     ("A down_0 unit1", _L[0], (16,), 16, 1, (1,), "bn"),
     ("A down_1 unit0", _L[1], (16,), 32, 1, None, "bn"),
@@ -1717,8 +1819,8 @@ def main() -> int:
     def phase(msg: str) -> None:
         log(f"{msg} [{time.perf_counter() - t0:.1f} s]")
 
-    names = ("conv333", "conv333_dw", "attgate", "blend", "ring_probe",
-             "mosaic_probe")
+    names = ("conv333", "conv333_dw", "attgate", "blend", "rublock2d",
+             "ring_probe", "mosaic_probe")
     with ThreadPoolExecutor(len(names)) as pool:   # one nvcc per source
         list(pool.map(_build.build, names))
     for name in names:
@@ -1777,7 +1879,7 @@ def main() -> int:
         "blend_scatter": ("csrc/blend.cu",
                           "vs_seg_tpu/ops/pallas_blend.py:107"),
         "conv333_dw": ("csrc/conv333_dw.cu", exp + "pallas_train.py:113"),
-        "ru_block2d": ("block2d.py", exp + "pallas_block2d.py:180"),
+        "ru_block2d": ("csrc/rublock2d.cu", exp + "pallas_block2d.py:180"),
         "l2_block2d": ("block2d.py", exp + "pallas_block2d.py:226"),
         "tail_block": ("tail2d.py", exp + "pallas_tail2d.py:239"),
         "fused_attention_gate": ("att.py", exp + "pallas_att.py:146"),

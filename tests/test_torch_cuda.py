@@ -325,6 +325,60 @@ def test_block2d_and_tail_kernels_match_plain(dev, c, cout, head):
     assert tail2d.tail_block.launches == n0 + 1
 
 
+def _ru2d(g, dev, cin, cout):
+    return dict(w0=_w(g, dev, (3, 3, 1), cin, cout),
+                bn0_scale=_v(g, dev, cout, .5, 1.5),
+                bn0_shift=_v(g, dev, cout, -.2, .2),
+                alpha0=_v(g, dev, 1, .1, .3),
+                w1=_w(g, dev, (3, 3, 1), cout, cout),
+                bn1_scale=_v(g, dev, cout, .5, 1.5),
+                bn1_shift=_v(g, dev, cout, -.2, .2),
+                alpha1=_v(g, dev, cout, .1, .3),
+                wr=_w(g, dev, (1, 1, 1), cin, cout),
+                br=_v(g, dev, cout, -.2, .2))
+
+
+@pytest.mark.parametrize("shape,cin,cout,tile", [
+    ((2, 3, 20, 72), 1, 16, None),        # Cin = 1 by TMA, ragged H and W
+    ((2, 3, 20, 70), 1, 16, None),        # Cin = 1, W % 8 != 0: plain loads
+    ((1, 2, 19, 13), 1, 16, None),        # ... narrower than a tile
+    ((1, 600, 16, 64), 1, 16, None),      # more tiles than blocks: the ring
+    ((1, 600, 8, 64), 16, 32, None),      # ... wraps, TMA at Cin 16
+    ((1, 2, 19, 70), 16, 32, None),       # down_1's widths, ragged
+    ((1, 2, 19, 70), 16, 32, (16, 2)),    # ... 16-row tiles, two slots
+    ((2, 3, 10, 13), 5, 12, None),        # nothing aligned: plain loads
+    ((1, 3, 33, 64), 8, 16, (8, 2)),      # Cin 8, one tile wide
+    ((1, 1, 9, 130), 24, 20, None),       # two chunks, Cout 20 (N = 32)
+    ((1, 2, 19, 72), 1, 8, None),         # Cout 8 < N = 16
+    ((1, 2, 9, 64), 8, 24, None),         # Cout 24 < N = 32
+])
+def test_ru_block2d_kernel_matches_plain(dev, shape, cin, cout, tile):
+    """One csrc/rublock2d.cu launch per unit (no conv333 launch, so no
+    padded copy of x), within TOL of the twin, bit-equal when repeated."""
+    g = _g()
+    x = _x(g, dev, *shape, cin)
+    kw = _ru2d(g, dev, cin, cout)
+    th, stages = tile or (None, None)
+    n0, c0 = block2d.ru_block2d.launches, conv333.conv333.launches
+    got = block2d.ru_block2d(x, th=th, stages=stages, **kw)
+    again = block2d.ru_block2d(x, th=th, stages=stages, **kw)
+    assert block2d.ru_block2d.launches == n0 + 2
+    assert conv333.conv333.launches == c0
+    assert torch.equal(got, again)
+    _check(got, block2d.ru_block2d_plain(x, **kw))
+
+
+def test_ru_block2d_kernel_refuses_what_it_cannot_take(dev):
+    g = _g()
+    with pytest.raises(ValueError, match="Cin, Cout <= 32"):
+        block2d.ru_block2d(_x(g, dev, 1, 2, 8, 8, 16), **_ru2d(g, dev, 16, 48))
+    with pytest.raises(TypeError):                      # not bf16
+        block2d.ru_block2d(torch.zeros(1, 2, 8, 8, 1, device=dev),
+                           **_ru2d(g, dev, 1, 16))
+    with pytest.raises(ValueError, match="do not match"):
+        block2d.ru_block2d(_x(g, dev, 1, 2, 8, 8, 2), **_ru2d(g, dev, 1, 16))
+
+
 @pytest.mark.parametrize("kd,cm,cx,n_x,att_out", [
     (1, 5, 5, 2, "compact"),        # nothing aligned
     (3, 8, 8, 1, "compact"),        # one gated input, depth taps

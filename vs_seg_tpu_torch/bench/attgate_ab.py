@@ -1,10 +1,12 @@
-"""A/B timing of attgate, conv333_dw or ds_conv builds at their sites, on
-one GPU.
+"""A/B timing of attgate, conv333_dw, ds_conv or ru_block2d builds at their
+sites, on one GPU.
 
     python -m vs_seg_tpu_torch.bench.attgate_ab OTHER.cu [MORE.cu ...]
     python -m vs_seg_tpu_torch.bench.attgate_ab --kernel conv333_dw OTHER.cu
     python -m vs_seg_tpu_torch.bench.attgate_ab --kernel ds_conv OLD.cu \
         [--ds-th 16,8]
+    python -m vs_seg_tpu_torch.bench.attgate_ab --kernel ru_block2d \
+        [OTHER.cu ...] [--rb-tiles 16x2,8x1]
 
 Builds each given source (a file with the C interface of the kernel's
 csrc/<kernel>.cu: another design, or an earlier commit's kernel, e.g. from
@@ -31,7 +33,13 @@ new, parent). attgate and conv333_dw are timed with CUDA events around
 back-to-back calls; ds_conv by CUDA-graph replay (chip_smoke.graph_ms: the
 device's time, without the host's enqueue), with the host's enqueue per
 call (chip_smoke.host_ms) beside it, one cuDNN strided conv in the same
-turns, and --ds-th the tree's kernel at each tile height listed. Prints one
+turns, and --ds-th the tree's kernel at each tile height listed; ru_block2d
+at chip_smoke.RB_SITES by graph replay with the host's enqueue, beside the
+two conv333 launches it replaced (ops/rublock.py:ru_chain, the parent's
+ru_block2d) and the cuDNN chain of its two convs in the same turns (one
+earlier source is not needed: tree, chain, cuDNN, cuDNN, chain, tree), and
+--rb-tiles the tree's kernel at each (tile height x ring slots) listed.
+Prints one
 line per site with the mean of the two turns of each build, its bound and
 the card, the sums over the sites, and a JSON line of all the times last.
 Run from the repo root. --time-only skips the comparison, for diagnostic
@@ -53,9 +61,12 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from vs_seg_tpu_torch.ops import _build, conv333_dw, dsconv, l2block
+from vs_seg_tpu_torch.ops import (_build, block2d, conv333_dw, dsconv,
+                                  l2block)
 
 REPS = 10
+# ru_block2d's sites: a graph of REPS chain calls at down_0 would hold 48 GB
+RB_REPS = 5
 
 
 def _build_lib(kernel: str, name: str, src: Path) -> ctypes.CDLL:
@@ -79,9 +90,10 @@ def _build_lib(kernel: str, name: str, src: Path) -> ctypes.CDLL:
 # the tree's wrapper module and the libraries it loads, per kernel
 TREE = {"attgate": (l2block, ("attgate",)),
         "conv333_dw": (conv333_dw, ("conv333_dw",)),
-        "ds_conv": (dsconv, ("conv333", "dsconv"))}
+        "ds_conv": (dsconv, ("conv333", "dsconv")),
+        "ru_block2d": (block2d, ("rublock2d",))}
 TREE_SRC = {"attgate": "attgate.cu", "conv333_dw": "conv333_dw.cu",
-            "ds_conv": "conv333.cu"}
+            "ds_conv": "conv333.cu", "ru_block2d": "rublock2d.cu"}
 
 
 def _load_py(name: str, py: Path):
@@ -172,18 +184,46 @@ def _ds_sites(cs, dev, ths):
         yield (f"{site} {shape}x{c}->{c}", run, ref, cs.KERNEL_TOL, b, extra)
 
 
+def _rb_sites(cs, dev, tiles):
+    """ru_block2d at RB_SITES: as _ds_sites, with the conv333 chain, the
+    cuDNN chain and the tree's kernel at the (th, stages) `tiles`."""
+    gen = torch.Generator().manual_seed(cs.SEED + 4)
+    for site, shape, cin, cout in cs.RB_SITES:
+        x, kw = cs.rb_site_args(dev, gen, shape, cin, cout)
+
+        def run(mod, tile=(None, None), x=x, kw=kw):
+            return (mod.ru_block2d(x, th=tile[0], stages=tile[1], **kw),)
+
+        chain, cudnn = cs.rb_chains(x, kw)
+        extra = {"conv333 chain": lambda chain=chain: (chain(),),
+                 "cudnn chain": lambda cudnn=cudnn: (cudnn(),)}
+        for th, st in tiles:
+            extra[f"tree th{th}x{st}"] = (
+                lambda tile=(th, st), run=run: run(block2d, tile))
+        ref = (block2d.ru_block2d_plain(x, **kw),)
+        yield (f"{site} {shape}x{cin}->{cout}", run, ref, cs.KERNEL_TOL,
+               cs.rb_bound(x, kw, ref[0]), extra)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("sources", nargs="+", type=Path,
-                    help="sources to time beside the tree's")
-    ap.add_argument("--kernel", choices=("attgate", "conv333_dw", "ds_conv"),
+    ap.add_argument("sources", nargs="*", type=Path,
+                    help="sources to time beside the tree's (at least one, "
+                         "but for ru_block2d)")
+    ap.add_argument("--kernel", choices=("attgate", "conv333_dw", "ds_conv",
+                                         "ru_block2d"),
                     default="attgate")
     ap.add_argument("--ds-th", default="",
                     help="ds_conv: also time the tree's kernel at these "
                          "tile heights (comma list of 8, 16)")
+    ap.add_argument("--rb-tiles", default="",
+                    help="ru_block2d: also time the tree's kernel at these "
+                         "tiles (comma list of THxSTAGES, e.g. 16x2,8x1)")
     ap.add_argument("--time-only", action="store_true",
                     help="time the builds without holding them to the twin")
     args = ap.parse_args(argv)
+    if not args.sources and args.kernel != "ru_block2d":
+        ap.error(f"--kernel {args.kernel} needs a source to time")
     if not torch.cuda.is_available():
         raise RuntimeError("attgate_ab: no CUDA device")
     sys.path.insert(0, str(_build.BUILD_DIR.parents[1]))
@@ -212,10 +252,16 @@ def main(argv=None) -> int:
     if kernel == "ds_conv":
         sites = _ds_sites(cs, dev, ths)
         timer = cs.graph_ms
+    elif kernel == "ru_block2d":
+        tiles = [tuple(int(v) for v in t.split("x"))
+                 for t in args.rb_tiles.split(",") if t]
+        sites = _rb_sites(cs, dev, tiles)
+        timer = cs.graph_ms
     else:
         sites = ((*row, {}) for row in (
             _attgate_sites if kernel == "attgate" else _dw_sites)(cs, dev))
         timer = cs.cuda_ms
+    reps = RB_REPS if kernel == "ru_block2d" else REPS
     times, bounds, host = {}, {}, {}
     names = list(libs)
     for site, run, ref, tol, b, extra in sites:
@@ -225,7 +271,7 @@ def main(argv=None) -> int:
             for j, (g, r) in enumerate(zip(run(mods[name]), ref)):
                 cs.compare(f"{name} {site} output {j}", g, r, tol)
         for name, fn in extra.items() if not args.time_only else ():
-            if name.startswith("tree"):
+            if not name.startswith("cudnn"):
                 use("tree")
                 cs.compare(f"{name} {site}", fn()[0], ref[0], tol)
         del ref
@@ -238,10 +284,10 @@ def main(argv=None) -> int:
             else:
                 use("tree")
             times.setdefault(site, {}).setdefault(name, []).append(
-                timer(fn, REPS))
-            if kernel == "ds_conv":
+                timer(fn, reps))
+            if kernel in ("ds_conv", "ru_block2d"):
                 host.setdefault(site, {}).setdefault(name, []).append(
-                    cs.host_ms(fn, REPS))
+                    cs.host_ms(fn, reps))
         bounds[site] = b[0]
         print(f"  {kernel} {site}: " + ", ".join(
             f"{n} {sum(v) / len(v)!r} ms" for n, v in times[site].items())

@@ -1,6 +1,6 @@
 """The kd = 1 ("2.5D") block forms of the flagship's levels 0-1: one encoder
-ResidualUnit or one decoder attention block, as conv333 (at kd = 1) and
-attgate launches.
+ResidualUnit (one csrc/rublock2d.cu launch) or one decoder attention block
+(conv333 at kd = 1 and attgate launches).
 
 Replaces vs_seg_tpu/ops/experimental/pallas_block2d.py:
 
@@ -22,17 +22,23 @@ include the conv bias (nn/blocks.py:folded_conv_affine).
 
 The TPU kernels compute one H row tile of one plane end to end over banded
 Toeplitz matrices at channels padded to cp in {16, 32}, recomputing the H
-halo; here u0, a1, ga and gb round-trip through device memory in bf16
-between launches: ru_block2d is two conv333 launches, l2_block2d conv333 +
-attgate + conv333. The TPU eligibility rules (`can_block2d`, `pick_cp` <= 64,
-W*cp % 128, H % 8, the VMEM budget of `pick_ht_2d`) are Mosaic tiling rules:
-the port routes on semantics alone, and its kernels take ragged tiles.
+halo. ru_block2d does the same per 2-D tile in one launch (csrc/rublock2d.cu:
+u0 stays in shared memory, Cin = 1 packs conv0's 9 taps into one K slice,
+x is read in place); `plan` is its launch geometry, as the kernel computes
+it, and the kernel takes Cin, Cout <= 32. In l2_block2d a1, ga and gb
+round-trip through device memory in bf16 between its conv333 + attgate +
+conv333 launches. The TPU eligibility rules (`can_block2d`, `pick_cp` <= 64,
+W*cp % 128, H % 8, the VMEM budget of `pick_ht_2d`) are Mosaic tiling
+rules: the port routes on semantics alone, and its kernels take ragged
+tiles.
 
 Rounding, as the TPU kernels round: u0 and a1 to the working dtype before
 the next conv; att in float32; the gated halves rounded before conv0.
 
-What bounds it on the H100: at levels 0-1 (16-32 channels) every launch
-moves more bytes than its MACs can hide: memory (the sizing is in PERF.md).
+What bounds them on the H100: ru_block2d's bound is its output write (down_0)
+or about even between bytes and the tensor rate (down_1); see
+csrc/rublock2d.cu. l2_block2d's launches each move more bytes than their
+MACs can hide: memory (the sizing is in PERF.md).
 
 `ru_block2d` and `l2_block2d` run the kernels for CUDA tensors and their
 `_plain` twins for CPU tensors, and count their CUDA calls in `.launches`.
@@ -42,11 +48,32 @@ Returns: ru_block2d the output; l2_block2d (out, att), att the
 
 from __future__ import annotations
 
+import ctypes
+import functools
+from typing import NamedTuple, Optional
+
 import torch
 
-from vs_seg_tpu_torch.ops.conv333 import conv333, conv333_plain
+from vs_seg_tpu_torch.ops import _build
+from vs_seg_tpu_torch.ops.conv333 import (KC, _check_act, _epi, _ptr,
+                                          conv333, conv333_plain,
+                                          pack_weights_gmma, packed_weights)
 from vs_seg_tpu_torch.ops.l2block import attgate, attgate_plain, l2_chain
 from vs_seg_tpu_torch.ops.rublock import ru_chain
+
+# csrc/rublock2d.cu's geometry
+TW = 64                   # output tile width
+PITCH = 72                # row pitch (positions) of every tile grid
+# Cin = 1: x staged from column w0 - 8 in rows of XPITCH positions, XOFF of
+# them before the halo's first column w0 - 2
+XPITCH, XOFF = 80, 6
+MAX_C = 32                # the Cin and Cout it takes
+# (tile height, x ring slots), in the order the plan prefers them (on the
+# H100 the plan's pick was the fastest of the four at down_0 and down_1:
+# attgate_ab --kernel ru_block2d --rb-tiles)
+TILES = ((16, 2), (16, 1), (8, 2), (8, 1))
+SMEM_MAX = 227 * 1024     # dynamic shared memory a block may use (H100)
+SMEM_SM = 228 * 1024      # shared memory of an SM, 1 KB of it per block
 
 
 def check_kd1(name: str, *ws: torch.Tensor) -> None:
@@ -63,16 +90,183 @@ def ru_block2d_plain(x: torch.Tensor, **params) -> torch.Tensor:
     return ru_chain(conv333_plain, x, **params)
 
 
-def ru_block2d(x: torch.Tensor, **params) -> torch.Tensor:
+class Plan(NamedTuple):
+    """One launch of csrc/rublock2d.cu: N width n (Cout rounded up to 16 or
+    32), x's 16-channel chunks (0: Cin = 1, conv0's taps packed), tile
+    height th and x ring slots; m64 tiles of u0 (m0) and of the output
+    (m1), staged x rows xr, the tile counts; whether x can be staged by
+    TMA (given a 16-byte aligned base); the shared-memory layout (byte
+    offsets, as the kernel's `layout`) and its size."""
+    n: int
+    chunks: int
+    th: int
+    stages: int
+    m0: int
+    m1: int
+    xr: int
+    tiles_w: int
+    tiles_h: int
+    tiles: int
+    tma: bool
+    layout: dict
+    smem: int
+
+
+def smem_layout(n: int, chunks: int, th: int, stages: int) -> dict:
+    """csrc/rublock2d.cu's `layout`: the m64 tiles of u0 (m0) and the staged
+    x rows (xr) of a tile of height th, then byte offsets and sizes of the x
+    slots, the packed taps, u0, the weight slabs, the epilogue vectors and
+    the ring's barriers."""
+    m0 = -(-(th + 2) * PITCH // 64)
+    xr = -(-(m0 * 64 + 2 * PITCH + 2) // PITCH)
+    pack = chunks == 0
+    xplane = -(-xr * XPITCH * 2 // 128) * 128 if pack else xr * PITCH * 16
+    lay = dict(m0=m0, xr=xr, xplane=xplane,
+               xslot=xplane if pack else 2 * chunks * xplane,
+               upitch=m0 * 64 * 16,
+               w0_bytes=(1 if pack else 9 * chunks) * KC * n * 2,
+               w1_bytes=(n // KC) * 9 * KC * n * 2,
+               wr_bytes=(1 if pack else chunks) * KC * n * 2)
+    lay["off_pk"] = stages * lay["xslot"]
+    lay["off_u"] = lay["off_pk"] + (2 * lay["upitch"] if pack else 0)
+    lay["off_w0"] = lay["off_u"] + (n // 8) * lay["upitch"]
+    lay["off_w1"] = lay["off_w0"] + lay["w0_bytes"]
+    lay["off_wr"] = lay["off_w1"] + lay["w1_bytes"]
+    lay["off_epi"] = lay["off_wr"] + lay["wr_bytes"]
+    lay["off_bar"] = lay["off_epi"] + 7 * n * 4      # 7 f32 vectors
+    lay["smem"] = lay["off_bar"] + 2 * stages * 8
+    return lay
+
+
+@functools.lru_cache(maxsize=256)
+def plan(shape, cin: int, cout: int, th: Optional[int] = None,
+         stages: Optional[int] = None) -> Plan:
+    """The launch's geometry for an input (N, D, H, W) with cin channels and
+    cout output channels. th/stages None: the first of TILES whose block
+    leaves room for two per SM, else the first that fits; raises for widths
+    the kernel does not take."""
+    if not (1 <= cin <= MAX_C and 1 <= cout <= MAX_C):
+        raise ValueError(f"ru_block2d: the kernel takes 1 <= Cin, Cout <= "
+                         f"{MAX_C}, got {cin} -> {cout}")
+    n_, d, h, w = shape
+    if h * w * cout >= 2 ** 31:
+        raise ValueError(f"ru_block2d: a plane of {h} x {w} x {cout} "
+                         f"outputs is past the kernel's 2^31")
+    n = 16 if cout <= 16 else 32
+    chunks = 0 if cin == 1 else -(-cin // KC)
+    if th is not None and stages is not None:
+        cands = [(th, stages)]
+    else:
+        cands = [(t, s) for t, s in TILES
+                 if th in (None, t) and stages in (None, s)]
+    if not cands or any(t % 8 or not 8 <= t <= 64 or s not in (1, 2)
+                        for t, s in cands):
+        raise ValueError(f"ru_block2d: no tile of height {th} with {stages} "
+                         f"slots")
+    lays = [(t, s, smem_layout(n, chunks, t, s)) for t, s in cands]
+    fit = [c for c in lays if c[2]["smem"] <= SMEM_MAX]
+    if not fit:
+        raise ValueError(f"ru_block2d: no tile fits {SMEM_MAX} bytes of "
+                         f"shared memory at {cin} -> {cout}")
+    two = [c for c in fit if 2 * (c[2]["smem"] + 1024) <= SMEM_SM]
+    th, stages, lay = (two or fit)[0]
+    tiles_w, tiles_h = -(-w // TW), -(-h // th)
+    return Plan(n=n, chunks=chunks, th=th, stages=stages, m0=lay["m0"],
+                m1=th * PITCH // 64, xr=lay["xr"], tiles_w=tiles_w,
+                tiles_h=tiles_h, tiles=n_ * d * tiles_h * tiles_w,
+                tma=(w % 8 == 0) if cin == 1 else cin % 8 == 0,
+                layout=lay, smem=lay["smem"])
+
+
+def pack_w0_taps(w0: torch.Tensor, cins, n: int) -> torch.Tensor:
+    """Cin = 1: w0 (3, 3, 1, 1, Cout) as one 16 x n slab whose K lane t is
+    tap t = kh*3 + kw (lanes 9-15 zero), in pack_weights_gmma's layout."""
+    cout = w0.shape[-1]
+    k = w0.new_zeros((1, 1, 1, KC, cout))
+    k[0, 0, 0, :9] = w0.reshape(9, cout)
+    return pack_weights_gmma(k, [KC], n)
+
+
+def pack_wr_centre(wr: torch.Tensor, cins, n: int) -> torch.Tensor:
+    """Cin = 1: wr (1, 1, 1, 1, Cout) in K lane 4 (the centre tap of the
+    packed slice) of one 16 x n slab."""
+    cout = wr.shape[-1]
+    k = wr.new_zeros((1, 1, 1, KC, cout))
+    k[0, 0, 0, 4] = wr.reshape(cout)
+    return pack_weights_gmma(k, [KC], n)
+
+
+def packed_unit(w0, w1, wr, cin: int, n: int, dev):
+    """(w0, w1, wr) packed as csrc/rublock2d.cu reads them, cached on each
+    weight tensor (ops/conv333.py:packed_weights)."""
+    cout = w0.shape[-1]
+    if cin == 1:
+        w0p = packed_weights(w0, "ru_block2d", (1,), n, dev, pack_w0_taps)
+        wrp = packed_weights(wr, "ru_block2d", (1,), n, dev, pack_wr_centre)
+    else:
+        w0p = packed_weights(w0, "ru_block2d", (cin,), n, dev)
+        wrp = packed_weights(wr, "ru_block2d", (cin,), n, dev)
+    return w0p, packed_weights(w1, "ru_block2d", (cout,), n, dev), wrp
+
+
+_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] + [ctypes.c_void_p] * 3
+             + [ctypes.c_int] + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 9
+             + [ctypes.c_void_p])
+
+
+def _lib():
+    lib = _build.load("rublock2d")
+    fn = lib.rublock2d_launch
+    if fn.argtypes is None:
+        fn.argtypes = _ARGTYPES
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def ru_block2d(x: torch.Tensor, *, th: Optional[int] = None,
+               stages: Optional[int] = None, **params) -> torch.Tensor:
     """Fused eval (3,3,1) ResidualUnit. x: (N, D, H, W, Cin); params as
     ops/rublock.py:ru_chain, with w0 (3,3,1,Cin,Cout), w1 (3,3,1,Cout,Cout),
-    wr (1,1,1,Cin,Cout); returns (N, D, H, W, Cout)."""
+    wr (1,1,1,Cin,Cout); returns (N, D, H, W, Cout). CUDA tensors (bf16,
+    contiguous, Cin and Cout <= 32) take one launch of csrc/rublock2d.cu;
+    th/stages force its tile height and x ring slots (None: the plan's)."""
     if x.device.type == "cpu":
         return ru_block2d_plain(x, **params)
     if x.device.type != "cuda":
         raise ValueError(f"ru_block2d: unsupported device {x.device}")
-    check_kd1("ru_block2d", params["w0"], params["w1"])
-    out = ru_chain(conv333, x, **params)
+    w0, w1, wr = params["w0"], params["w1"], params["wr"]
+    check_kd1("ru_block2d", w0, w1)
+    _check_act((x,), "ru_block2d")
+    n_, d, h, w, cin = x.shape
+    cout = w0.shape[4]
+    if (tuple(w0.shape) != (3, 3, 1, cin, cout)
+            or tuple(w1.shape) != (3, 3, 1, cout, cout)
+            or tuple(wr.shape) != (1, 1, 1, cin, cout)):
+        raise ValueError(f"ru_block2d: weights {tuple(w0.shape)}, "
+                         f"{tuple(w1.shape)}, {tuple(wr.shape)} do not match "
+                         f"an input with {cin} channels")
+    if x.numel() == 0:
+        raise ValueError(f"ru_block2d: empty input {tuple(x.shape)}")
+    p = plan((n_, d, h, w), cin, cout, th, stages)
+    dev = x.device
+    w0p, w1p, wrp = packed_unit(w0, w1, wr, cin, p.n, dev)
+    s0, h0 = _epi(params["bn0_scale"], cout, dev), _epi(params["bn0_shift"],
+                                                        cout, dev)
+    s1, h1 = _epi(params["bn1_scale"], cout, dev), _epi(params["bn1_shift"],
+                                                        cout, dev)
+    a0 = _epi(params["alpha0"], cout, dev, one=True)
+    a1 = _epi(params["alpha1"], cout, dev, one=True)
+    br = _epi(params["br"], cout, dev)
+    out = torch.empty((n_, d, h, w, cout), dtype=torch.bfloat16, device=dev)
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    lib = _lib()
+    err = lib.rublock2d_launch(
+        _ptr(x), _ptr(w0p), _ptr(w1p), _ptr(wrp), _ptr(s0), _ptr(h0),
+        _ptr(a0), a0.numel() if a0 is not None else 1, _ptr(s1), _ptr(h1),
+        _ptr(a1), a1.numel() if a1 is not None else 1, _ptr(br), _ptr(out),
+        n_, d, h, w, cin, cout, p.th, p.stages, idx,
+        torch._C._cuda_getCurrentRawStream(idx))
+    _build.check(lib, err, "ru_block2d")
     ru_block2d.launches += 1
     return out
 

@@ -7,7 +7,7 @@
 // vs_seg_tpu/ops/pallas_rublock.py:ru_block and
 // vs_seg_tpu/ops/pallas_l2block.py:l2_block. With kd = 1 (the "2.5D" levels
 // 0-1) it is, through ops/block2d.py and ops/tail2d.py, the conv of
-// vs_seg_tpu/ops/experimental/pallas_block2d.py:ru_block2d/l2_block2d and
+// vs_seg_tpu/ops/experimental/pallas_block2d.py:l2_block2d and
 // pallas_tail2d.py:tail_block, and through ops/train_conv.py the dgrad of
 // pallas_train.py:conv333_train. At stride 2, through ops/dsconv.py, it is
 // vs_seg_tpu/ops/experimental/pallas_dsconv.py:ds_conv (_ds_kernel), the

@@ -1,6 +1,7 @@
 // A ring of asynchronous global -> shared copies on mbarriers (sm_90a),
 // shared by the kernels that pipeline their loads: csrc/conv333.cu,
-// csrc/conv333_dw.cu, csrc/attgate.cu and the probe csrc/ring_probe.cu.
+// csrc/conv333_dw.cu, csrc/attgate.cu, csrc/rublock2d.cu and the probe
+// csrc/ring_probe.cu.
 //
 // A ring has S slots in shared memory and two mbarriers per slot. One
 // thread, the producer, fills a slot with TMA copies (cp.async.bulk.tensor,
@@ -90,7 +91,7 @@ __device__ __forceinline__ void mbar_wait_asm(uint64_t* bar, int parity) {
       : "memory");
 }
 
-// TMA copy of one box of a 2-D / 5-D tensor map into shared memory;
+// TMA copy of one box of a 2-D, 4-D or 5-D tensor map into shared memory;
 // coordinates innermost first, in elements, may be negative or past the
 // end (zero-filled).
 __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
@@ -100,6 +101,18 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       "complete_tx::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(
+          smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3)
       : "memory");
 }
 

@@ -42,13 +42,19 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
      down_1 (16->32) (RB_SITES; each also bit-equal over two runs and timed
      by CUDA-graph replay beside the two-conv333 chain it replaced, the
      cuDNN chain of its two convs, its bound and the host's enqueue),
-     l2_block2d at up_1 (32||32->32) and the up_0 logit head (16||16->2),
-     tail_block at up_1 and up_0, fused_attention_gate (kd 1) at upatt_0 and
-     upatt_1 and (kd 3) at the upatt_2 shape.
+     l2_block2d at the up_0 logit head (16||16->2; L2_SITES: one
+     csrc/l2block2d.cu launch, out and att against its twin and the
+     conv333 + attgate + conv333 chain it replaced, bit-equal over two
+     runs, timed by CUDA-graph replay beside that chain, the cuDNN chain of
+     its two convs, its bound and the host's enqueue) and at up_1
+     (32||32->32, past the kernel's widths: the chain, and which path it
+     took), tail_block at up_1 and up_0, fused_attention_gate (kd 1) at
+     upatt_0 and upatt_1 and (kd 3) at the upatt_2 shape.
   8. The phase-3 volume under three route configurations (Routes), each
      through the kernels (launch counters reset just before, read just
-     after, checked per site) and through the plain path: A = ru_block2d,
-     l2_block2d, tail_block at up_1; B = fused_attention_gate; C = ds_conv
+     after, checked per site) and through the plain path: A = ru_block2d
+     at down_0/1, l2_block2d at the up_0 head, tail_block at up_1; B =
+     fused_attention_gate; C = ds_conv
      at downsample_2/3/4. Logits are held against the configuration's plain
      path and phase 3's default kernel path; ms/volume of each path; and a
      per-level split of one 8-window forward (CUDA events at the model's
@@ -69,8 +75,9 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
      two paths agree, and each path's compute seconds per volume. Figures
      are drawn when matplotlib is installed.
  11. conv333 at each of its sites (CONV_SITES): the 14 launches of one
-     8-window forward, the 7 kd = 1 conv sites of configuration A and three
-     train dgrad shapes, each against its plain twin, with the kernel's
+     8-window forward, configuration A's kd = 1 conv sites and those of
+     the chains its fused kernels replaced, and three train dgrad shapes,
+     each against its plain twin, with the kernel's
      time, one channels-last F.conv3d's, the bound, TFLOP/s and GB/s, and
      the host's enqueue time of one call at the bottom site.
  12. The nine Mosaic probes of tools/mosaic_probe.py (csrc/mosaic_probe.cu)
@@ -81,7 +88,8 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
      scheme's time beside the case's bound, at the tool's shapes and with
      the leading size scaled by PROBE_SCALE.
  13. attgate at each of its sites (ATT_SITES: up_2/3/4 at kd = 3, A's up_1
-     tail and up_0 head and B's upatt_0/1 at kd = 1) against its plain
+     tail, the up_0 head of l2_block2d's parent chain and B's upatt_0/1
+     at kd = 1) against its plain
      twin, with kernel, plain and bound ms, and its ms per volume under
      the default routes, A and B.
  14. conv333_dw at each of the TRAIN_SITES sites of one train step (taken
@@ -852,6 +860,128 @@ def rb_site(dev, gen, site, shape, cin, cout, card: str):
     return row
 
 
+# l2_block2d's fused site for one 8-window batch (D-first): (site, (N, D,
+# H, W), C, Cout); the up_0 logit head (bn_scale None, bn_shift the bias,
+# identity activation)
+L2_SITES = (("up_0 head", (SW_BATCH, ROI[2], ROI[0], ROI[1]), 16, 2),)
+
+
+def l2_site_args(dev, gen, shape, c, cout):
+    """Seeded l2_block2d arguments at one site: xa, xb and the block's
+    params (the logit head's degenerate epilogue at cout = 2)."""
+    import numpy as np
+    import torch
+
+    def weight(k, ci, co):
+        b = 1.0 / np.sqrt(ci * int(np.prod(k)))
+        return ((torch.rand((*k, ci, co), generator=gen) * 2 - 1) * b
+                ).to(dev)
+
+    def vec(n, lo, hi):
+        return (torch.rand(n, generator=gen) * (hi - lo) + lo).to(dev)
+
+    xa, xb = (torch.randn((*shape, c), generator=gen).to(dev, torch.bfloat16)
+              for _ in range(2))
+    kw = dict(w1=weight((3, 3, 1), 2 * c, c), b1=vec(c, -.2, .2),
+              w2=weight((3, 3, 1), c, 1), b2=vec(1, -.2, .2),
+              w0=weight((3, 3, 1), 2 * c, cout),
+              wr=weight((1, 1, 1), 2 * c, cout), br=vec(cout, -.2, .2))
+    if cout == 2:
+        kw.update(bn_scale=None, bn_shift=vec(cout, -.2, .2), alpha=None)
+    else:
+        kw.update(bn_scale=vec(cout, .5, 1.5), bn_shift=vec(cout, -.2, .2),
+                  alpha=vec(1, .1, .3))
+    return xa, xb, kw
+
+
+def l2_chains(xa, xb, kw):
+    """What l2_block2d replaced and its library yardstick, as callables:
+    the conv333 + attgate + conv333 chain (ops/l2block.py:l2_chain) and the
+    cuDNN chain of its two convs (channels-last F.conv3d on xa || xb
+    concatenated once outside the timing, no epilogue, gate or residual;
+    no single PyTorch call computes the block)."""
+    import torch
+    import torch.nn.functional as F
+
+    from vs_seg_tpu_torch.ops import conv333, l2block
+
+    wt1, wt0 = (kw[k].to(torch.bfloat16).permute(4, 3, 2, 0, 1).contiguous()
+                for k in ("w1", "w0"))
+    xc = torch.cat((xa, xb), -1).permute(0, 4, 1, 2, 3)
+
+    def cudnn():
+        F.conv3d(xc, wt1, padding=(0, 1, 1))
+        return F.conv3d(xc, wt0, padding=(0, 1, 1))
+
+    return (lambda: l2block.l2_chain(conv333.conv333, l2block.attgate, xa,
+                                     xb, **kw)), cudnn
+
+
+def l2_bound(xa, xb, kw, out, att):
+    """l2_block2d's bound: xa, xb, the params, out and att moved once; its
+    MACs (conv1, conv0 and the residual in bf16, conv2 and the gate f32)."""
+    import torch
+    c, cout = xa.shape[-1], out.shape[-1]
+    vox = xa[..., 0].numel()
+    return bound(nbytes(xa, xb, out, att,
+                        *[v for v in kw.values()
+                          if isinstance(v, torch.Tensor)]),
+                 2 * vox * (9 * 2 * c * c + 9 * 2 * c * cout + 2 * c * cout),
+                 (2 * 9 + 4) * c * vox)
+
+
+def l2_site(dev, gen, site, shape, c, cout, card: str):
+    """l2_block2d at its fused site: out and att within KERNEL_TOL of its
+    twin and of the conv333 + attgate + conv333 chain it replaced,
+    bit-equal over two runs; its device time by CUDA-graph replay beside
+    the chain and the cuDNN chain (both by graph replay), the twin's event
+    time, the bound and the host's enqueue per call. Prints a JSON line;
+    returns its row."""
+    import torch
+
+    from vs_seg_tpu_torch.ops import block2d
+
+    xa, xb, kw = l2_site_args(dev, gen, shape, c, cout)
+    name = f"l2_block2d {site} {shape}x{c}x2->{cout}"
+
+    def run():
+        return block2d.l2_block2d(xa, xb, **kw)
+
+    n0 = block2d.l2_block2d.launches
+    got = run()
+    if block2d.l2_block2d.launches != n0 + 1:
+        raise AssertionError(f"{name}: the fused kernel was not launched")
+    if not all(torch.equal(g, a) for g, a in zip(got, run())):
+        raise AssertionError(f"{name}: two runs differ")
+    err = max(compare(f"{name} {part}", g, r, KERNEL_TOL) for part, g, r in
+              zip(("out", "att"), got, block2d.l2_block2d_plain(xa, xb,
+                                                                 **kw)))
+    chain, cudnn = l2_chains(xa, xb, kw)
+    for part, g, r in zip(("out", "att"), chain(), got):
+        compare(f"{name} {part}, the parent chain", g, r, KERNEL_TOL)
+    b = l2_bound(xa, xb, kw, *got)
+    del got
+    p = block2d.plan_l2(tuple(shape), c, cout)
+    row = dict(site=site, shape=[*shape], c=c, cout=cout, th=p.th,
+               stages=p.stages, ms=graph_ms(run), chain_ms=graph_ms(chain),
+               cudnn_chain_ms=graph_ms(cudnn),
+               plain_ms=cuda_ms(lambda: block2d.l2_block2d_plain(xa, xb,
+                                                                  **kw)),
+               host_enqueue_ms=host_ms(run), bound_ms=b[0], bound_by=b[1],
+               max_abs_err=err, card=card)
+    row["tflops"] = b[3] / row["ms"] / 1e9
+    log(f"  {name}: kernel {row['ms']!r} ms device (graph replay, TH "
+        f"{p.th}, {p.stages} slots), host enqueue "
+        f"{row['host_enqueue_ms']!r} ms/call; parent chain "
+        f"{row['chain_ms']!r} ms, cuDNN chain {row['cudnn_chain_ms']!r} ms, "
+        f"plain {row['plain_ms']!r} ms, bound {b[0]!r} ms ({b[1]}: "
+        f"{b[2] / 1e9:.3f} GB, {b[3] / 1e9:.1f} GFLOP) = {row['tflops']!r} "
+        f"TFLOP/s on {card}")
+    print(json.dumps({"l2_block2d_site": row}), flush=True)
+    row["bound"] = b
+    return row
+
+
 def kd1_kernel_checks(dev, gen, card: str):
     """Phase 7: the kd = 1 route kernels vs their plain twins at the
     flagship shapes of one 8-window batch."""
@@ -938,7 +1068,18 @@ def kd1_kernel_checks(dev, gen, card: str):
                 bound=row["bound"])
         torch.cuda.synchronize()
 
-    # l2_block2d at up_1 (32||32 -> 32) and the up_0 head (16||16 -> 2);
+    # l2_block2d: one csrc/l2block2d.cu launch at the up_0 head (16||16 ->
+    # 2), against its twin and the parent chain; at up_1 (32||32 -> 32,
+    # past the kernel's widths) the conv333 + attgate chain, against its
+    # twin, and which path it took
+    for site, shape, c, cout in L2_SITES:
+        row = l2_site(dev, gen, site, shape, c, cout, card)
+        errs["l2_block2d"] = max(errs.get("l2_block2d", 0.0),
+                                 row["max_abs_err"])
+        rec["l2_block2d"] = dict(
+            shape=f"l2_block2d {site} {shape}x{c}x2->{cout}", ms=row["ms"],
+            plain_ms=row["plain_ms"], library_ms=None, bound=row["bound"])
+        torch.cuda.synchronize()
     # tail_block at the same sites, given a1
     for site, shape, c, cout in (("up_1", L1, 32, 32), ("up_0", L0, 16, 2)):
         head = site == "up_0"
@@ -948,11 +1089,20 @@ def kd1_kernel_checks(dev, gen, card: str):
                   b1=vec(c, -.2, .2), w2=weight((3, 3, 1), c, 1),
                   b2=vec(1, -.2, .2))
         conv_mac = 9 * 2 * c * cout + 2 * c * cout
-        keep("l2_block2d", check(
-            f"l2_block2d {site} {shape}x{c}x2->{cout}", block2d.l2_block2d,
-            block2d.l2_block2d_plain, (xa, xb), kw,
-            (2 * vox * (9 * 2 * c * c + conv_mac), (2 * 9 + 4) * c * vox),
-            head))
+        if not head:
+            n0 = block2d.l2_block2d.launches
+            k0 = block2d.l2_block2d.chain_calls
+            keep("l2_block2d", check(
+                f"l2_block2d {site} {shape}x{c}x2->{cout}",
+                block2d.l2_block2d, block2d.l2_block2d_plain, (xa, xb), kw,
+                None, False))
+            path = ("the conv333 + attgate chain"
+                    if block2d.l2_block2d.chain_calls == k0 + 1
+                    and block2d.l2_block2d.launches == n0
+                    else "the fused kernel")
+            log(f"  l2_block2d {site} ({c}||{c} -> {cout}) took {path}")
+            if block2d.l2_fusable(c, cout) != (path == "the fused kernel"):
+                raise AssertionError(f"l2_block2d {site}: took {path}")
         a1 = randn(*shape, c).relu()
         tkw = {k: v for k, v in kw.items() if k not in ("w1", "b1")}
         keep("tail_block", check(
@@ -1033,12 +1183,12 @@ def routes_run(dev, gen, card: str, model, staged, default_logits):
             "mosaic_probe": 0}
     configs = {
         # ru_block2d x 2 (one csrc/rublock2d.cu launch each), tail_block
-        # at up_1 (1 attgate + 1 conv333), l2_block2d at the up_0 head (1
-        # attgate + 2 conv333)
+        # at up_1 (1 attgate + 1 conv333), l2_block2d at the up_0 head (one
+        # csrc/l2block2d.cu launch)
         "A": (Routes(rublock2d=True, l2block2d=True, tail2d1=True),
               dict(base, ru_block2d=2, l2_block2d=1, tail_block=1,
-                   fused_attention_gate=0, attgate=3 + 1 + 1,
-                   conv333=EVAL_CONV333 + 1 + 2)),
+                   fused_attention_gate=0, attgate=3 + 1,
+                   conv333=EVAL_CONV333 + 1)),
         # upatt_0 and upatt_1
         "B": (Routes(att_fuse=True),
               dict(base, ru_block2d=0, l2_block2d=0, tail_block=0,
@@ -1293,16 +1443,16 @@ CONV_SITES = (
     ("up_3 conv0", _L[3], (64, 64), 64, 3, "x", "bn"),
     ("up_4 conv1", _L[4], (80, 80), 80, 3, None, "relu"),
     ("up_4 conv0", _L[4], (80, 80), 80, 3, "x", "bn"),
-    # the kd = 1 conv sites of configuration A (tail_block at up_1,
-    # l2_block2d at the up_0 logit head), and at down_0/1 the two launches
-    # that ru_block2d's one replaced
+    # the kd = 1 conv sites of configuration A (tail_block at up_1), and the
+    # launches that a fused kernel replaced: at down_0/1 the two of
+    # ru_block2d's chain, at up_0 the two convs of l2_block2d's chain
     ("A down_0 unit0", _L[0], (1,), 16, 1, None, "bn"),
     ("A down_0 unit1", _L[0], (16,), 16, 1, (1,), "bn"),
     ("A down_1 unit0", _L[1], (16,), 32, 1, None, "bn"),
     ("A down_1 unit1", _L[1], (32,), 32, 1, (16,), "bn"),
     ("A up_1 tail conv0", _L[1], (32, 32), 32, 1, "x", "bn"),
-    ("A up_0 conv1", _L[0], (16, 16), 16, 1, None, "relu"),
-    ("A up_0 head conv0", _L[0], (16, 16), 2, 1, "x", "head"),
+    ("chain up_0 conv1", _L[0], (16, 16), 16, 1, None, "relu"),
+    ("chain up_0 head conv0", _L[0], (16, 16), 2, 1, "x", "head"),
     # the train dgrad (batch 1): dx = conv(dy, flipped w^T), no epilogue
     ("dgrad down_2 unit0", (1,) + _L[2][1:], (48,), 32, 3, None, "none"),
     ("dgrad up_3 half", (1,) + _L[3][1:], (64,), 64, 3, None, "none"),
@@ -1391,9 +1541,10 @@ def conv333_sweep(dev, card: str):
                if "host_enqueue_ms" in row else "") + f" on {card}")
         del xs, x, rin, resid, got, xc
     torch.cuda.synchronize()
-    for part in ("eval", "A ", "dgrad"):
-        sel = [r for r in rows if (r["site"].startswith(part) if part != "eval"
-                                   else not r["site"].startswith(("A ", "dgrad")))]
+    for part in ("eval", "A ", "chain", "dgrad"):
+        sel = [r for r in rows if (
+            r["site"].startswith(part) if part != "eval"
+            else not r["site"].startswith(("A ", "chain", "dgrad")))]
         log(f"  conv333 {part.strip()} sites: kernel "
             f"{sum(r['ms'] for r in sel)!r} ms, F.conv3d "
             f"{sum(r['conv3d_ms'] for r in sel)!r} ms, bound "
@@ -1508,7 +1659,7 @@ ATT_SITES = (
     ("up_3", "attgate", _L[3], 64, 64, 3),
     ("up_4", "attgate", _L[4], 80, 80, 3),
     ("A up_1 tail", "attgate", _L[1], 32, 32, 1),
-    ("A up_0 head", "attgate", _L[0], 16, 16, 1),
+    ("chain up_0 head", "attgate", _L[0], 16, 16, 1),
     ("B upatt_0", "fused", _L[0], 16, 16, 1),
     ("B upatt_1", "fused", _L[1], 32, 32, 1),
 )
@@ -1820,7 +1971,7 @@ def main() -> int:
         log(f"{msg} [{time.perf_counter() - t0:.1f} s]")
 
     names = ("conv333", "conv333_dw", "attgate", "blend", "rublock2d",
-             "ring_probe", "mosaic_probe")
+             "l2block2d", "ring_probe", "mosaic_probe")
     with ThreadPoolExecutor(len(names)) as pool:   # one nvcc per source
         list(pool.map(_build.build, names))
     for name in names:
@@ -1880,7 +2031,7 @@ def main() -> int:
                           "vs_seg_tpu/ops/pallas_blend.py:107"),
         "conv333_dw": ("csrc/conv333_dw.cu", exp + "pallas_train.py:113"),
         "ru_block2d": ("csrc/rublock2d.cu", exp + "pallas_block2d.py:180"),
-        "l2_block2d": ("block2d.py", exp + "pallas_block2d.py:226"),
+        "l2_block2d": ("csrc/l2block2d.cu", exp + "pallas_block2d.py:226"),
         "tail_block": ("tail2d.py", exp + "pallas_tail2d.py:239"),
         "fused_attention_gate": ("att.py", exp + "pallas_att.py:146"),
         "ds_conv": ("csrc/conv333.cu", exp + "pallas_dsconv.py:145"),

@@ -379,6 +379,58 @@ def test_ru_block2d_kernel_refuses_what_it_cannot_take(dev):
         block2d.ru_block2d(_x(g, dev, 1, 2, 8, 8, 2), **_ru2d(g, dev, 1, 16))
 
 
+@pytest.mark.parametrize("shape,c,cout,head,tile", [
+    ((1, 2, 20, 72), 16, 2, True, None),    # the head: TMA, ragged H
+    ((1, 2, 19, 70), 16, 16, False, None),  # a PReLU unit, ragged W
+    ((2, 3, 10, 13), 12, 12, False, None),  # C 12: plain loads
+    ((1, 3, 33, 64), 8, 2, True, (8, 2)),   # C 8, two slots, one tile wide
+    ((1, 600, 16, 64), 16, 2, True, None),  # more tiles than blocks
+    ((1, 300, 8, 64), 16, 2, True, (8, 2)), # ... the two-slot ring wraps
+    ((1, 2, 9, 66), 5, 9, False, (8, 1)),   # nothing aligned, Cout 9
+    ((1, 2, 19, 70), 16, 2, False, None),   # partials under a PReLU
+    ((2, 1, 12, 20), 8, 4, True, (8, 2)),   # Cout 4: conv0 per tap, N 8
+])
+def test_l2_block2d_kernel_matches_plain(dev, shape, c, cout, head, tile):
+    """One csrc/l2block2d.cu launch per block (no conv333 or attgate
+    launch), out and att within TOL of the twin, bit-equal when
+    repeated."""
+    g = _g()
+    xa, xb = _x(g, dev, *shape, c), _x(g, dev, *shape, c)
+    kw = dict(_l2d(g, dev, c, cout, head), w1=_w(g, dev, (3, 3, 1), 2 * c, c),
+              b1=_v(g, dev, c, -.2, .2))
+    if not head and cout == 9:
+        kw["alpha"] = _v(g, dev, cout, .1, .3)
+    th, stages = tile or (None, None)
+    n0, c0 = block2d.l2_block2d.launches, conv333.conv333.launches
+    a0 = l2block.attgate.launches
+    got = block2d.l2_block2d(xa, xb, th=th, stages=stages, **kw)
+    again = block2d.l2_block2d(xa, xb, th=th, stages=stages, **kw)
+    assert block2d.l2_block2d.launches == n0 + 2
+    assert (conv333.conv333.launches, l2block.attgate.launches) == (c0, a0)
+    ref = block2d.l2_block2d_plain(xa, xb, **kw)
+    for o, a, r in zip(got, again, ref):
+        assert torch.equal(o, a)
+        _check(o, r)
+
+
+def test_l2_block2d_takes_the_chain_past_its_widths(dev):
+    """C = 32 (up_1's widths) is past the kernel: the conv333 + attgate +
+    conv333 chain runs, counted under those and in chain_calls."""
+    g = _g()
+    xa, xb = _x(g, dev, 1, 2, 9, 13, 32), _x(g, dev, 1, 2, 9, 13, 32)
+    kw = dict(_l2d(g, dev, 32, 32, False),
+              w1=_w(g, dev, (3, 3, 1), 64, 32), b1=_v(g, dev, 32, -.2, .2))
+    n0, k0 = block2d.l2_block2d.launches, block2d.l2_block2d.chain_calls
+    c0, a0 = conv333.conv333.launches, l2block.attgate.launches
+    got = block2d.l2_block2d(xa, xb, **kw)
+    assert (block2d.l2_block2d.launches, block2d.l2_block2d.chain_calls) == (
+        n0, k0 + 1)
+    assert (conv333.conv333.launches, l2block.attgate.launches) == (
+        c0 + 2, a0 + 1)
+    for o, r in zip(got, block2d.l2_block2d_plain(xa, xb, **kw)):
+        _check(o, r)
+
+
 @pytest.mark.parametrize("kd,cm,cx,n_x,att_out", [
     (1, 5, 5, 2, "compact"),        # nothing aligned
     (3, 8, 8, 1, "compact"),        # one gated input, depth taps

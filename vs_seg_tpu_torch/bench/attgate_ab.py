@@ -1,5 +1,5 @@
-"""A/B timing of attgate, conv333_dw, ds_conv or ru_block2d builds at their
-sites, on one GPU.
+"""A/B timing of attgate, conv333_dw, ds_conv, ru_block2d or l2_block2d
+builds at their sites, on one GPU.
 
     python -m vs_seg_tpu_torch.bench.attgate_ab OTHER.cu [MORE.cu ...]
     python -m vs_seg_tpu_torch.bench.attgate_ab --kernel conv333_dw OTHER.cu
@@ -7,6 +7,8 @@ sites, on one GPU.
         [--ds-th 16,8]
     python -m vs_seg_tpu_torch.bench.attgate_ab --kernel ru_block2d \
         [OTHER.cu ...] [--rb-tiles 16x2,8x1]
+    python -m vs_seg_tpu_torch.bench.attgate_ab --kernel l2_block2d \
+        [OTHER.cu ...] [--l2-tiles 16x1,8x2]
 
 Builds each given source (a file with the C interface of the kernel's
 csrc/<kernel>.cu: another design, or an earlier commit's kernel, e.g. from
@@ -38,7 +40,11 @@ at chip_smoke.RB_SITES by graph replay with the host's enqueue, beside the
 two conv333 launches it replaced (ops/rublock.py:ru_chain, the parent's
 ru_block2d) and the cuDNN chain of its two convs in the same turns (one
 earlier source is not needed: tree, chain, cuDNN, cuDNN, chain, tree), and
---rb-tiles the tree's kernel at each (tile height x ring slots) listed.
+--rb-tiles the tree's kernel at each (tile height x ring slots) listed;
+l2_block2d likewise at chip_smoke.L2_SITES (the up_0 logit head) beside
+the conv333 + attgate + conv333 chain it replaced (ops/l2block.py:
+l2_chain) and the cuDNN chain of its two convs, --l2-tiles the tree's
+kernel at each tile listed.
 Prints one
 line per site with the mean of the two turns of each build, its bound and
 the card, the sums over the sites, and a JSON line of all the times last.
@@ -91,9 +97,11 @@ def _build_lib(kernel: str, name: str, src: Path) -> ctypes.CDLL:
 TREE = {"attgate": (l2block, ("attgate",)),
         "conv333_dw": (conv333_dw, ("conv333_dw",)),
         "ds_conv": (dsconv, ("conv333", "dsconv")),
-        "ru_block2d": (block2d, ("rublock2d",))}
+        "ru_block2d": (block2d, ("rublock2d",)),
+        "l2_block2d": (block2d, ("l2block2d",))}
 TREE_SRC = {"attgate": "attgate.cu", "conv333_dw": "conv333_dw.cu",
-            "ds_conv": "conv333.cu", "ru_block2d": "rublock2d.cu"}
+            "ds_conv": "conv333.cu", "ru_block2d": "rublock2d.cu",
+            "l2_block2d": "l2block2d.cu"}
 
 
 def _load_py(name: str, py: Path):
@@ -205,13 +213,35 @@ def _rb_sites(cs, dev, tiles):
                cs.rb_bound(x, kw, ref[0]), extra)
 
 
+def _l2_sites(cs, dev, tiles):
+    """l2_block2d at L2_SITES: as _rb_sites, with the parent chain, the
+    cuDNN chain and the tree's kernel at the (th, stages) `tiles`."""
+    gen = torch.Generator().manual_seed(cs.SEED + 5)
+    for site, shape, c, cout in cs.L2_SITES:
+        xa, xb, kw = cs.l2_site_args(dev, gen, shape, c, cout)
+
+        def run(mod, tile=(None, None), xa=xa, xb=xb, kw=kw):
+            return mod.l2_block2d(xa, xb, th=tile[0], stages=tile[1], **kw)
+
+        chain, cudnn = cs.l2_chains(xa, xb, kw)
+        extra = {"parent chain": chain, "cudnn chain": lambda cudnn=cudnn: (
+            cudnn(),)}
+        for th, st in tiles:
+            extra[f"tree th{th}x{st}"] = (
+                lambda tile=(th, st), run=run: run(block2d, tile))
+        ref = block2d.l2_block2d_plain(xa, xb, **kw)
+        b = cs.l2_bound(xa, xb, kw, *ref)
+        yield (f"{site} {shape}x{c}x2->{cout}", run, ref, cs.KERNEL_TOL, b,
+               extra)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("sources", nargs="*", type=Path,
                     help="sources to time beside the tree's (at least one, "
-                         "but for ru_block2d)")
+                         "but for ru_block2d and l2_block2d)")
     ap.add_argument("--kernel", choices=("attgate", "conv333_dw", "ds_conv",
-                                         "ru_block2d"),
+                                         "ru_block2d", "l2_block2d"),
                     default="attgate")
     ap.add_argument("--ds-th", default="",
                     help="ds_conv: also time the tree's kernel at these "
@@ -219,10 +249,14 @@ def main(argv=None) -> int:
     ap.add_argument("--rb-tiles", default="",
                     help="ru_block2d: also time the tree's kernel at these "
                          "tiles (comma list of THxSTAGES, e.g. 16x2,8x1)")
+    ap.add_argument("--l2-tiles", default="",
+                    help="l2_block2d: also time the tree's kernel at these "
+                         "tiles (comma list of THxSTAGES, e.g. 16x1,8x2)")
     ap.add_argument("--time-only", action="store_true",
                     help="time the builds without holding them to the twin")
     args = ap.parse_args(argv)
-    if not args.sources and args.kernel != "ru_block2d":
+    if not args.sources and args.kernel not in ("ru_block2d",
+                                                "l2_block2d"):
         ap.error(f"--kernel {args.kernel} needs a source to time")
     if not torch.cuda.is_available():
         raise RuntimeError("attgate_ab: no CUDA device")
@@ -252,16 +286,18 @@ def main(argv=None) -> int:
     if kernel == "ds_conv":
         sites = _ds_sites(cs, dev, ths)
         timer = cs.graph_ms
-    elif kernel == "ru_block2d":
+    elif kernel in ("ru_block2d", "l2_block2d"):
+        spec = args.rb_tiles if kernel == "ru_block2d" else args.l2_tiles
         tiles = [tuple(int(v) for v in t.split("x"))
-                 for t in args.rb_tiles.split(",") if t]
-        sites = _rb_sites(cs, dev, tiles)
+                 for t in spec.split(",") if t]
+        sites = (_rb_sites if kernel == "ru_block2d" else _l2_sites)(
+            cs, dev, tiles)
         timer = cs.graph_ms
     else:
         sites = ((*row, {}) for row in (
             _attgate_sites if kernel == "attgate" else _dw_sites)(cs, dev))
         timer = cs.cuda_ms
-    reps = RB_REPS if kernel == "ru_block2d" else REPS
+    reps = RB_REPS if kernel in ("ru_block2d", "l2_block2d") else REPS
     times, bounds, host = {}, {}, {}
     names = list(libs)
     for site, run, ref, tol, b, extra in sites:
@@ -285,7 +321,7 @@ def main(argv=None) -> int:
                 use("tree")
             times.setdefault(site, {}).setdefault(name, []).append(
                 timer(fn, reps))
-            if kernel in ("ds_conv", "ru_block2d"):
+            if kernel in ("ds_conv", "ru_block2d", "l2_block2d"):
                 host.setdefault(site, {}).setdefault(name, []).append(
                     cs.host_ms(fn, reps))
         bounds[site] = b[0]

@@ -31,7 +31,8 @@ run plain PyTorch unless `routes` (core/config.py:Routes, the JAX package's
 opt-in env gates) sends them to kernels: rublock2d the encoder units
 (ResidualUnit), and at a (3,3,1) decoder level i with attention, tail2d{i}
 (ops/tail2d.py, a1 from the library conv) before l2block2d
-(ops/block2d.py:l2_block2d, the i == 0 logit head included). A block route
+(ops/block2d.py:l2_block2d: one csrc/l2block2d.cu launch for the i == 0
+logit head, the conv333 + attgate chain at wider levels). A block route
 replaces upatt_i + up_i, whose chain is then not computed; att_fuse takes
 the upatt_i sites no block route took (AttentionBlock1), and dsconv the
 (3,3,3) stride-(2,2,2) downsample_i (Convolution -> ops/dsconv.py; the

@@ -9,7 +9,8 @@ and their plain PyTorch twins:
   block2d.py  ru_block2d, l2_block2d
                              <- vs_seg_tpu/ops/experimental/pallas_block2d.py:
                                 ru_block2d (csrc/rublock2d.cu), l2_block2d
-                                (conv333 at kd = 1, + attgate)
+                                (csrc/l2block2d.cu; past C, Cout = 16
+                                conv333 at kd = 1 + attgate)
   tail2d.py   tail_block     <- vs_seg_tpu/ops/experimental/pallas_tail2d.py:
                                 tail_block (attgate + conv333 at kd = 1)
   att.py      fused_attention_gate

@@ -1,6 +1,7 @@
 """The kd = 1 ("2.5D") block forms of the flagship's levels 0-1: one encoder
 ResidualUnit (one csrc/rublock2d.cu launch) or one decoder attention block
-(conv333 at kd = 1 and attgate launches).
+(one csrc/l2block2d.cu launch where C, Cout <= 16, else conv333 at kd = 1
+and attgate launches).
 
 Replaces vs_seg_tpu/ops/experimental/pallas_block2d.py:
 
@@ -22,27 +23,33 @@ include the conv bias (nn/blocks.py:folded_conv_affine).
 
 The TPU kernels compute one H row tile of one plane end to end over banded
 Toeplitz matrices at channels padded to cp in {16, 32}, recomputing the H
-halo. ru_block2d does the same per 2-D tile in one launch (csrc/rublock2d.cu:
-u0 stays in shared memory, Cin = 1 packs conv0's 9 taps into one K slice,
-x is read in place); `plan` is its launch geometry, as the kernel computes
-it, and the kernel takes Cin, Cout <= 32. In l2_block2d a1, ga and gb
-round-trip through device memory in bf16 between its conv333 + attgate +
-conv333 launches. The TPU eligibility rules (`can_block2d`, `pick_cp` <= 64,
-W*cp % 128, H % 8, the VMEM budget of `pick_ht_2d`) are Mosaic tiling
-rules: the port routes on semantics alone, and its kernels take ragged
-tiles.
+halo. The port's kernels do the same per 2-D tile in one launch:
+ru_block2d (csrc/rublock2d.cu: u0 stays in shared memory, Cin = 1 packs
+conv0's 9 taps into one K slice, x is read in place; `plan` is its launch
+geometry, as the kernel computes it; Cin, Cout <= 32) and l2_block2d
+(csrc/l2block2d.cu: a1, the conv2 tap partials, att and the gated pair
+stay in shared memory, the pair gated in place over the staged xa, xb;
+`plan_l2`; C, Cout <= 16, which takes the up_0 logit head). A wider
+l2_block2d (up_1, 32 || 32 -> 32, under Routes(l2block2d=True) without
+tail2d1) runs the conv333 + attgate + conv333 chain, by that shape rule
+alone (`l2_fusable`), with a1, ga and gb in device memory; its launches
+count under conv333 and attgate, and `l2_block2d.chain_calls` counts it.
+The TPU eligibility rules (`can_block2d`, `pick_cp` <= 64, W*cp % 128,
+H % 8, the VMEM budget of `pick_ht_2d`) are Mosaic tiling rules: the port
+routes on semantics alone, and its kernels take ragged tiles.
 
 Rounding, as the TPU kernels round: u0 and a1 to the working dtype before
-the next conv; att in float32; the gated halves rounded before conv0.
+the next conv; att in float32 into the gate (returned in the working
+dtype); the gated halves rounded before conv0.
 
 What bounds them on the H100: ru_block2d's bound is its output write (down_0)
-or about even between bytes and the tensor rate (down_1); see
-csrc/rublock2d.cu. l2_block2d's launches each move more bytes than their
-MACs can hide: memory (the sizing is in PERF.md).
+or about even between bytes and the tensor rate (down_1); l2_block2d's is
+the read of xa and xb (bytes); see the kernels' sources. Both are held back
+by their instruction streams (PERF.md).
 
 `ru_block2d` and `l2_block2d` run the kernels for CUDA tensors and their
-`_plain` twins for CPU tensors, and count their CUDA calls in `.launches`.
-Returns: ru_block2d the output; l2_block2d (out, att), att the
+`_plain` twins for CPU tensors, and count their fused CUDA launches in
+`.launches`. Returns: ru_block2d the output; l2_block2d (out, att), att the
 (N, D, H, W, 1) map, so the model's att_maps stay complete.
 """
 
@@ -50,6 +57,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import logging
 from typing import NamedTuple, Optional
 
 import torch
@@ -280,20 +288,232 @@ def l2_block2d_plain(xa: torch.Tensor, xb: torch.Tensor, **params):
     return l2_chain(conv333_plain, attgate_plain, xa, xb, **params)
 
 
-def l2_block2d(xa: torch.Tensor, xb: torch.Tensor, **params):
+# csrc/l2block2d.cu's geometry (TW and PITCH as rublock2d's)
+L2_MAX_C = 16             # the C and Cout it takes
+# (tile height, x ring slots), in the order the plan prefers them; none
+# leaves room for two blocks per SM (on the H100 16 x 1 was the fastest at
+# the up_0 head: attgate_ab --kernel l2_block2d --l2-tiles)
+L2_TILES = ((16, 1), (8, 2), (8, 1))
+L2_EPI = 4                # f32 rows of N after b1's 16: s, h, slope, br
+
+
+def l2_fusable(c: int, cout: int) -> bool:
+    """Whether csrc/l2block2d.cu takes a block of pair halves with c
+    channels each and cout outputs (else l2_block2d runs the chain)."""
+    return 1 <= c <= L2_MAX_C and 1 <= cout <= L2_MAX_C
+
+
+class L2Plan(NamedTuple):
+    """One launch of csrc/l2block2d.cu: N width n of conv0 (Cout rounded up
+    to 8 or 16), whether conv0 runs as kw-shift partials (part: Cout <= 2,
+    the logit head), tile height th and x ring slots; m64 tiles of a1 and
+    R (ma), of the output (mo) and of the partials Z (mg), staged x rows
+    xr, the tile counts; whether xa and xb can be staged by 16-byte
+    cp.async copies (given 16-byte aligned bases; else plain loads); the
+    shared-memory layout (byte offsets, as the kernel's `layout`) and its
+    size."""
+    n: int
+    part: bool
+    th: int
+    stages: int
+    ma: int
+    mo: int
+    mg: int
+    xr: int
+    tiles_w: int
+    tiles_h: int
+    tiles: int
+    vec: bool
+    layout: dict
+    smem: int
+
+
+def l2_layout(n: int, th: int, stages: int, part: bool = False) -> dict:
+    """csrc/l2block2d.cu's `layout`: the m64 tiles of the output (mo), of
+    a1 (ma: every a1 position an att of the gate reads, rows h0 - 2 to
+    h0 + th + 1, columns w0 - 2 to w0 + 65) and of the partials (mg: the
+    gated positions o + kh * P of every output o) and the staged x rows
+    (xr) of a tile of height th, then byte offsets and sizes of the x
+    slots (four 8-channel planes: xa, xa, xb, xb), a1's two planes (8 spare
+    positions for conv2's kw shift; the partials Z reuse them), R's three
+    f32 arrays, the weight slabs w1, w2, w0, wr (part: w0 as 2 x 3 kw
+    slabs of 8 columns holding wr too) and the epilogue vectors."""
+    mo = th * PITCH // 64
+    ma = -(-((th + 3) * PITCH + 68) // 64)
+    xr = -(-(ma * 64 + 2 * PITCH + 1) // PITCH)
+    lay = dict(mo=mo, ma=ma, mg=-(-((th + 1) * PITCH + 64) // 64), xr=xr,
+               xplane=xr * PITCH * 16, apitch=(ma * 64 + 8) * 16,
+               rpitch=ma * 64 * 4, w1_bytes=2 * 9 * KC * 16 * 2,
+               w2_bytes=3 * KC * 16 * 2,
+               w0_bytes=2 * 3 * KC * 8 * 2 if part else 2 * 9 * KC * n * 2,
+               wr_bytes=0 if part else 2 * KC * n * 2)
+    lay["xslot"] = 4 * lay["xplane"]
+    lay["off_a"] = stages * lay["xslot"]
+    lay["off_r"] = lay["off_a"] + 2 * lay["apitch"]
+    lay["off_w1"] = lay["off_r"] + 3 * lay["rpitch"]
+    lay["off_w2"] = lay["off_w1"] + lay["w1_bytes"]
+    lay["off_w0"] = lay["off_w2"] + lay["w2_bytes"]
+    lay["off_wr"] = lay["off_w0"] + lay["w0_bytes"]
+    lay["off_epi"] = lay["off_wr"] + lay["wr_bytes"]
+    lay["smem"] = lay["off_epi"] + (16 + L2_EPI * n + 4) * 4
+    return lay
+
+
+@functools.lru_cache(maxsize=256)
+def plan_l2(shape, c: int, cout: int, th: Optional[int] = None,
+            stages: Optional[int] = None) -> L2Plan:
+    """The launch's geometry for pair halves (N, D, H, W) of c channels and
+    cout output channels. th/stages None: the first of L2_TILES that fits;
+    raises for widths the kernel does not take."""
+    if not l2_fusable(c, cout):
+        raise ValueError(f"l2_block2d: the kernel takes 1 <= C, Cout <= "
+                         f"{L2_MAX_C}, got {c} || {c} -> {cout}")
+    n_, d, h, w = shape
+    if h * w * cout >= 2 ** 31:
+        raise ValueError(f"l2_block2d: a plane of {h} x {w} x {cout} "
+                         f"outputs is past the kernel's 2^31")
+    n, part = (8 if cout <= 8 else 16), cout <= 2
+    if th is not None and stages is not None:
+        cands = [(th, stages)]
+    else:
+        cands = [(t, s) for t, s in L2_TILES
+                 if th in (None, t) and stages in (None, s)]
+    if not cands or any(t % 8 or not 8 <= t <= 64 or s not in (1, 2)
+                        for t, s in cands):
+        raise ValueError(f"l2_block2d: no tile of height {th} with {stages} "
+                         f"slots")
+    lays = [(t, s, l2_layout(n, t, s, part)) for t, s in cands]
+    fit = [c_ for c_ in lays if c_[2]["smem"] <= SMEM_MAX]
+    if not fit:
+        raise ValueError(f"l2_block2d: no tile fits {SMEM_MAX} bytes of "
+                         f"shared memory")
+    th, stages, lay = fit[0]
+    tiles_w, tiles_h = -(-w // TW), -(-h // th)
+    return L2Plan(n=n, part=part, th=th, stages=stages, ma=lay["ma"],
+                  mo=lay["mo"], mg=lay["mg"], xr=lay["xr"], tiles_w=tiles_w,
+                  tiles_h=tiles_h, tiles=n_ * d * tiles_h * tiles_w,
+                  vec=c % 8 == 0, layout=lay, smem=lay["smem"])
+
+
+def pack_w2_hilo(w2: torch.Tensor, cins, n: int) -> torch.Tensor:
+    """w2 (3, 3, 1, C, 1) as three 16 x 16 slabs, one per kw, in
+    pack_weights_gmma's layout: column kh of slab kw holds rn(w2[kh, kw])
+    (bf16 hi) and column 8 + kh holds rn(w2[kh, kw] - hi) (bf16 lo), so
+    that hi + lo carries about 16 bits of the f32 weight."""
+    c = w2.shape[3]
+    w = w2[:, :, 0, :, 0].float()                     # (kh, kw, C)
+    hi = w.to(torch.bfloat16).float()
+    lo = (w - hi).to(torch.bfloat16).float()
+    k = w.new_zeros((1, 3, 1, c, 16))
+    k[0, :, 0, :, 0:3] = hi.permute(1, 2, 0)          # (kw, C, kh)
+    k[0, :, 0, :, 8:11] = lo.permute(1, 2, 0)
+    return pack_weights_gmma(k, [c], 16)
+
+
+def pack_w0_partials(w0: torch.Tensor, wr: torch.Tensor, c: int
+                     ) -> torch.Tensor:
+    """Cout <= 2: w0 (3, 3, 1, 2C, Cout) and wr (1, 1, 1, 2C, Cout) as six
+    16 x 8 slabs (chunk j = pair half j, then kw), in pack_weights_gmma's
+    layout: column kh * 2 + co of slab (j, kw) holds w0[kh, kw, half j,
+    co], columns 6 + co of the kw = 1 slabs hold wr[half j, co]."""
+    cout = w0.shape[4]
+    k = w0.new_zeros((1, 3, 1, 2 * c, 8)).float()
+    for kh in range(3):
+        k[0, :, 0, :, kh * 2:kh * 2 + cout] = w0[kh, :, 0].float()
+    k[0, 1, 0, :, 6:6 + cout] = wr[0, 0, 0].float()
+    return pack_weights_gmma(k, [c, c], 8)
+
+
+def packed_block(w1, w2, w0, wr, c: int, n: int, part: bool, dev):
+    """(w1, w2, w0, wr) packed as csrc/l2block2d.cu reads them, cached on
+    each weight tensor (ops/conv333.py:packed_weights); part: w0 and wr
+    together as pack_w0_partials (cached on w0, keyed by wr's version too),
+    returned in wr's place as well (the kernel reads no wr slab then)."""
+    pair = (c, c)
+    w1p = packed_weights(w1, "l2_block2d", pair, 16, dev)
+    w2p = packed_weights(w2, "l2_block2d", (c,), 16, dev, pack_w2_hilo)
+    if part:
+        w0p = packed_weights(
+            w0, "l2_block2d partials", (c, wr._version, id(wr)), 8, dev,
+            lambda w, cins, n_: pack_w0_partials(w, wr.to(w.device), c))
+        return w1p, w2p, w0p, w0p
+    return (w1p, w2p, packed_weights(w0, "l2_block2d", pair, n, dev),
+            packed_weights(wr, "l2_block2d", pair, n, dev))
+
+
+_L2_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int]
+                + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9
+                + [ctypes.c_void_p])
+_log = logging.getLogger(__name__)
+
+
+def _l2_lib():
+    lib = _build.load("l2block2d")
+    fn = lib.l2block2d_launch
+    if fn.argtypes is None:
+        fn.argtypes = _L2_ARGTYPES
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def l2_block2d(xa: torch.Tensor, xb: torch.Tensor, *,
+               th: Optional[int] = None, stages: Optional[int] = None,
+               **params):
     """Fused eval (3,3,1) decoder block. xa, xb: (N, D, H, W, C) pair halves;
     params as ops/l2block.py:l2_chain, with w1 (3,3,1,2C,C), w2
     (3,3,1,C,1), w0 (3,3,1,2C,Cout), wr (1,1,1,2C,Cout); for the i == 0
     logit head bn_scale=None, bn_shift=bias, alpha=None. Returns (out (N, D,
-    H, W, Cout), att (N, D, H, W, 1))."""
+    H, W, Cout), att (N, D, H, W, 1)). CUDA tensors (bf16, contiguous) take
+    one launch of csrc/l2block2d.cu where C, Cout <= 16 (th/stages force
+    its tile height and x ring slots; None: the plan's), else the conv333 +
+    attgate + conv333 chain."""
     if xa.device.type == "cpu":
         return l2_block2d_plain(xa, xb, **params)
     if xa.device.type != "cuda":
         raise ValueError(f"l2_block2d: unsupported device {xa.device}")
-    check_kd1("l2_block2d", params["w1"], params["w2"], params["w0"])
-    out = l2_chain(conv333, attgate, xa, xb, **params)
+    w1, w2, w0, wr = (params[k] for k in ("w1", "w2", "w0", "wr"))
+    check_kd1("l2_block2d", w1, w2, w0)
+    _check_act((xa, xb), "l2_block2d", xa.shape[:4])
+    n_, d, h, w, c = xa.shape
+    cout = int(w0.shape[4])
+    if xb.shape[4] != c or (
+            tuple(w1.shape) != (3, 3, 1, 2 * c, c)
+            or tuple(w2.shape) != (3, 3, 1, c, 1)
+            or tuple(w0.shape) != (3, 3, 1, 2 * c, cout)
+            or tuple(wr.shape) != (1, 1, 1, 2 * c, cout)):
+        raise ValueError(f"l2_block2d: weights {tuple(w1.shape)}, "
+                         f"{tuple(w2.shape)}, {tuple(w0.shape)}, "
+                         f"{tuple(wr.shape)} do not match pair halves of "
+                         f"{c} and {int(xb.shape[4])} channels")
+    if not l2_fusable(c, cout):
+        _log.debug("l2_block2d %s x %d -> %d: conv333 + attgate chain",
+                   tuple(xa.shape[:4]), c, cout)
+        l2_block2d.chain_calls += 1
+        return l2_chain(conv333, attgate, xa, xb, **params)
+    if xa.numel() == 0:
+        raise ValueError(f"l2_block2d: empty input {tuple(xa.shape)}")
+    p = plan_l2((n_, d, h, w), c, cout, th, stages)
+    dev = xa.device
+    w1p, w2p, w0p, wrp = packed_block(w1, w2, w0, wr, c, p.n, p.part, dev)
+    b1, b2 = _epi(params["b1"], c, dev), _epi(params["b2"], 1, dev, one=True)
+    s, sh = (_epi(params["bn_scale"], cout, dev),
+             _epi(params["bn_shift"], cout, dev))
+    al = _epi(params["alpha"], cout, dev, one=True)
+    br = _epi(params["br"], cout, dev)
+    out = torch.empty((n_, d, h, w, cout), dtype=torch.bfloat16, device=dev)
+    att = torch.empty((n_, d, h, w, 1), dtype=torch.bfloat16, device=dev)
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    lib = _l2_lib()
+    err = lib.l2block2d_launch(
+        _ptr(xa), _ptr(xb), _ptr(w1p), _ptr(w2p), _ptr(w0p), _ptr(wrp),
+        _ptr(b1), _ptr(b2), _ptr(s), _ptr(sh), _ptr(al),
+        al.numel() if al is not None else 1, _ptr(br), _ptr(out), _ptr(att),
+        n_, d, h, w, c, cout, p.th, p.stages, idx,
+        torch._C._cuda_getCurrentRawStream(idx))
+    _build.check(lib, err, "l2_block2d")
     l2_block2d.launches += 1
-    return out
+    return out, att
 
 
 l2_block2d.launches = 0
+l2_block2d.chain_calls = 0

@@ -48,12 +48,18 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
      runs, timed by CUDA-graph replay beside that chain, the cuDNN chain of
      its two convs, its bound and the host's enqueue) and at up_1
      (32||32->32, past the kernel's widths: the chain, and which path it
-     took), tail_block at up_1 and up_0, fused_attention_gate (kd 1) at
-     upatt_0 and upatt_1 and (kd 3) at the upatt_2 shape.
+     took), tail_block at up_1 (32||32->32) and the up_0 head (16||16->2)
+     (TAIL_SITES: one csrc/tail2d.cu launch given a1, out and att against
+     its twin and the attgate + conv333 chain it replaced, bit-equal over
+     two runs, timed by CUDA-graph replay beside that chain, cuDNN's conv0
+     + 1x1 residual, its bound and the host's enqueue),
+     fused_attention_gate (kd 1) at upatt_0 and upatt_1 and (kd 3) at the
+     upatt_2 shape.
   8. The phase-3 volume under three route configurations (Routes), each
      through the kernels (launch counters reset just before, read just
      after, checked per site) and through the plain path: A = ru_block2d
-     at down_0/1, l2_block2d at the up_0 head, tail_block at up_1; B =
+     at down_0/1, l2_block2d at the up_0 head, tail_block at up_1 (one
+     fused launch each); B =
      fused_attention_gate; C = ds_conv
      at downsample_2/3/4. Logits are held against the configuration's plain
      path and phase 3's default kernel path; ms/volume of each path; and a
@@ -87,9 +93,9 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
      normals within PROBE_TOL (bit-equal for 3droll and repeat); each
      scheme's time beside the case's bound, at the tool's shapes and with
      the leading size scaled by PROBE_SCALE.
- 13. attgate at each of its sites (ATT_SITES: up_2/3/4 at kd = 3, A's up_1
-     tail, the up_0 head of l2_block2d's parent chain and B's upatt_0/1
-     at kd = 1) against its plain
+ 13. attgate at each of its sites (ATT_SITES: up_2/3/4 at kd = 3, the
+     up_1 tail and the up_0 head of the chains that tail_block and
+     l2_block2d replaced, and B's upatt_0/1 at kd = 1) against its plain
      twin, with kernel, plain and bound ms, and its ms per volume under
      the default routes, A and B.
  14. conv333_dw at each of the TRAIN_SITES sites of one train step (taken
@@ -982,6 +988,111 @@ def l2_site(dev, gen, site, shape, c, cout, card: str):
     return row
 
 
+# tail_block's sites for one 8-window batch (D-first): (site, (N, D, H, W),
+# C of a1 and of each pair half, Cout); up_1 is configuration A's (a folded
+# BatchNorm and a PReLU), the up_0 logit head (bn_scale None, bn_shift the
+# bias, identity activation) is taken under Routes(tail2d0=True)
+TAIL_SITES = (("up_1", (SW_BATCH, ROI[2], ROI[0] // 2, ROI[1] // 2), 32, 32),
+              ("up_0 head", (SW_BATCH, ROI[2], ROI[0], ROI[1]), 16, 2))
+
+
+def tail_site_args(dev, gen, shape, c, cout):
+    """Seeded tail_block arguments at one site: a1 (a ReLU output), xa, xb
+    and the tail's params, l2_site_args' but for conv1's."""
+    import torch
+
+    xa, xb, kw = l2_site_args(dev, gen, shape, c, cout)
+    del kw["w1"], kw["b1"]
+    a1 = torch.randn((*shape, c), generator=gen).to(dev, torch.bfloat16)
+    return a1.relu(), xa, xb, kw
+
+
+def tail_chains(a1, xa, xb, kw):
+    """What tail_block replaced and its library yardstick, as callables:
+    the attgate + conv333 chain (ops/l2block.py:gate_conv0, ga and gb in
+    device memory) and cuDNN's conv0 plus the 1x1 residual (channels-last
+    F.conv3d on xa || xb concatenated once outside the timing, no conv2,
+    gate or epilogue; no single PyTorch call computes the tail)."""
+    import torch
+    import torch.nn.functional as F
+
+    from vs_seg_tpu_torch.ops import conv333, l2block
+
+    wt0, wtr = (kw[k].to(torch.bfloat16).permute(4, 3, 2, 0, 1).contiguous()
+                for k in ("w0", "wr"))
+    xc = torch.cat((xa, xb), -1).permute(0, 4, 1, 2, 3)
+
+    def cudnn():
+        return F.conv3d(xc, wt0, padding=(0, 1, 1)) + F.conv3d(xc, wtr)
+
+    return (lambda: l2block.gate_conv0(conv333.conv333, l2block.attgate, a1,
+                                       xa, xb, **kw)), cudnn
+
+
+def tail_bound(a1, xa, xb, kw, out, att):
+    """tail_block's bound: a1, xa, xb, the params, out and att moved once;
+    its MACs (conv0 and the residual in bf16, conv2 and the gate f32)."""
+    import torch
+    ca, ch, cout = a1.shape[-1], xa.shape[-1], out.shape[-1]
+    vox = xa[..., 0].numel()
+    return bound(nbytes(a1, xa, xb, out, att,
+                        *[v for v in kw.values()
+                          if isinstance(v, torch.Tensor)]),
+                 2 * vox * (9 * 2 * ch * cout + 2 * ch * cout),
+                 (2 * 9 * ca + 4 * ch) * vox)
+
+
+def tail_site(dev, gen, site, shape, c, cout, card: str):
+    """tail_block at one site: one csrc/tail2d.cu launch, out and att
+    within KERNEL_TOL of its twin and of the attgate + conv333 chain it
+    replaced, bit-equal over two runs; its device time by CUDA-graph
+    replay beside the chain and cuDNN's conv0 + residual (both by graph
+    replay), the twin's event time, the bound and the host's enqueue per
+    call. Prints a JSON line; returns its row."""
+    import torch
+
+    from vs_seg_tpu_torch.ops import tail2d
+
+    a1, xa, xb, kw = tail_site_args(dev, gen, shape, c, cout)
+    name = f"tail_block {site} {shape}x{c}x2->{cout}"
+
+    def run():
+        return tail2d.tail_block(a1, xa, xb, **kw)
+
+    n0 = tail2d.tail_block.launches
+    got = run()
+    if tail2d.tail_block.launches != n0 + 1:
+        raise AssertionError(f"{name}: the fused kernel was not launched")
+    if not all(torch.equal(g, a) for g, a in zip(got, run())):
+        raise AssertionError(f"{name}: two runs differ")
+    err = max(compare(f"{name} {part}", g, r, KERNEL_TOL) for part, g, r in
+              zip(("out", "att"), got, tail2d.tail_block_plain(a1, xa, xb,
+                                                               **kw)))
+    chain, cudnn = tail_chains(a1, xa, xb, kw)
+    for part, g, r in zip(("out", "att"), chain(), got):
+        compare(f"{name} {part}, the parent chain", g, r, KERNEL_TOL)
+    b = tail_bound(a1, xa, xb, kw, *got)
+    del got
+    p = tail2d.plan_tail(tuple(shape), c, c, cout)
+    row = dict(site=site, shape=[*shape], c=c, cout=cout, th=p.th,
+               ms=graph_ms(run), chain_ms=graph_ms(chain),
+               cudnn_ms=graph_ms(cudnn),
+               plain_ms=cuda_ms(lambda: tail2d.tail_block_plain(a1, xa, xb,
+                                                                **kw)),
+               host_enqueue_ms=host_ms(run), bound_ms=b[0], bound_by=b[1],
+               max_abs_err=err, card=card)
+    row["tflops"] = b[3] / row["ms"] / 1e9
+    log(f"  {name}: kernel {row['ms']!r} ms device (graph replay, TH "
+        f"{p.th}), host enqueue {row['host_enqueue_ms']!r} ms/call; parent "
+        f"chain {row['chain_ms']!r} ms, cuDNN conv0 + residual "
+        f"{row['cudnn_ms']!r} ms, plain {row['plain_ms']!r} ms, bound "
+        f"{b[0]!r} ms ({b[1]}: {b[2] / 1e9:.3f} GB, {b[3] / 1e9:.1f} "
+        f"GFLOP) = {row['tflops']!r} TFLOP/s on {card}")
+    print(json.dumps({"tail_block_site": row}), flush=True)
+    row["bound"] = b
+    return row
+
+
 def kd1_kernel_checks(dev, gen, card: str):
     """Phase 7: the kd = 1 route kernels vs their plain twins at the
     flagship shapes of one 8-window batch."""
@@ -1080,36 +1191,39 @@ def kd1_kernel_checks(dev, gen, card: str):
             shape=f"l2_block2d {site} {shape}x{c}x2->{cout}", ms=row["ms"],
             plain_ms=row["plain_ms"], library_ms=None, bound=row["bound"])
         torch.cuda.synchronize()
-    # tail_block at the same sites, given a1
-    for site, shape, c, cout in (("up_1", L1, 32, 32), ("up_0", L0, 16, 2)):
-        head = site == "up_0"
-        vox = v1 if site == "up_1" else v0
-        xa, xb = randn(*shape, c), randn(*shape, c)
-        kw = dict(unit0(2 * c, cout, head), w1=weight((3, 3, 1), 2 * c, c),
-                  b1=vec(c, -.2, .2), w2=weight((3, 3, 1), c, 1),
-                  b2=vec(1, -.2, .2))
-        conv_mac = 9 * 2 * c * cout + 2 * c * cout
-        if not head:
-            n0 = block2d.l2_block2d.launches
-            k0 = block2d.l2_block2d.chain_calls
-            keep("l2_block2d", check(
-                f"l2_block2d {site} {shape}x{c}x2->{cout}",
-                block2d.l2_block2d, block2d.l2_block2d_plain, (xa, xb), kw,
-                None, False))
-            path = ("the conv333 + attgate chain"
-                    if block2d.l2_block2d.chain_calls == k0 + 1
-                    and block2d.l2_block2d.launches == n0
-                    else "the fused kernel")
-            log(f"  l2_block2d {site} ({c}||{c} -> {cout}) took {path}")
-            if block2d.l2_fusable(c, cout) != (path == "the fused kernel"):
-                raise AssertionError(f"l2_block2d {site}: took {path}")
-        a1 = randn(*shape, c).relu()
-        tkw = {k: v for k, v in kw.items() if k not in ("w1", "b1")}
-        keep("tail_block", check(
-            f"tail_block {site} {shape}x{c}x2->{cout}", tail2d.tail_block,
-            tail2d.tail_block_plain, (a1, xa, xb), tkw,
-            (2 * vox * conv_mac, (2 * 9 + 4) * c * vox), not head))
-        del xa, xb, a1
+    # l2_block2d at up_1 (32||32 -> 32, past the kernel's widths): the
+    # conv333 + attgate chain, against its twin, and which path it took
+    site, shape, c, cout = "up_1", L1, 32, 32
+    xa, xb = randn(*shape, c), randn(*shape, c)
+    kw = dict(unit0(2 * c, cout, False), w1=weight((3, 3, 1), 2 * c, c),
+              b1=vec(c, -.2, .2), w2=weight((3, 3, 1), c, 1),
+              b2=vec(1, -.2, .2))
+    n0 = block2d.l2_block2d.launches
+    k0 = block2d.l2_block2d.chain_calls
+    keep("l2_block2d", check(
+        f"l2_block2d {site} {shape}x{c}x2->{cout}", block2d.l2_block2d,
+        block2d.l2_block2d_plain, (xa, xb), kw, None, False))
+    path = ("the conv333 + attgate chain"
+            if block2d.l2_block2d.chain_calls == k0 + 1
+            and block2d.l2_block2d.launches == n0 else "the fused kernel")
+    log(f"  l2_block2d {site} ({c}||{c} -> {cout}) took {path}")
+    if block2d.l2_fusable(c, cout) != (path == "the fused kernel"):
+        raise AssertionError(f"l2_block2d {site}: took {path}")
+    del xa, xb
+
+    # tail_block: one csrc/tail2d.cu launch at up_1 (A's site, 32||32 ->
+    # 32) and at the up_0 head (16||16 -> 2), given a1, against its twin
+    # and the attgate + conv333 chain it replaced
+    for site, shape, c, cout in TAIL_SITES:
+        row = tail_site(dev, gen, site, shape, c, cout, card)
+        errs["tail_block"] = max(errs.get("tail_block", 0.0),
+                                 row["max_abs_err"])
+        if "tail_block" not in rec:
+            rec["tail_block"] = dict(
+                shape=f"tail_block {site} {shape}x{c}x2->{cout}",
+                ms=row["ms"], plain_ms=row["plain_ms"], library_ms=None,
+                bound=row["bound"])
+        torch.cuda.synchronize()
 
     # fused_attention_gate, kd 1 at upatt_0 (Cm 16) and upatt_1 (Cm 32),
     # kd 3 at the upatt_2 shape (Cm 48)
@@ -1183,12 +1297,12 @@ def routes_run(dev, gen, card: str, model, staged, default_logits):
             "mosaic_probe": 0}
     configs = {
         # ru_block2d x 2 (one csrc/rublock2d.cu launch each), tail_block
-        # at up_1 (1 attgate + 1 conv333), l2_block2d at the up_0 head (one
-        # csrc/l2block2d.cu launch)
+        # at up_1 (one csrc/tail2d.cu launch), l2_block2d at the up_0 head
+        # (one csrc/l2block2d.cu launch)
         "A": (Routes(rublock2d=True, l2block2d=True, tail2d1=True),
               dict(base, ru_block2d=2, l2_block2d=1, tail_block=1,
-                   fused_attention_gate=0, attgate=3 + 1,
-                   conv333=EVAL_CONV333 + 1)),
+                   fused_attention_gate=0, attgate=3,
+                   conv333=EVAL_CONV333)),
         # upatt_0 and upatt_1
         "B": (Routes(att_fuse=True),
               dict(base, ru_block2d=0, l2_block2d=0, tail_block=0,
@@ -1443,14 +1557,14 @@ CONV_SITES = (
     ("up_3 conv0", _L[3], (64, 64), 64, 3, "x", "bn"),
     ("up_4 conv1", _L[4], (80, 80), 80, 3, None, "relu"),
     ("up_4 conv0", _L[4], (80, 80), 80, 3, "x", "bn"),
-    # the kd = 1 conv sites of configuration A (tail_block at up_1), and the
-    # launches that a fused kernel replaced: at down_0/1 the two of
-    # ru_block2d's chain, at up_0 the two convs of l2_block2d's chain
+    # the kd = 1 conv sites that configuration A's fused kernels replaced:
+    # at down_0/1 the two of ru_block2d's chain, at up_1 the conv0 of
+    # tail_block's chain, at up_0 the two convs of l2_block2d's chain
     ("A down_0 unit0", _L[0], (1,), 16, 1, None, "bn"),
     ("A down_0 unit1", _L[0], (16,), 16, 1, (1,), "bn"),
     ("A down_1 unit0", _L[1], (16,), 32, 1, None, "bn"),
     ("A down_1 unit1", _L[1], (32,), 32, 1, (16,), "bn"),
-    ("A up_1 tail conv0", _L[1], (32, 32), 32, 1, "x", "bn"),
+    ("chain up_1 tail conv0", _L[1], (32, 32), 32, 1, "x", "bn"),
     ("chain up_0 conv1", _L[0], (16, 16), 16, 1, None, "relu"),
     ("chain up_0 head conv0", _L[0], (16, 16), 2, 1, "x", "head"),
     # the train dgrad (batch 1): dx = conv(dy, flipped w^T), no epilogue
@@ -1651,14 +1765,16 @@ def mosaic_probe_checks(dev, card: str):
 
 
 # attgate's sites on one 8-window batch (D-first): (site, wrapper, (N, D,
-# H, W), Ca, Cx, kd). "attgate" is ops/l2block.py:attgate (the middle stage
-# of l2_block, l2_block2d and tail_block, two gated inputs and the map);
+# H, W), Ca, Cx, kd); "chain" sites are those of a chain that a fused
+# kernel replaced. "attgate" is ops/l2block.py:attgate (the middle stage
+# of l2_block and of l2_block2d's and tail_block's chains, two gated
+# inputs and the map);
 # "fused" is ops/att.py:fused_attention_gate (two gated inputs, compact map)
 ATT_SITES = (
     ("up_2", "attgate", _L[2], 48, 48, 3),
     ("up_3", "attgate", _L[3], 64, 64, 3),
     ("up_4", "attgate", _L[4], 80, 80, 3),
-    ("A up_1 tail", "attgate", _L[1], 32, 32, 1),
+    ("chain up_1 tail", "attgate", _L[1], 32, 32, 1),
     ("chain up_0 head", "attgate", _L[0], 16, 16, 1),
     ("B upatt_0", "fused", _L[0], 16, 16, 1),
     ("B upatt_1", "fused", _L[1], 32, 32, 1),
@@ -1971,7 +2087,7 @@ def main() -> int:
         log(f"{msg} [{time.perf_counter() - t0:.1f} s]")
 
     names = ("conv333", "conv333_dw", "attgate", "blend", "rublock2d",
-             "l2block2d", "ring_probe", "mosaic_probe")
+             "l2block2d", "tail2d", "ring_probe", "mosaic_probe")
     with ThreadPoolExecutor(len(names)) as pool:   # one nvcc per source
         list(pool.map(_build.build, names))
     for name in names:
@@ -2032,7 +2148,7 @@ def main() -> int:
         "conv333_dw": ("csrc/conv333_dw.cu", exp + "pallas_train.py:113"),
         "ru_block2d": ("csrc/rublock2d.cu", exp + "pallas_block2d.py:180"),
         "l2_block2d": ("csrc/l2block2d.cu", exp + "pallas_block2d.py:226"),
-        "tail_block": ("tail2d.py", exp + "pallas_tail2d.py:239"),
+        "tail_block": ("csrc/tail2d.cu", exp + "pallas_tail2d.py:239"),
         "fused_attention_gate": ("att.py", exp + "pallas_att.py:146"),
         "ds_conv": ("csrc/conv333.cu", exp + "pallas_dsconv.py:145"),
         "ring_probe": ("csrc/ring_probe.cu", "tools/ring_probe.py:45"),

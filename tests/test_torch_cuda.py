@@ -318,11 +318,15 @@ def test_block2d_and_tail_kernels_match_plain(dev, c, cout, head):
                         block2d.l2_block2d_plain(xa, xb, **l2)):
         _check(got, ref)
     a1 = _x(g, dev, 1, 3, 10, 13, c).abs()
-    n0 = tail2d.tail_block.launches
+    n0, k0 = tail2d.tail_block.launches, tail2d.tail_block.chain_calls
     for got, ref in zip(tail2d.tail_block(a1, xa, xb, **kw),
                         tail2d.tail_block_plain(a1, xa, xb, **kw)):
         _check(got, ref)
-    assert tail2d.tail_block.launches == n0 + 1
+    # C = 8 takes the fused kernel, C = 12 (not a multiple of 8) the chain
+    fused = tail2d.tail_fusable(c, c, cout)
+    assert fused == (c == 8)
+    assert (tail2d.tail_block.launches, tail2d.tail_block.chain_calls) == (
+        n0 + fused, k0 + (not fused))
 
 
 def _ru2d(g, dev, cin, cout):
@@ -429,6 +433,54 @@ def test_l2_block2d_takes_the_chain_past_its_widths(dev):
         c0 + 2, a0 + 1)
     for o, r in zip(got, block2d.l2_block2d_plain(xa, xb, **kw)):
         _check(o, r)
+
+
+@pytest.mark.parametrize("shape,ca,ch,cout,head,th", [
+    ((1, 2, 19, 70), 32, 32, 32, False, None),  # up_1's widths, ragged
+    ((2, 1, 9, 13), 32, 32, 32, False, None),   # ... one-tile planes
+    ((1, 600, 8, 64), 32, 32, 32, False, None), # more tiles than blocks
+    ((1, 2, 20, 72), 16, 16, 2, True, None),    # the head, ragged H
+    ((1, 300, 16, 64), 16, 16, 2, True, None),  # ... the walk wraps
+    ((1, 3, 33, 64), 16, 16, 2, True, 8),       # ... 8-row tiles
+    ((1, 2, 21, 30), 8, 24, 9, False, None),    # Ca 8, Ch 24, Cout 9
+    ((2, 2, 10, 66), 24, 8, 17, False, 8),      # Ca 24, Ch 8, Cout 17
+    ((1, 1, 17, 64), 32, 16, 16, True, None),   # a linear unit at N 16
+])
+def test_tail_block_kernel_matches_plain(dev, shape, ca, ch, cout, head, th):
+    """One csrc/tail2d.cu launch per tail (no conv333 or attgate launch),
+    out and att within TOL of the twin, bit-equal when repeated."""
+    g = _g()
+    a1 = _x(g, dev, *shape, ca).relu()
+    xa, xb = _x(g, dev, *shape, ch), _x(g, dev, *shape, ch)
+    kw = dict(_l2d(g, dev, ch, cout, head),
+              w2=_w(g, dev, (3, 3, 1), ca, 1), b2=_v(g, dev, 1, -.2, .2))
+    if not head and cout == 9:
+        kw["alpha"] = _v(g, dev, cout, .1, .3)
+    n0, c0 = tail2d.tail_block.launches, conv333.conv333.launches
+    a0 = l2block.attgate.launches
+    got = tail2d.tail_block(a1, xa, xb, th=th, **kw)
+    again = tail2d.tail_block(a1, xa, xb, th=th, **kw)
+    assert tail2d.tail_block.launches == n0 + 2
+    assert (conv333.conv333.launches, l2block.attgate.launches) == (c0, a0)
+    ref = tail2d.tail_block_plain(a1, xa, xb, **kw)
+    for o, a, r in zip(got, again, ref):
+        assert torch.equal(o, a)
+        _check(o, r)
+
+
+def test_tail_block_kernel_refuses_what_it_cannot_take(dev):
+    g = _g()
+    a1, xa, xb = (_x(g, dev, 1, 2, 8, 8, 16) for _ in range(3))
+    kw = dict(_l2d(g, dev, 16, 2, True), w2=_w(g, dev, (3, 3, 1), 16, 1),
+              b2=_v(g, dev, 1, -.2, .2))
+    with pytest.raises(TypeError):                      # not bf16
+        tail2d.tail_block(a1.float(), xa.float(), xb.float(), **kw)
+    with pytest.raises(ValueError, match="do not match"):
+        tail2d.tail_block(a1, xa[..., :8], xb[..., :8], **kw)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tail2d.tail_block(a1, *(torch.empty(
+            xa.numel() + 1, dtype=xa.dtype, device=dev)[1:].view(xa.shape)
+            for _ in range(2)), **kw)
 
 
 @pytest.mark.parametrize("kd,cm,cx,n_x,att_out", [

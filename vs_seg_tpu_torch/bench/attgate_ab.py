@@ -1,5 +1,5 @@
-"""A/B timing of attgate, conv333_dw, ds_conv, ru_block2d or l2_block2d
-builds at their sites, on one GPU.
+"""A/B timing of attgate, conv333_dw, ds_conv, ru_block2d, l2_block2d or
+tail_block builds at their sites, on one GPU.
 
     python -m vs_seg_tpu_torch.bench.attgate_ab OTHER.cu [MORE.cu ...]
     python -m vs_seg_tpu_torch.bench.attgate_ab --kernel conv333_dw OTHER.cu
@@ -9,6 +9,8 @@ builds at their sites, on one GPU.
         [OTHER.cu ...] [--rb-tiles 16x2,8x1]
     python -m vs_seg_tpu_torch.bench.attgate_ab --kernel l2_block2d \
         [OTHER.cu ...] [--l2-tiles 16x1,8x2]
+    python -m vs_seg_tpu_torch.bench.attgate_ab --kernel tail_block \
+        [OTHER.cu ...] [--tail-tiles 8,16]
 
 Builds each given source (a file with the C interface of the kernel's
 csrc/<kernel>.cu: another design, or an earlier commit's kernel, e.g. from
@@ -44,7 +46,12 @@ earlier source is not needed: tree, chain, cuDNN, cuDNN, chain, tree), and
 l2_block2d likewise at chip_smoke.L2_SITES (the up_0 logit head) beside
 the conv333 + attgate + conv333 chain it replaced (ops/l2block.py:
 l2_chain) and the cuDNN chain of its two convs, --l2-tiles the tree's
-kernel at each tile listed.
+kernel at each tile listed; tail_block likewise at chip_smoke.TAIL_SITES
+(up_1, configuration A's, and the up_0 head) beside the attgate + conv333
+chain it replaced (ops/l2block.py:gate_conv0) and cuDNN's conv0 + 1x1
+residual, --tail-tiles the tree's kernel at each tile height listed (the
+kernel holds one slot of each input, so the tile height is its only
+choice).
 Prints one
 line per site with the mean of the two turns of each build, its bound and
 the card, the sums over the sites, and a JSON line of all the times last.
@@ -68,7 +75,7 @@ import numpy as np
 import torch
 
 from vs_seg_tpu_torch.ops import (_build, block2d, conv333_dw, dsconv,
-                                  l2block)
+                                  l2block, tail2d)
 
 REPS = 10
 # ru_block2d's sites: a graph of REPS chain calls at down_0 would hold 48 GB
@@ -98,10 +105,13 @@ TREE = {"attgate": (l2block, ("attgate",)),
         "conv333_dw": (conv333_dw, ("conv333_dw",)),
         "ds_conv": (dsconv, ("conv333", "dsconv")),
         "ru_block2d": (block2d, ("rublock2d",)),
-        "l2_block2d": (block2d, ("l2block2d",))}
+        "l2_block2d": (block2d, ("l2block2d",)),
+        "tail_block": (tail2d, ("tail2d",))}
 TREE_SRC = {"attgate": "attgate.cu", "conv333_dw": "conv333_dw.cu",
             "ds_conv": "conv333.cu", "ru_block2d": "rublock2d.cu",
-            "l2_block2d": "l2block2d.cu"}
+            "l2_block2d": "l2block2d.cu", "tail_block": "tail2d.cu"}
+# the kernels timed by CUDA-graph replay, beside the chains they replaced
+FUSED = ("ru_block2d", "l2_block2d", "tail_block")
 
 
 def _load_py(name: str, py: Path):
@@ -235,14 +245,40 @@ def _l2_sites(cs, dev, tiles):
                extra)
 
 
+def _tail_sites(cs, dev, ths):
+    """tail_block at TAIL_SITES: as _l2_sites, with the attgate + conv333
+    chain, cuDNN's conv0 + residual and the tree's kernel at the tile
+    heights `ths`."""
+    gen = torch.Generator().manual_seed(cs.SEED + 6)
+    for site, shape, c, cout in cs.TAIL_SITES:
+        a1, xa, xb, kw = cs.tail_site_args(dev, gen, shape, c, cout)
+
+        def run(mod, th=None, a1=a1, xa=xa, xb=xb, kw=kw):
+            return mod.tail_block(a1, xa, xb, th=th, **kw)
+
+        chain, cudnn = cs.tail_chains(a1, xa, xb, kw)
+        extra = {"parent chain": chain,
+                 "cudnn conv0+res": lambda cudnn=cudnn: (cudnn(),)}
+        for th in ths:
+            lay = tail2d.tail_layout(
+                tail2d.plan_tail(tuple(shape), c, c, cout).n, th,
+                -(-c // 16), -(-c // 16))
+            if lay["smem"] <= tail2d.SMEM_MAX:
+                extra[f"tree th{th}"] = (
+                    lambda th=th, run=run: run(tail2d, th))
+        ref = tail2d.tail_block_plain(a1, xa, xb, **kw)
+        b = cs.tail_bound(a1, xa, xb, kw, *ref)
+        yield (f"{site} {shape}x{c}x2->{cout}", run, ref, cs.KERNEL_TOL, b,
+               extra)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("sources", nargs="*", type=Path,
                     help="sources to time beside the tree's (at least one, "
-                         "but for ru_block2d and l2_block2d)")
+                         "but for ru_block2d, l2_block2d and tail_block)")
     ap.add_argument("--kernel", choices=("attgate", "conv333_dw", "ds_conv",
-                                         "ru_block2d", "l2_block2d"),
-                    default="attgate")
+                                         *FUSED), default="attgate")
     ap.add_argument("--ds-th", default="",
                     help="ds_conv: also time the tree's kernel at these "
                          "tile heights (comma list of 8, 16)")
@@ -252,11 +288,13 @@ def main(argv=None) -> int:
     ap.add_argument("--l2-tiles", default="",
                     help="l2_block2d: also time the tree's kernel at these "
                          "tiles (comma list of THxSTAGES, e.g. 16x1,8x2)")
+    ap.add_argument("--tail-tiles", default="",
+                    help="tail_block: also time the tree's kernel at these "
+                         "tile heights (comma list, e.g. 8,16)")
     ap.add_argument("--time-only", action="store_true",
                     help="time the builds without holding them to the twin")
     args = ap.parse_args(argv)
-    if not args.sources and args.kernel not in ("ru_block2d",
-                                                "l2_block2d"):
+    if not args.sources and args.kernel not in FUSED:
         ap.error(f"--kernel {args.kernel} needs a source to time")
     if not torch.cuda.is_available():
         raise RuntimeError("attgate_ab: no CUDA device")
@@ -293,11 +331,15 @@ def main(argv=None) -> int:
         sites = (_rb_sites if kernel == "ru_block2d" else _l2_sites)(
             cs, dev, tiles)
         timer = cs.graph_ms
+    elif kernel == "tail_block":
+        sites = _tail_sites(cs, dev, [int(t) for t in
+                                      args.tail_tiles.split(",") if t])
+        timer = cs.graph_ms
     else:
         sites = ((*row, {}) for row in (
             _attgate_sites if kernel == "attgate" else _dw_sites)(cs, dev))
         timer = cs.cuda_ms
-    reps = RB_REPS if kernel in ("ru_block2d", "l2_block2d") else REPS
+    reps = RB_REPS if kernel in FUSED else REPS
     times, bounds, host = {}, {}, {}
     names = list(libs)
     for site, run, ref, tol, b, extra in sites:
@@ -321,7 +363,7 @@ def main(argv=None) -> int:
                 use("tree")
             times.setdefault(site, {}).setdefault(name, []).append(
                 timer(fn, reps))
-            if kernel in ("ds_conv", "ru_block2d", "l2_block2d"):
+            if kernel in ("ds_conv", *FUSED):
                 host.setdefault(site, {}).setdefault(name, []).append(
                     cs.host_ms(fn, reps))
         bounds[site] = b[0]

@@ -30,7 +30,8 @@ as vs_seg_tpu's l2block_fusable/l2block_apply route it. The (3,3,1) levels
 run plain PyTorch unless `routes` (core/config.py:Routes, the JAX package's
 opt-in env gates) sends them to kernels: rublock2d the encoder units
 (ResidualUnit), and at a (3,3,1) decoder level i with attention, tail2d{i}
-(ops/tail2d.py, a1 from the library conv) before l2block2d
+(ops/tail2d.py: one csrc/tail2d.cu launch, given a1 from the library
+conv) before l2block2d
 (ops/block2d.py:l2_block2d: one csrc/l2block2d.cu launch for the i == 0
 logit head, the conv333 + attgate chain at wider levels). A block route
 replaces upatt_i + up_i, whose chain is then not computed; att_fuse takes

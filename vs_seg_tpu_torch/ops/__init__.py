@@ -12,7 +12,8 @@ and their plain PyTorch twins:
                                 (csrc/l2block2d.cu; past C, Cout = 16
                                 conv333 at kd = 1 + attgate)
   tail2d.py   tail_block     <- vs_seg_tpu/ops/experimental/pallas_tail2d.py:
-                                tail_block (attgate + conv333 at kd = 1)
+                                tail_block (csrc/tail2d.cu; past its widths
+                                attgate + conv333 at kd = 1)
   att.py      fused_attention_gate
                              <- vs_seg_tpu/ops/experimental/pallas_att.py:
                                 fused_attention_gate (csrc/attgate.cu)

@@ -14,9 +14,9 @@ H % 8, all xs with a1's channel count) are Mosaic tiling rules: the port
 routes on semantics alone, and the wrapper takes any shape (Ca <= 256).
 
 `launch_attgate` is the launch shared by this module's wrapper and by
-ops/l2block.py:attgate (the middle stage of l2_block, tail_block and
-l2_block2d's chain past its fused kernel's widths), which count their
-launches apart. Numerics: the conv sums
+ops/l2block.py:attgate (the middle stage of l2_block and of the chains
+that l2_block2d and tail_block run past their fused kernels' widths),
+which count their launches apart. Numerics: the conv sums
 in float32 on the tensor cores with each weight as two bf16 terms (hi +
 lo, about 16 bits), the sigmoid and the gate run in float32 on the
 unrounded att; each output is rounded to the working dtype once. (The

@@ -43,8 +43,9 @@ def attgate_plain(a1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
 def attgate(a1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
             xa: torch.Tensor, xb: torch.Tensor):
     """Attention conv2 + sigmoid + gate of a pair (csrc/attgate.cu); see
-    attgate_plain. The middle stage of l2_block, tail_block and of
-    l2_block2d's chain at widths past csrc/l2block2d.cu (C or Cout > 16)."""
+    attgate_plain. The middle stage of l2_block and of the chains that
+    l2_block2d and tail_block run at widths past their fused kernels
+    (csrc/l2block2d.cu, csrc/tail2d.cu)."""
     if a1.device.type == "cpu":
         return attgate_plain(a1, w2, b2, xa, xb)
     if a1.device.type != "cuda":

@@ -14,9 +14,15 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
      384x384x64, D-first): the ring probe (csrc/ring.cuh, one (16,128) f32
      plane per depth slice of the volume, bit-equal), conv333 single and
      pair+residual, attgate,
-     ru_block at down_2/down_3, l2_block at up_2/up_3, and the blend over
+     ru_block at down_2/down_3, and the blend over
      the full 448x448x80 volume with its 8 overlapping windows. Kernel and
-     plain times come from CUDA events.
+     plain times come from CUDA events. l2_block at up_2/up_3/up_4
+     (L2B_SITES: conv333, attgate's att-only mode (att_map) and conv333's
+     gated instance, one launch each; out and att bit-equal to the parent
+     conv333 + attgate + conv333 chain and over two runs, within
+     KERNEL_TOL of its twin; by CUDA-graph replay beside that chain and the
+     cuDNN chain of its two convs, with its bound and the host's enqueue),
+     and at up_2 att_map and the gated conv0 alone against their twins.
   3. The flagship UNet2d5_spvPA (channels 16..96) at full width from a seeded
      init with randomised BatchNorm statistics, over one seeded 448x448x80x1
      volume staged as uint8: sliding_window_inference (ROI 384x384x64,
@@ -80,8 +86,9 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
      back with the original affine and shape, labelmaps and Dice of the
      two paths agree, and each path's compute seconds per volume. Figures
      are drawn when matplotlib is installed.
- 11. conv333 at each of its sites (CONV_SITES): the 14 launches of one
-     8-window forward, configuration A's kd = 1 conv sites and those of
+ 11. conv333 at each of its sites (CONV_SITES): the 11 ungated launches
+     of one 8-window forward and the 3 conv0 of l2_block's parent chain,
+     configuration A's kd = 1 conv sites and those of
      the chains its fused kernels replaced, and three train dgrad shapes,
      each against its plain twin, with the kernel's
      time, one channels-last F.conv3d's, the bound, TFLOP/s and GB/s, and
@@ -93,11 +100,12 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
      normals within PROBE_TOL (bit-equal for 3droll and repeat); each
      scheme's time beside the case's bound, at the tool's shapes and with
      the leading size scaled by PROBE_SCALE.
- 13. attgate at each of its sites (ATT_SITES: up_2/3/4 at kd = 3, the
-     up_1 tail and the up_0 head of the chains that tail_block and
-     l2_block2d replaced, and B's upatt_0/1 at kd = 1) against its plain
-     twin, with kernel, plain and bound ms, and its ms per volume under
-     the default routes, A and B.
+ 13. attgate at each of its sites (ATT_SITES: its att-only mode, l2_block's
+     middle stage, at up_2/3/4; the gating mode in the chains that
+     l2_block, tail_block and l2_block2d replaced, at up_2/3/4 (kd = 3),
+     the up_1 tail and the up_0 head; B's upatt_0/1 at kd = 1) against
+     its plain twin, with kernel, plain and bound ms, and its ms per
+     volume under the default routes, A and B.
  14. conv333_dw at each of the TRAIN_SITES sites of one train step (taken
      by a hook on Conv333Train's wgrad during a full-width forward and
      backward, dw_train_sites): two runs bit-equal, within DW_TOL of the
@@ -158,9 +166,11 @@ STEP_REPS = 3            # timed train steps per path and turn
 # counted apart: down_2/3/4 x 2, upatt_2/3/4 x 3, up_2/3/4 x 2, bottom_att x
 # 2, bottom x 2.
 TRAIN_SITES = 25
-# conv333 launches of one eval forward of one crop: 4 ru_blocks x 2 and 3
-# l2_blocks x 2.
-EVAL_CONV333 = 4 * 2 + 3 * 2
+# conv333 launches of one eval forward of one crop: 4 ru_blocks x 2 and the
+# 3 l2_blocks' conv1; their conv0 is the gated instance, with attgate's
+# att-only mode (att_map) before it: 3 each.
+EVAL_CONV333 = 4 * 2 + 3
+EVAL_L2 = {"l2_block": 3, "att_map": 3, "conv333_gated": 3, "attgate": 0}
 # Published H100 SXM peaks (dense) for the kernels' bounds.
 PEAK_BF16 = 989e12       # FLOP/s, tensor cores
 PEAK_F32 = 67e12         # FLOP/s, CUDA cores
@@ -232,7 +242,7 @@ def compare(name: str, got, ref, tol: float) -> float:
     return err
 
 
-def kernel_checks(dev, gen):
+def kernel_checks(dev, gen, card: str):
     """Phase 2: each kernel vs its plain twin at the flagship shapes."""
     import numpy as np
     import torch
@@ -246,13 +256,13 @@ def kernel_checks(dev, gen):
     def randn(*shape):
         return torch.randn(shape, generator=gen).to(dev, torch.bfloat16)
 
-    def weight(k, cin, cout):
+    def weight(k, cin, cout, g=gen):
         b = 1.0 / np.sqrt(cin * int(np.prod(k)))
-        return ((torch.rand((*k, cin, cout), generator=gen) * 2 - 1) * b
+        return ((torch.rand((*k, cin, cout), generator=g) * 2 - 1) * b
                 ).to(dev)
 
-    def vec(c, lo, hi):
-        return (torch.rand(c, generator=gen) * (hi - lo) + lo).to(dev)
+    def vec(c, lo, hi, g=gen):
+        return (torch.rand(c, generator=g) * (hi - lo) + lo).to(dev)
 
     def ru_args(cin, cout):
         return dict(w0=weight((3, 3, 3), cin, cout),
@@ -263,12 +273,13 @@ def kernel_checks(dev, gen):
                     bn1_shift=vec(cout, -.2, .2), alpha1=vec(1, .1, .3),
                     wr=weight((1, 1, 1), cin, cout), br=vec(cout, -.2, .2))
 
-    def l2_args(c):
-        return dict(w1=weight((3, 3, 3), 2 * c, c), b1=vec(c, -.2, .2),
-                    w2=weight((3, 3, 3), c, 1), b2=vec(1, -.2, .2),
-                    w0=weight((3, 3, 3), 2 * c, c), bn_scale=vec(c, .5, 1.5),
-                    bn_shift=vec(c, -.2, .2), alpha=vec(1, .1, .3),
-                    wr=weight((1, 1, 1), 2 * c, c), br=vec(c, -.2, .2))
+    def l2_args(c, g):
+        return dict(w1=weight((3, 3, 3), 2 * c, c, g), b1=vec(c, -.2, .2, g),
+                    w2=weight((3, 3, 3), c, 1, g), b2=vec(1, -.2, .2, g),
+                    w0=weight((3, 3, 3), 2 * c, c, g),
+                    bn_scale=vec(c, .5, 1.5, g), bn_shift=vec(c, -.2, .2, g),
+                    alpha=vec(1, .1, .3, g), wr=weight((1, 1, 1), 2 * c, c, g),
+                    br=vec(c, -.2, .2, g))
 
     rec = {}
     B = SW_BATCH
@@ -355,27 +366,22 @@ def kernel_checks(dev, gen):
                                 + cin * cout)))
     rec["ru_block"]["max_abs_err"] = max(errs)
 
-    # l2_block at up_2 (C = 48, 64x96x96) and up_3 (C = 64, 32x48x48)
+    # l2_block at its three sites (L2B_SITES): up_2 and up_3 drawn from
+    # gen as before, up_4 from its own generator, so the later phases'
+    # draws stay as they were
     errs = []
-    for name, shape, c in (("up_2", (B, 64, 96, 96), 48),
-                           ("up_3", (B, 32, 48, 48), 64)):
-        xa, xb = randn(*shape, c), randn(*shape, c)
-        kw = l2_args(c)
-        got = l2block.l2_block(xa, xb, **kw)
-        ref = l2block.l2_block_plain(xa, xb, **kw)
-        errs.append(max(
-            compare(f"l2_block {name} {part} {shape}x{c}x2", g, r, KERNEL_TOL)
-            for part, g, r in zip(("out", "att"), got, ref)))
-        if name == "up_2":
+    for site, shape, c in L2B_SITES:
+        g = gen if site != "up_4" else torch.Generator().manual_seed(SEED + 7)
+        xa, xb = (torch.randn((*shape, c), generator=g).to(
+            dev, torch.bfloat16) for _ in range(2))
+        kw = l2_args(c, g)
+        row = l2b_site(site, xa, xb, kw, card)
+        errs.append(row["max_abs_err"])
+        if site == "up_2":
             rec["l2_block"] = dict(
-                shape=f"up_2 {shape}x{c}x2",
-                ms=cuda_ms(lambda: l2block.l2_block(xa, xb, **kw)),
-                plain_ms=cuda_ms(lambda: l2block.l2_block_plain(xa, xb, **kw)),
-                library_ms=None,
-                bound=bound(nbytes(xa, xb, *kw.values(), *got),
-                            2 * xa[..., 0].numel() * (2 * 27 * 2 * c * c
-                                                      + 2 * c * c),
-                            (2 * 27 + 4) * c * xa[..., 0].numel()))
+                shape=f"up_2 {shape}x{c}x2", ms=row["ms"],
+                plain_ms=row["plain_ms"], library_ms=None, bound=row["bound"])
+            rec.update(l2_parts(xa, xb, kw))
     rec["l2_block"]["max_abs_err"] = max(errs)
     del xa, xb, ga, gb, x
 
@@ -413,21 +419,27 @@ def kernel_checks(dev, gen):
     return rec
 
 
-def _wrappers():
+def _counters():
+    """Every launch counter: name -> (wrapper, attribute). conv333 counts
+    its ungated launches in .launches, its gated ones in .gated_launches."""
     from vs_seg_tpu_torch.ops import (att, blend, block2d, conv333,
                                       conv333_dw, dsconv, l2block,
                                       mosaic_probe, ring_probe, rublock,
                                       tail2d)
-    return {"conv333": conv333.conv333, "attgate": l2block.attgate,
-            "ru_block": rublock.ru_block, "l2_block": l2block.l2_block,
-            "blend_scatter": blend.blend_scatter,
-            "conv333_dw": conv333_dw.conv333_dw,
-            "ru_block2d": block2d.ru_block2d,
-            "l2_block2d": block2d.l2_block2d,
-            "tail_block": tail2d.tail_block,
-            "fused_attention_gate": att.fused_attention_gate,
-            "ds_conv": dsconv.ds_conv, "ring_probe": ring_probe.ring_probe,
-            "mosaic_probe": mosaic_probe.probe}
+    fns = {"conv333": conv333.conv333, "attgate": l2block.attgate,
+           "att_map": l2block.att_map,
+           "ru_block": rublock.ru_block, "l2_block": l2block.l2_block,
+           "blend_scatter": blend.blend_scatter,
+           "conv333_dw": conv333_dw.conv333_dw,
+           "ru_block2d": block2d.ru_block2d,
+           "l2_block2d": block2d.l2_block2d,
+           "tail_block": tail2d.tail_block,
+           "fused_attention_gate": att.fused_attention_gate,
+           "ds_conv": dsconv.ds_conv, "ring_probe": ring_probe.ring_probe,
+           "mosaic_probe": mosaic_probe.probe}
+    out = {k: (fn, "launches") for k, fn in fns.items()}
+    out["conv333_gated"] = (conv333.conv333, "gated_launches")
+    return out
 
 
 # launches of the routed kernels in a run that takes no route (and of the
@@ -438,12 +450,12 @@ NO_KD1 = {"ru_block2d": 0, "l2_block2d": 0, "tail_block": 0,
 
 
 def reset_counts():
-    for fn in _wrappers().values():
-        fn.launches = 0
+    for fn, attr in _counters().values():
+        setattr(fn, attr, 0)
 
 
 def read_counts():
-    return {k: fn.launches for k, fn in _wrappers().items()}
+    return {k: getattr(fn, attr) for k, (fn, attr) in _counters().items()}
 
 
 def check_counts(counts, expect, path: str):
@@ -482,9 +494,8 @@ def model_run(dev, gen, card: str):
     assert len(staged.starts_padded) == SW_BATCH
     # the model's own sites: 4 encoder units (down_2, down_3, down_4,
     # bottom), 3 decoder levels (up_2, up_3, up_4), 1 window batch
-    expect = {"ru_block": 4, "l2_block": 3, "attgate": 3,
-              "conv333": EVAL_CONV333, "blend_scatter": 1, "conv333_dw": 0,
-              **NO_KD1}
+    expect = {"ru_block": 4, **EVAL_L2, "conv333": EVAL_CONV333,
+              "blend_scatter": 1, "conv333_dw": 0, **NO_KD1}
 
     def run(use_kernels: bool):
         pred = make_predictor(model, torch.bfloat16, use_kernels=use_kernels)
@@ -709,8 +720,7 @@ def train_run(dev, card: str):
     check_counts(counts, {
         "conv333_dw": TRAIN_SITES * TRAIN_STEPS,
         "conv333": TRAIN_SITES * TRAIN_STEPS + EVAL_CONV333,
-        "ru_block": 4, "l2_block": 3, "attgate": 3, "blend_scatter": 0,
-        **NO_KD1}, "training")
+        "ru_block": 4, **EVAL_L2, "blend_scatter": 0, **NO_KD1}, "training")
 
     # ms/step and peak memory, device-resident batch, turns plain, kernel,
     # kernel, plain
@@ -872,9 +882,10 @@ def rb_site(dev, gen, site, shape, cin, cout, card: str):
 L2_SITES = (("up_0 head", (SW_BATCH, ROI[2], ROI[0], ROI[1]), 16, 2),)
 
 
-def l2_site_args(dev, gen, shape, c, cout):
-    """Seeded l2_block2d arguments at one site: xa, xb and the block's
-    params (the logit head's degenerate epilogue at cout = 2)."""
+def l2_site_args(dev, gen, shape, c, cout, kd: int = 1):
+    """Seeded l2_block2d (kd = 1) or l2_block (kd = 3) arguments at one
+    site: xa, xb and the block's params (the logit head's degenerate
+    epilogue at cout = 2)."""
     import numpy as np
     import torch
 
@@ -888,9 +899,9 @@ def l2_site_args(dev, gen, shape, c, cout):
 
     xa, xb = (torch.randn((*shape, c), generator=gen).to(dev, torch.bfloat16)
               for _ in range(2))
-    kw = dict(w1=weight((3, 3, 1), 2 * c, c), b1=vec(c, -.2, .2),
-              w2=weight((3, 3, 1), c, 1), b2=vec(1, -.2, .2),
-              w0=weight((3, 3, 1), 2 * c, cout),
+    kw = dict(w1=weight((3, 3, kd), 2 * c, c), b1=vec(c, -.2, .2),
+              w2=weight((3, 3, kd), c, 1), b2=vec(1, -.2, .2),
+              w0=weight((3, 3, kd), 2 * c, cout),
               wr=weight((1, 1, 1), 2 * c, cout), br=vec(cout, -.2, .2))
     if cout == 2:
         kw.update(bn_scale=None, bn_shift=vec(cout, -.2, .2), alpha=None)
@@ -901,11 +912,12 @@ def l2_site_args(dev, gen, shape, c, cout):
 
 
 def l2_chains(xa, xb, kw):
-    """What l2_block2d replaced and its library yardstick, as callables:
-    the conv333 + attgate + conv333 chain (ops/l2block.py:l2_chain) and the
-    cuDNN chain of its two convs (channels-last F.conv3d on xa || xb
-    concatenated once outside the timing, no epilogue, gate or residual;
-    no single PyTorch call computes the block)."""
+    """What l2_block2d (kd = 1) or l2_block (kd = 3) replaced and its
+    library yardstick, as callables: the conv333 + attgate + conv333 chain
+    (ops/l2block.py:l2_chain) and the cuDNN chain of its two convs
+    (channels-last F.conv3d on xa || xb concatenated once outside the
+    timing, no epilogue, gate or residual; no single PyTorch call computes
+    the block)."""
     import torch
     import torch.nn.functional as F
 
@@ -914,26 +926,30 @@ def l2_chains(xa, xb, kw):
     wt1, wt0 = (kw[k].to(torch.bfloat16).permute(4, 3, 2, 0, 1).contiguous()
                 for k in ("w1", "w0"))
     xc = torch.cat((xa, xb), -1).permute(0, 4, 1, 2, 3)
+    pad = (int(kw["w1"].shape[2]) // 2, 1, 1)
 
     def cudnn():
-        F.conv3d(xc, wt1, padding=(0, 1, 1))
-        return F.conv3d(xc, wt0, padding=(0, 1, 1))
+        F.conv3d(xc, wt1, padding=pad)
+        return F.conv3d(xc, wt0, padding=pad)
 
     return (lambda: l2block.l2_chain(conv333.conv333, l2block.attgate, xa,
                                      xb, **kw)), cudnn
 
 
 def l2_bound(xa, xb, kw, out, att):
-    """l2_block2d's bound: xa, xb, the params, out and att moved once; its
-    MACs (conv1, conv0 and the residual in bf16, conv2 and the gate f32)."""
+    """l2_block2d's or l2_block's bound: xa, xb, the params, out and att
+    moved once; its MACs (conv1, conv0 and the residual in bf16, conv2 and
+    the gate f32)."""
     import torch
     c, cout = xa.shape[-1], out.shape[-1]
+    taps = 9 * int(kw["w1"].shape[2])
     vox = xa[..., 0].numel()
     return bound(nbytes(xa, xb, out, att,
                         *[v for v in kw.values()
                           if isinstance(v, torch.Tensor)]),
-                 2 * vox * (9 * 2 * c * c + 9 * 2 * c * cout + 2 * c * cout),
-                 (2 * 9 + 4) * c * vox)
+                 2 * vox * (taps * 2 * c * c + taps * 2 * c * cout
+                            + 2 * c * cout),
+                 (2 * taps + 4) * c * vox)
 
 
 def l2_site(dev, gen, site, shape, c, cout, card: str):
@@ -986,6 +1002,127 @@ def l2_site(dev, gen, site, shape, c, cout, card: str):
     print(json.dumps({"l2_block2d_site": row}), flush=True)
     row["bound"] = b
     return row
+
+
+# l2_block's sites for one 8-window batch (D-first): (site, (N, D, H, W), C)
+L2B_SITES = (("up_2", (SW_BATCH, 64, 96, 96), 48),
+             ("up_3", (SW_BATCH, 32, 48, 48), 64),
+             ("up_4", (SW_BATCH, 16, 24, 24), 80))
+
+
+def _l2_counters():
+    from vs_seg_tpu_torch.ops import conv333, l2block
+    return ((conv333.conv333, "launches"), (conv333.conv333,
+                                            "gated_launches"),
+            (l2block.att_map, "launches"), (l2block.attgate, "launches"))
+
+
+def l2b_site(site, xa, xb, kw, card: str):
+    """l2_block at one site: conv333 (conv1), attgate's att-only mode and
+    conv333's gated instance, one launch each and no other; out and att
+    bit-equal to the parent chain (conv333, attgate, conv333: the same
+    stage order and wgmma sequence on the same fmaf-gated values) and over
+    two runs, within KERNEL_TOL of the twin; its device time by CUDA-graph
+    replay beside the chain and the cuDNN chain of its two convs, the
+    twin's event time, the bound and the host's enqueue. Prints a JSON
+    line; returns its row."""
+    import torch
+
+    from vs_seg_tpu_torch.ops import l2block
+
+    c = xa.shape[-1]
+    name = f"l2_block {site} {tuple(xa.shape[:4])}x{c}x2"
+
+    def run():
+        return l2block.l2_block(xa, xb, **kw)
+
+    before = [getattr(o, a) for o, a in _l2_counters()]
+    got = run()
+    launched = [getattr(o, a) - n for (o, a), n in zip(_l2_counters(),
+                                                        before)]
+    if launched != [1, 1, 1, 0]:
+        raise AssertionError(f"{name}: launches (conv333, gated conv333, "
+                             f"att_map, attgate) {launched}, expected "
+                             f"[1, 1, 1, 0]")
+    if not all(torch.equal(g, a) for g, a in zip(got, run())):
+        raise AssertionError(f"{name}: two runs differ")
+    err = max(compare(f"{name} {part}", g, r, KERNEL_TOL) for part, g, r in
+              zip(("out", "att"), got, l2block.l2_block_plain(xa, xb,
+                                                               **kw)))
+    chain, cudnn = l2_chains(xa, xb, kw)
+    for part, g, r in zip(("out", "att"), got, chain()):
+        compare(f"{name} {part}, the parent chain", g, r, KERNEL_TOL)
+        if not torch.equal(g, r):
+            raise AssertionError(f"{name} {part}: not bit-equal to the "
+                                 "parent chain")
+    log(f"  {name}: out and att bit-equal to the parent chain")
+    b = l2_bound(xa, xb, kw, *got)
+    del got
+    row = dict(site=site, shape=[*xa.shape[:4]], c=c, ms=graph_ms(run),
+               chain_ms=graph_ms(chain), cudnn_chain_ms=graph_ms(cudnn),
+               plain_ms=cuda_ms(lambda: l2block.l2_block_plain(xa, xb,
+                                                               **kw)),
+               host_enqueue_ms=host_ms(run), bound_ms=b[0], bound_by=b[1],
+               max_abs_err=err, card=card)
+    row["tflops"] = b[3] / row["ms"] / 1e9
+    log(f"  {name}: kernels {row['ms']!r} ms device (graph replay), host "
+        f"enqueue {row['host_enqueue_ms']!r} ms/call; parent chain "
+        f"{row['chain_ms']!r} ms, cuDNN chain {row['cudnn_chain_ms']!r} ms, "
+        f"plain {row['plain_ms']!r} ms, bound {b[0]!r} ms ({b[1]}: "
+        f"{b[2] / 1e9:.3f} GB, {b[3] / 1e9:.1f} GFLOP) = {row['tflops']!r} "
+        f"TFLOP/s on {card}")
+    print(json.dumps({"l2_block_site": row}), flush=True)
+    row["bound"] = b
+    return row
+
+
+def l2_parts(xa, xb, kw):
+    """The two kernels l2_block runs after conv1, alone at one site:
+    att_map (attgate's att-only mode) and conv0 as conv333's gated
+    instance, each against its twin on the same inputs, timed by graph
+    replay. Returns their kernel records."""
+    import torch
+
+    from vs_seg_tpu_torch.ops import conv333, l2block
+
+    c = xa.shape[-1]
+    vox = xa[..., 0].numel()
+    relu = torch.zeros(1, device=xa.device)
+    a1 = conv333.conv333((xa, xb), kw["w1"], None, kw["b1"], relu)
+    w2, b2 = kw["w2"], kw["b2"]
+    att32, att_c = l2block.att_map(a1, w2, b2)
+    ref32, ref_c = l2block.att_map_plain(a1, w2, b2)
+    e_a = max(compare("att_map att32", att32, ref32, KERNEL_TOL),
+              compare("att_map att", att_c, ref_c, KERNEL_TOL))
+    shape = f"{tuple(xa.shape[:4])}x{c}"
+    rec = {"att_map": dict(
+        shape=f"{shape} -> att", max_abs_err=e_a,
+        ms=graph_ms(lambda: l2block.att_map(a1, w2, b2)),
+        plain_ms=cuda_ms(lambda: l2block.att_map_plain(a1, w2, b2)),
+        library_ms=None,
+        bound=bound(nbytes(a1, w2, b2, att32, att_c),
+                    f32_flop=2 * 27 * c * vox))}
+    del ref32, ref_c
+    args = ((xa, xb), kw["w0"], kw["bn_scale"], kw["bn_shift"], kw["alpha"])
+    res = ((xa, xb), kw["wr"], kw["br"])
+
+    def gated():
+        return conv333.conv333(*args, residual=res, gate=att32)
+
+    def twin():
+        return conv333.conv333_plain(*args, residual=res, gate=att32)
+
+    got = gated()
+    e_g = compare(f"conv333 gated {shape}x2", got, twin(), KERNEL_TOL)
+    rec["conv333_gated"] = dict(
+        shape=f"{shape}x2 gated conv0 + residual", max_abs_err=e_g,
+        ms=graph_ms(gated), plain_ms=cuda_ms(twin), library_ms=None,
+        bound=bound(nbytes(xa, xb, att32, got,
+                           *[kw[k] for k in ("w0", "bn_scale", "bn_shift",
+                                             "alpha", "wr", "br")]),
+                    2 * vox * (27 * 2 * c * c + 2 * c * c),
+                    2 * 2 * c * vox))
+    return rec
 
 
 # tail_block's sites for one 8-window batch (D-first): (site, (N, D, H, W),
@@ -1292,7 +1429,7 @@ def routes_run(dev, gen, card: str, model, staged, default_logits):
     from vs_seg_tpu_torch.infer.engine import make_predictor
     from vs_seg_tpu_torch.infer.sliding_window import sliding_window_inference
 
-    base = {"ru_block": 4, "l2_block": 3, "blend_scatter": 1,
+    base = {"ru_block": 4, **EVAL_L2, "blend_scatter": 1,
             "conv333_dw": 0, "ds_conv": 0, "ring_probe": 0,
             "mosaic_probe": 0}
     configs = {
@@ -1301,17 +1438,15 @@ def routes_run(dev, gen, card: str, model, staged, default_logits):
         # (one csrc/l2block2d.cu launch)
         "A": (Routes(rublock2d=True, l2block2d=True, tail2d1=True),
               dict(base, ru_block2d=2, l2_block2d=1, tail_block=1,
-                   fused_attention_gate=0, attgate=3,
-                   conv333=EVAL_CONV333)),
+                   fused_attention_gate=0, conv333=EVAL_CONV333)),
         # upatt_0 and upatt_1
         "B": (Routes(att_fuse=True),
               dict(base, ru_block2d=0, l2_block2d=0, tail_block=0,
-                   fused_attention_gate=2, attgate=3,
-                   conv333=EVAL_CONV333)),
+                   fused_attention_gate=2, conv333=EVAL_CONV333)),
         # downsample_2, downsample_3 and downsample_4
         "C": (Routes(dsconv=True),
               dict(base, ru_block2d=0, l2_block2d=0, tail_block=0,
-                   fused_attention_gate=0, attgate=3, conv333=EVAL_CONV333,
+                   fused_attention_gate=0, conv333=EVAL_CONV333,
                    ds_conv=3)),
     }
     total = {}
@@ -1539,10 +1674,11 @@ _L = {i: (SW_BATCH, ROI[2] >> max(0, i - 2), ROI[0] >> i, ROI[1] >> i)
       for i in range(6)}
 _BOT = _L[5]
 CONV_SITES = (
-    # the 14 conv333 launches of one 8-window forward (default routes):
-    # ru_block at down_2/3/4 and the bottom (conv0, then conv1 + residual
-    # from the block input), l2_block at up_2/3/4 (conv1 + ReLU, then the
-    # gated pair's conv0 + its pair residual)
+    # the conv333 sites of one 8-window forward (default routes): ru_block
+    # at down_2/3/4 and the bottom (conv0, then conv1 + residual from the
+    # block input), l2_block at up_2/3/4 (conv1 + ReLU; its conv0 runs as
+    # the gated instance, timed in phase 2's l2_block rows: the "conv0"
+    # rows here are the parent chain's, on a materialised pair)
     ("down_2 unit0", _L[2], (32,), 48, 3, None, "bn"),
     ("down_2 unit1", _L[2], (48,), 48, 3, (32,), "bn"),
     ("down_3 unit0", _L[3], (48,), 64, 3, None, "bn"),
@@ -1574,18 +1710,12 @@ CONV_SITES = (
 )
 
 
-def conv333_sweep(dev, card: str):
-    """Phase 11: conv333 at each of its sites against its plain twin, with
-    kernel, F.conv3d (channels-last) and bound times; the host's enqueue
-    time of one call at the bottom site. Inputs are drawn on the card from
-    a seeded generator (the level-0 sites hold 1.2 G values)."""
+def conv_site_inputs(dev, gen, shape, cins, cout, kd, res, epi):
+    """Seeded inputs of one CONV_SITES row, drawn on the card from `gen`:
+    (xs, x (a tensor or the pair), w, the epilogue args, the residual
+    argument or None, the residual's inputs)."""
     import numpy as np
     import torch
-    import torch.nn.functional as F
-
-    from vs_seg_tpu_torch.ops import conv333
-
-    gen = torch.Generator(dev).manual_seed(SEED)
 
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=dev,
@@ -1594,29 +1724,45 @@ def conv333_sweep(dev, card: str):
     def rand(*shape):
         return torch.rand(shape, generator=gen, device=dev)
 
+    xs = tuple(randn(*shape, c) for c in cins)
+    x = xs if len(xs) > 1 else xs[0]
+    b = 1.0 / np.sqrt(9 * kd * sum(cins))
+    w = (rand(3, 3, kd, sum(cins), cout) * 2 - 1) * b
+
+    def vec(c, lo, hi):
+        return rand(c) * (hi - lo) + lo
+
+    args = {"bn": (vec(cout, .5, 1.5), vec(cout, -.2, .2),
+                   vec(1, .1, .3)),
+            "relu": (None, vec(cout, -.2, .2),
+                     torch.zeros(1, device=dev)),
+            "head": (None, vec(cout, -.2, .2), None),
+            "none": (None, None, None)}[epi]
+    resid, rin = None, ()
+    if res is not None:
+        rin = xs if res == "x" else tuple(randn(*shape, c) for c in res)
+        cr = sum(v.shape[-1] for v in rin)
+        resid = (rin if len(rin) > 1 else rin[0],
+                 (rand(1, 1, 1, cr, cout) * 2 - 1) / np.sqrt(cr),
+                 vec(cout, -.2, .2))
+    return xs, x, w, args, resid, rin
+
+
+def conv333_sweep(dev, card: str):
+    """Phase 11: conv333 at each of its sites against its plain twin, with
+    kernel, F.conv3d (channels-last) and bound times; the host's enqueue
+    time of one call at the bottom site. Inputs are drawn on the card from
+    a seeded generator (the level-0 sites hold 1.2 G values)."""
+    import torch
+    import torch.nn.functional as F
+
+    from vs_seg_tpu_torch.ops import conv333
+
+    gen = torch.Generator(dev).manual_seed(SEED)
     rows = []
     for site, shape, cins, cout, kd, res, epi in CONV_SITES:
-        xs = tuple(randn(*shape, c) for c in cins)
-        x = xs if len(xs) > 1 else xs[0]
-        b = 1.0 / np.sqrt(9 * kd * sum(cins))
-        w = (rand(3, 3, kd, sum(cins), cout) * 2 - 1) * b
-
-        def vec(c, lo, hi):
-            return rand(c) * (hi - lo) + lo
-
-        args = {"bn": (vec(cout, .5, 1.5), vec(cout, -.2, .2),
-                       vec(1, .1, .3)),
-                "relu": (None, vec(cout, -.2, .2),
-                         torch.zeros(1, device=dev)),
-                "head": (None, vec(cout, -.2, .2), None),
-                "none": (None, None, None)}[epi]
-        resid, rin = None, ()
-        if res is not None:
-            rin = xs if res == "x" else tuple(randn(*shape, c) for c in res)
-            cr = sum(v.shape[-1] for v in rin)
-            resid = (rin if len(rin) > 1 else rin[0],
-                     (rand(1, 1, 1, cr, cout) * 2 - 1) / np.sqrt(cr),
-                     vec(cout, -.2, .2))
+        xs, x, w, args, resid, rin = conv_site_inputs(
+            dev, gen, shape, cins, cout, kd, res, epi)
 
         def run():
             return conv333.conv333(x, w, *args, residual=resid)
@@ -1767,17 +1913,22 @@ def mosaic_probe_checks(dev, card: str):
 # attgate's sites on one 8-window batch (D-first): (site, wrapper, (N, D,
 # H, W), Ca, Cx, kd); "chain" sites are those of a chain that a fused
 # kernel replaced. "attgate" is ops/l2block.py:attgate (the middle stage
-# of l2_block and of l2_block2d's and tail_block's chains, two gated
-# inputs and the map);
-# "fused" is ops/att.py:fused_attention_gate (two gated inputs, compact map)
+# of the parent chain of l2_block and of l2_block2d's and tail_block's
+# chains, two gated inputs and the map); "att_map" is its att-only mode
+# (ops/l2block.py:att_map, l2_block's middle stage: no gated inputs, the
+# f32 and the bf16 map); "fused" is ops/att.py:fused_attention_gate (two
+# gated inputs, compact map)
 ATT_SITES = (
-    ("up_2", "attgate", _L[2], 48, 48, 3),
-    ("up_3", "attgate", _L[3], 64, 64, 3),
-    ("up_4", "attgate", _L[4], 80, 80, 3),
+    ("chain up_2", "attgate", _L[2], 48, 48, 3),
+    ("chain up_3", "attgate", _L[3], 64, 64, 3),
+    ("chain up_4", "attgate", _L[4], 80, 80, 3),
     ("chain up_1 tail", "attgate", _L[1], 32, 32, 1),
     ("chain up_0 head", "attgate", _L[0], 16, 16, 1),
     ("B upatt_0", "fused", _L[0], 16, 16, 1),
     ("B upatt_1", "fused", _L[1], 32, 32, 1),
+    ("up_2", "att_map", _L[2], 48, 0, 3),
+    ("up_3", "att_map", _L[3], 64, 0, 3),
+    ("up_4", "att_map", _L[4], 80, 0, 3),
 )
 
 
@@ -1800,12 +1951,22 @@ def attgate_sweep(dev, card: str):
         w2 = ((torch.rand((3, 3, kd, ca, 1), generator=gen, device=dev) * 2
                - 1) / np.sqrt(9 * kd * ca))
         b2 = torch.rand(1, generator=gen, device=dev) * .4 - .2
+        parts = ("att", "ga", "gb")
         if kind == "attgate":
             def run():
                 return l2block.attgate(a1, w2, b2, xa, xb)
 
             def twin():
                 return l2block.attgate_plain(a1, w2, b2, xa, xb)
+        elif kind == "att_map":
+            parts = ("att32", "att")
+            xa = xb = None
+
+            def run():
+                return l2block.att_map(a1, w2, b2)
+
+            def twin():
+                return l2block.att_map_plain(a1, w2, b2)
         else:
             def run():
                 at, (ga, gb) = att.fused_attention_gate(a1, (xa, xb), w2, b2)
@@ -1817,7 +1978,7 @@ def attgate_sweep(dev, card: str):
                 return at, ga, gb
         got, ref = run(), twin()
         err = max(compare(f"attgate sweep {site} {part}", g, r, KERNEL_TOL)
-                  for part, g, r in zip(("att", "ga", "gb"), got, ref))
+                  for part, g, r in zip(parts, got, ref))
         vox = a1[..., 0].numel()
         b = bound(nbytes(a1, xa, xb, w2, b2, *got),
                   f32_flop=(2 * 9 * kd * ca + 4 * cx) * vox)
@@ -2005,7 +2166,7 @@ def cli_run(dev, card: str, model):
     forwards = CLI_CASES          # one 8-window batch per volume
     check_counts(counts, {
         "ds_conv": 3 * forwards, "ru_block": 4 * forwards,
-        "l2_block": 3 * forwards, "attgate": 3 * forwards,
+        **{k: n * forwards for k, n in EVAL_L2.items()},
         "conv333": EVAL_CONV333 * forwards, "blend_scatter": forwards,
         "conv333_dw": 0, "ru_block2d": 0, "l2_block2d": 0, "tail_block": 0,
         "fused_attention_gate": 0, "ring_probe": 0, "mosaic_probe": 0},
@@ -2097,7 +2258,7 @@ def main() -> int:
 
     gen = torch.Generator().manual_seed(SEED)
     phase("phase 2: kernels vs plain twins at flagship shapes")
-    rec = kernel_checks(dev, gen)
+    rec = kernel_checks(dev, gen, card)
     phase("phase 3: flagship whole-volume inference")
     infer_counts, model, staged, default_logits = model_run(dev, gen, card)
     phase("phase 5: training kernels vs plain twins")
@@ -2141,6 +2302,9 @@ def main() -> int:
     meta = {
         "conv333": ("csrc/conv333.cu", "vs_seg_tpu/ops/pallas_conv333.py:208"),
         "attgate": ("csrc/attgate.cu", "vs_seg_tpu/ops/pallas_l2block.py:271"),
+        "att_map": ("csrc/attgate.cu", "vs_seg_tpu/ops/pallas_l2block.py:271"),
+        "conv333_gated": ("csrc/conv333.cu",
+                          "vs_seg_tpu/ops/pallas_l2block.py:313"),
         "ru_block": ("rublock.py", "vs_seg_tpu/ops/pallas_rublock.py:183"),
         "l2_block": ("l2block.py", "vs_seg_tpu/ops/pallas_l2block.py:391"),
         "blend_scatter": ("csrc/blend.cu",

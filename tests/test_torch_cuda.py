@@ -184,15 +184,128 @@ def test_ru_block_and_l2_block_kernels_match_plain(dev):
     _check(rublock.ru_block(x, **kw), rublock.ru_block_plain(x, **kw))
     c = 20
     xa, xb = _x(g, dev, 1, 3, 10, 12, c), _x(g, dev, 1, 3, 10, 12, c)
-    kw = dict(w1=_w(g, dev, (3, 3, 3), 2 * c, c), b1=_v(g, dev, c, -.2, .2),
-              w2=_w(g, dev, (3, 3, 3), c, 1), b2=_v(g, dev, 1, -.2, .2),
-              w0=_w(g, dev, (3, 3, 3), 2 * c, c),
-              bn_scale=_v(g, dev, c, .5, 1.5),
-              bn_shift=_v(g, dev, c, -.2, .2), alpha=_v(g, dev, 1, .1, .3),
-              wr=_w(g, dev, (1, 1, 1), 2 * c, c), br=_v(g, dev, c, -.2, .2))
+    kw = _l2_params(g, dev, c)
     for got, ref in zip(l2block.l2_block(xa, xb, **kw),
                         l2block.l2_block_plain(xa, xb, **kw)):
         _check(got, ref)
+
+
+def _l2_params(g, dev, c):
+    return dict(w1=_w(g, dev, (3, 3, 3), 2 * c, c), b1=_v(g, dev, c, -.2, .2),
+                w2=_w(g, dev, (3, 3, 3), c, 1), b2=_v(g, dev, 1, -.2, .2),
+                w0=_w(g, dev, (3, 3, 3), 2 * c, c),
+                bn_scale=_v(g, dev, c, .5, 1.5),
+                bn_shift=_v(g, dev, c, -.2, .2), alpha=_v(g, dev, 1, .1, .3),
+                wr=_w(g, dev, (1, 1, 1), 2 * c, c),
+                br=_v(g, dev, c, -.2, .2))
+
+
+@pytest.mark.parametrize("shape,c", [
+    ((1, 3, 10, 20), 48),       # up_2's widths: N = 48, the fused residual
+    ((2, 2, 9, 13), 64),        # up_3's: separate residual stages, W % 4
+    ((1, 4, 12, 33), 80),       # up_4's: ragged W
+    ((1, 2, 7, 9), 20),         # channels padded to 24 in a copy, gated too
+])
+def test_gated_conv333_kernel_matches_plain(dev, shape, c):
+    """conv333's gated instance (gate= an f32 map) on a pair and its fused
+    or separate pair residual, against the twin."""
+    g = _g()
+    xa, xb = _x(g, dev, *shape, c), _x(g, dev, *shape, c)
+    p = _l2_params(g, dev, c)
+    gate = torch.rand(shape, generator=g).to(dev)
+    args = ((xa, xb), p["w0"], p["bn_scale"], p["bn_shift"], p["alpha"])
+    res = ((xa, xb), p["wr"], p["br"])
+    n0, c0 = conv333.conv333.gated_launches, conv333.conv333.launches
+    got = conv333.conv333(*args, residual=res, gate=gate)
+    assert (conv333.conv333.gated_launches, conv333.conv333.launches) == (
+        n0 + 1, c0)
+    assert torch.equal(got, conv333.conv333(*args, residual=res, gate=gate))
+    _check(got, conv333.conv333_plain(*args, residual=res, gate=gate))
+    # the gate is applied: the ungated conv differs
+    assert not torch.equal(got, conv333.conv333(*args, residual=res))
+
+
+def test_gated_conv333_kernel_refuses_a_bad_gate(dev):
+    g = _g()
+    x = _x(g, dev, 1, 2, 8, 10, 16)
+    w = _w(g, dev, (3, 3, 3), 16, 16)
+    for gate in (torch.rand((1, 2, 8, 12), device=dev),       # W
+                 torch.rand((1, 2, 10, 8), device=dev).transpose(2, 3),
+                 torch.rand((1, 2, 8, 10), device=dev).double()):
+        with pytest.raises(ValueError, match="gate"):
+            conv333.conv333(x, w, gate=gate)
+
+
+@pytest.mark.parametrize("shape,c", [((1, 3, 7, 9), 16), ((2, 4, 12, 20), 48)])
+def test_att_map_kernel_matches_plain_and_attgate(dev, shape, c):
+    """attgate's att-only mode: its f32 map against the twin's, its bf16
+    map equal to the gating mode's on the same a1."""
+    g = _g()
+    a1, xa, xb = (_x(g, dev, *shape, c) for _ in range(3))
+    a1 = a1.relu()
+    w2, b2 = _w(g, dev, (3, 3, 3), c, 1), _v(g, dev, 1, -.2, .2)
+    n0, a0 = l2block.att_map.launches, l2block.attgate.launches
+    att32, att_c = l2block.att_map(a1, w2, b2)
+    assert (l2block.att_map.launches, l2block.attgate.launches) == (n0 + 1,
+                                                                    a0)
+    assert att32.dtype == torch.float32 and att32.shape == shape
+    ref32, ref_c = l2block.att_map_plain(a1, w2, b2)
+    _check(att32, ref32, 1e-4)
+    _check(att_c, ref_c)
+    assert torch.equal(att_c, att32[..., None].to(torch.bfloat16))
+    assert torch.equal(att_c, l2block.attgate(a1, w2, b2, xa, xb)[0])
+
+
+@pytest.mark.parametrize("shape,c", [
+    ((1, 3, 10, 20), 48), ((2, 2, 9, 13), 64), ((1, 4, 12, 33), 80),
+    ((1, 3, 16, 16), 16),
+])
+def test_l2_block_kernel_matches_parent_chain(dev, shape, c):
+    """l2_block: conv333 (conv1), attgate's att-only mode and conv333's
+    gated instance, one launch each; out and att bit-equal to the parent
+    chain (conv333, attgate, conv333: the same stage order and wgmma
+    sequence on the same fmaf-gated values) and within TOL of the twin;
+    two runs bit-equal."""
+    g = _g()
+    xa, xb = _x(g, dev, *shape, c), _x(g, dev, *shape, c)
+    kw = _l2_params(g, dev, c)
+    counters = ((conv333.conv333, "launches"),
+                (conv333.conv333, "gated_launches"),
+                (l2block.att_map, "launches"), (l2block.attgate, "launches"))
+    before = [getattr(o, a) for o, a in counters]
+    got = l2block.l2_block(xa, xb, **kw)
+    assert [getattr(o, a) - b for (o, a), b in zip(counters, before)] == [
+        1, 1, 1, 0]
+    again = l2block.l2_block(xa, xb, **kw)
+    chain = l2block.l2_chain(conv333.conv333, l2block.attgate, xa, xb, **kw)
+    for o, a, r, p in zip(got, again, chain,
+                          l2block.l2_block_plain(xa, xb, **kw)):
+        assert torch.equal(o, a)
+        assert torch.equal(o, r)
+        _check(o, p)
+
+
+def test_l2_block_kernel_allocates_no_gated_pair(dev):
+    """The peak memory of l2_block is below the parent chain's by at least
+    the gated pair that the chain writes (ga, gb)."""
+    g = _g()
+    shape, c = (1, 8, 32, 32), 48
+    xa, xb = _x(g, dev, *shape, c), _x(g, dev, *shape, c)
+    kw = _l2_params(g, dev, c)
+    chain = (lambda: l2block.l2_chain(conv333.conv333, l2block.attgate, xa,
+                                      xb, **kw))
+    peaks = []
+    for fn in (lambda: l2block.l2_block(xa, xb, **kw), chain):
+        fn()                                  # weights packed and cached
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        peaks.append(torch.cuda.max_memory_allocated() - base)
+    pair = 2 * xa.numel() * xa.element_size()
+    att32 = 4 * xa[..., 0].numel()               # the f32 map it adds
+    assert peaks[0] + pair <= peaks[1] + att32, peaks
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

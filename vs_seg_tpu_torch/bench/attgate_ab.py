@@ -1,7 +1,8 @@
-"""A/B timing of attgate, conv333_dw, ds_conv, ru_block2d, l2_block2d or
-tail_block builds at their sites, on one GPU.
+"""A/B timing of attgate, conv333, conv333_dw, ds_conv, ru_block2d,
+l2_block2d, tail_block or l2_block builds at their sites, on one GPU.
 
     python -m vs_seg_tpu_torch.bench.attgate_ab OTHER.cu [MORE.cu ...]
+    python -m vs_seg_tpu_torch.bench.attgate_ab --kernel conv333 OLD.cu
     python -m vs_seg_tpu_torch.bench.attgate_ab --kernel conv333_dw OTHER.cu
     python -m vs_seg_tpu_torch.bench.attgate_ab --kernel ds_conv OLD.cu \
         [--ds-th 16,8]
@@ -11,23 +12,28 @@ tail_block builds at their sites, on one GPU.
         [OTHER.cu ...] [--l2-tiles 16x1,8x2]
     python -m vs_seg_tpu_torch.bench.attgate_ab --kernel tail_block \
         [OTHER.cu ...] [--tail-tiles 8,16]
+    python -m vs_seg_tpu_torch.bench.attgate_ab --kernel l2_block \
+        [OTHER.cu ...]
 
 Builds each given source (a file with the C interface of the kernel's
 csrc/<kernel>.cu: another design, or an earlier commit's kernel, e.g. from
 `git show <rev>:vs_seg_tpu_torch/ops/csrc/attgate.cu > build/attgate_old.cu`)
 with the repo's nvcc flags into build/vs_seg_tpu_torch/ab/, beside the
-tree's source (for ds_conv, csrc/conv333.cu, whose stride-2 instance it
-is). A conv333_dw or ds_conv source whose C interface differs from the
-tree's brings its own wrapper: a .py file of the same stem beside it (that
-commit's ops/conv333_dw.py or ops/dsconv.py, e.g. `git show <rev>:vs_seg_
-tpu_torch/ops/dsconv.py > build/dsconv_old.py`), loaded in place of the
-tree's. A module that wrapper imports from the package and that has changed
+tree's source (for ds_conv and l2_block, csrc/conv333.cu: ds_conv is its
+stride-2 instance, l2_block's conv0 its gated instance). A source whose C
+interface differs from the tree's brings its own wrapper: a .py file of
+the same stem beside it (that commit's ops/conv333.py, ops/conv333_dw.py,
+ops/dsconv.py or ops/att.py, e.g. `git show <rev>:vs_seg_tpu_torch/ops/
+dsconv.py > build/dsconv_old.py`), loaded in place of the tree's. A module that wrapper imports from the package and that has changed
 since rides along as STEM.<module>.py (e.g. the parent's ops/conv333.py as
 build/dsconv_old.conv333.py); it stands in for the tree's module while the
 wrapper is loaded.
 
 Sites: attgate at chip_smoke.ATT_SITES, through ops/l2block.py:attgate (two
-gated inputs and the map); conv333_dw at the sites of one train step of the
+gated inputs and the map) or, at its att_map rows, the att-only mode;
+conv333 at chip_smoke.CONV_SITES, timed with CUDA events as phase 11 does
+(each output also compared with the first source's, bit for bit);
+conv333_dw at the sites of one train step of the
 flagship (chip_smoke.dw_train_sites); ds_conv at chip_smoke.DS_SITES (each
 build with its own copy of the weight, so no packed-weight cache is
 shared). At every site each build is held to the plain twin
@@ -51,7 +57,10 @@ kernel at each tile listed; tail_block likewise at chip_smoke.TAIL_SITES
 chain it replaced (ops/l2block.py:gate_conv0) and cuDNN's conv0 + 1x1
 residual, --tail-tiles the tree's kernel at each tile height listed (the
 kernel holds one slot of each input, so the tile height is its only
-choice).
+choice); l2_block at chip_smoke.L2B_SITES (up_2/3/4) likewise, the given
+sources as conv333.cu variants (the gated instance is conv0; conv1 and
+the chains run the tree's) beside the conv333 + attgate + conv333 chain it
+replaced (ops/l2block.py:l2_chain) and the cuDNN chain of its two convs.
 Prints one
 line per site with the mean of the two turns of each build, its bound and
 the card, the sums over the sites, and a JSON line of all the times last.
@@ -74,8 +83,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from vs_seg_tpu_torch.ops import (_build, block2d, conv333_dw, dsconv,
-                                  l2block, tail2d)
+from vs_seg_tpu_torch.ops import (_build, block2d, conv333, conv333_dw,
+                                  dsconv, l2block, tail2d)
 
 REPS = 10
 # ru_block2d's sites: a graph of REPS chain calls at down_0 would hold 48 GB
@@ -91,27 +100,24 @@ def _build_lib(kernel: str, name: str, src: Path) -> ctypes.CDLL:
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {src}:\n{proc.stderr}")
-    lib = ctypes.CDLL(str(out))
-    if kernel == "attgate":
-        lib.attgate_launch.argtypes = ([ctypes.c_void_p] * 7
-                                       + [ctypes.c_int] * 8
-                                       + [ctypes.c_void_p])
-        lib.attgate_launch.restype = ctypes.c_int
-    return lib
+    return ctypes.CDLL(str(out))
 
 
 # the tree's wrapper module and the libraries it loads, per kernel
 TREE = {"attgate": (l2block, ("attgate",)),
+        "conv333": (conv333, ("conv333",)),
+        "l2_block": (l2block, ("conv333",)),
         "conv333_dw": (conv333_dw, ("conv333_dw",)),
         "ds_conv": (dsconv, ("conv333", "dsconv")),
         "ru_block2d": (block2d, ("rublock2d",)),
         "l2_block2d": (block2d, ("l2block2d",)),
         "tail_block": (tail2d, ("tail2d",))}
-TREE_SRC = {"attgate": "attgate.cu", "conv333_dw": "conv333_dw.cu",
+TREE_SRC = {"attgate": "attgate.cu", "conv333": "conv333.cu",
+            "l2_block": "conv333.cu", "conv333_dw": "conv333_dw.cu",
             "ds_conv": "conv333.cu", "ru_block2d": "rublock2d.cu",
             "l2_block2d": "l2block2d.cu", "tail_block": "tail2d.cu"}
 # the kernels timed by CUDA-graph replay, beside the chains they replaced
-FUSED = ("ru_block2d", "l2_block2d", "tail_block")
+FUSED = ("ru_block2d", "l2_block2d", "tail_block", "l2_block")
 
 
 def _load_py(name: str, py: Path):
@@ -146,7 +152,7 @@ def _attgate_sites(cs, dev):
     """(site, run(wrapper module) -> outputs, the twin's outputs, tolerance,
     bound) per site; _dw_sites likewise."""
     gen = torch.Generator(dev).manual_seed(cs.SEED + 1)
-    for site, _, shape, ca, cx, kd in cs.ATT_SITES:
+    for site, kind, shape, ca, cx, kd in cs.ATT_SITES:
         a1 = torch.randn((*shape, ca), generator=gen, device=dev,
                          dtype=torch.bfloat16).relu_()
         xa, xb = (torch.randn((*shape, cx), generator=gen, device=dev,
@@ -154,11 +160,50 @@ def _attgate_sites(cs, dev):
         w2 = ((torch.rand((3, 3, kd, ca, 1), generator=gen, device=dev) * 2
                - 1) / np.sqrt(9 * kd * ca))
         b2 = torch.rand(1, generator=gen, device=dev) * .4 - .2
+        vox = a1[..., 0].numel()
+        name = f"{site} {tuple(shape)} Ca {ca} Cx {cx} kd {kd}"
+        if kind == "att_map":
+            yield (name, lambda mod: l2block.att_map(a1, w2, b2),
+                   l2block.att_map_plain(a1, w2, b2), cs.KERNEL_TOL,
+                   cs.bound(cs.nbytes(a1, w2, b2) + vox * 6))
+            continue
         b = cs.bound(cs.nbytes(a1, xa, xb, w2, b2) + xa.numel() * 4
-                     + a1[..., 0].numel() * 2)
-        yield (f"{site} {tuple(shape)} Ca {ca} Cx {cx} kd {kd}",
-               lambda mod: l2block.attgate(a1, w2, b2, xa, xb),
+                     + vox * 2)
+        yield (name, lambda mod: l2block.attgate(a1, w2, b2, xa, xb),
                l2block.attgate_plain(a1, w2, b2, xa, xb), cs.KERNEL_TOL, b)
+
+
+def _conv_sites(cs, dev):
+    """conv333 at CONV_SITES, drawn as phase 11 draws them."""
+    gen = torch.Generator(dev).manual_seed(cs.SEED)
+    for site, shape, cins, cout, kd, res, epi in cs.CONV_SITES:
+        xs, x, w, args, resid, _ = cs.conv_site_inputs(
+            dev, gen, shape, cins, cout, kd, res, epi)
+        ref = (conv333.conv333_plain(x, w, *args, residual=resid),)
+        b = cs.bound(cs.nbytes(*xs, w, ref[0]), 2 * xs[0][..., 0].numel()
+                     * cout * 9 * kd * sum(cins))
+        yield (f"{site} {tuple(shape)} {cins}->{cout} kd {kd}",
+               lambda mod, x=x, w=w, args=args, resid=resid: (
+                   mod.conv333(x, w, *args, residual=resid),),
+               ref, cs.KERNEL_TOL, b)
+
+
+def _l2b_sites(cs, dev):
+    """l2_block at L2B_SITES: as _l2_sites, with the parent chain and the
+    cuDNN chain of its two convs."""
+    gen = torch.Generator().manual_seed(cs.SEED + 7)
+    for site, shape, c in cs.L2B_SITES:
+        xa, xb, kw = cs.l2_site_args(dev, gen, shape, c, c, kd=3)
+
+        def run(mod, xa=xa, xb=xb, kw=kw):
+            return mod.l2_block(xa, xb, **kw)
+
+        chain, cudnn = cs.l2_chains(xa, xb, kw)
+        extra = {"parent chain": chain, "cudnn chain": lambda cudnn=cudnn: (
+            cudnn(),)}
+        ref = l2block.l2_block_plain(xa, xb, **kw)
+        yield (f"{site} {shape}x{c}x2", run, ref, cs.KERNEL_TOL,
+               cs.l2_bound(xa, xb, kw, *ref), extra)
 
 
 def _dw_sites(cs, dev):
@@ -276,9 +321,11 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("sources", nargs="*", type=Path,
                     help="sources to time beside the tree's (at least one, "
-                         "but for ru_block2d, l2_block2d and tail_block)")
-    ap.add_argument("--kernel", choices=("attgate", "conv333_dw", "ds_conv",
-                                         *FUSED), default="attgate")
+                         "but for ru_block2d, l2_block2d, tail_block and "
+                         "l2_block)")
+    ap.add_argument("--kernel", choices=("attgate", "conv333", "conv333_dw",
+                                         "ds_conv", *FUSED),
+                    default="attgate")
     ap.add_argument("--ds-th", default="",
                     help="ds_conv: also time the tree's kernel at these "
                          "tile heights (comma list of 8, 16)")
@@ -331,23 +378,37 @@ def main(argv=None) -> int:
         sites = (_rb_sites if kernel == "ru_block2d" else _l2_sites)(
             cs, dev, tiles)
         timer = cs.graph_ms
+    elif kernel == "l2_block":
+        sites = _l2b_sites(cs, dev)
+        timer = cs.graph_ms
     elif kernel == "tail_block":
         sites = _tail_sites(cs, dev, [int(t) for t in
                                       args.tail_tiles.split(",") if t])
         timer = cs.graph_ms
     else:
-        sites = ((*row, {}) for row in (
-            _attgate_sites if kernel == "attgate" else _dw_sites)(cs, dev))
+        sites = ((*row, {}) for row in {
+            "attgate": _attgate_sites, "conv333": _conv_sites,
+            "conv333_dw": _dw_sites}[kernel](cs, dev))
         timer = cs.cuda_ms
     reps = RB_REPS if kernel in FUSED else REPS
     times, bounds, host = {}, {}, {}
     names = list(libs)
     for site, run, ref, tol, b, extra in sites:
         use("tree")
+        first = None
         for name in names if not args.time_only else ():
             use(name)
-            for j, (g, r) in enumerate(zip(run(mods[name]), ref)):
+            outs = run(mods[name])
+            for j, (g, r) in enumerate(zip(outs, ref)):
                 cs.compare(f"{name} {site} output {j}", g, r, tol)
+            if first is None:
+                first = (name, outs)
+            else:
+                print(f"  {name} {site}: bit-equal to {first[0]}: " + str(
+                    [torch.equal(g, f) for g, f in zip(outs, first[1])]),
+                    flush=True)
+            del outs
+        first = None
         for name, fn in extra.items() if not args.time_only else ():
             if not name.startswith("cudnn"):
                 use("tree")

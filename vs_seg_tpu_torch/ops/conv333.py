@@ -11,9 +11,15 @@ ops/tail2d.py at kd = 1 (the (3,3,1) "2.5D" levels).
     y   = act(y * scale + shift)           act: PReLU(alpha), ReLU is alpha 0
     out = y + (conv1x1(xr, wr) + br)       optional residual, after the act
 
+With `gate` (an f32 attention map), every input, the residual's included,
+is gated first, x -> att * x + x rounded to x.dtype, as the kernel's gated
+instance does on its staged halos: ops/l2block.py's conv0 on a pair that
+never reaches device memory gated.
+
 `conv333` runs the hand-written kernel (csrc/conv333.cu) for CUDA tensors and
 `conv333_plain`, the PyTorch twin, for CPU tensors; any other device raises.
-The CUDA route counts its launches in `conv333.launches`. The kernel reads
+The CUDA route counts its launches in `conv333.launches`, the gated ones
+in `conv333.gated_launches`. The kernel reads
 its weights in wgmma's core-matrix layout (`pack_weights_gmma`), packed once
 per weight tensor and cached on it (`packed_weights`) until the tensor is
 changed in place. `launch` is the one call into the kernel's C launcher,
@@ -59,20 +65,32 @@ def _conv_sum(xs: Sequence[torch.Tensor], w: torch.Tensor) -> torch.Tensor:
     return y.permute(0, 2, 3, 4, 1)
 
 
+def gate_plain(x: torch.Tensor, gate: torch.Tensor) -> torch.Tensor:
+    """att * x + x in float32, rounded to x.dtype: the gate of csrc/
+    attgate.cu and of conv333's gated instance. x (N, D, H, W, C); gate
+    (N, D, H, W) float32."""
+    g = gate[..., None].float()
+    return (g * x.float() + x.float()).to(x.dtype)
+
+
 def conv333_plain(x, w: torch.Tensor, scale: Optional[torch.Tensor] = None,
                   shift: Optional[torch.Tensor] = None,
                   alpha: Optional[torch.Tensor] = None,
-                  residual=None) -> torch.Tensor:
+                  residual=None, gate: Optional[torch.Tensor] = None
+                  ) -> torch.Tensor:
     """PyTorch twin of the conv333 kernel (any device, any float dtype).
 
     x: (N, D, H, W, Cin) or a pair; w: (3, 3, kd, Cin_total, Cout) in the
     JAX (kh, kw, kd) order, kd in {1, 3}; scale/shift: (Cout,) f32 or None;
     alpha: the PReLU slope ((1,) or (Cout,)), or None for no activation;
     residual: None or
-    (xr, wr, br) with xr a tensor or pair, wr (1, 1, 1, Cr, Cout), br (Cout,).
-    Convs run in x.dtype; the epilogue runs in float32 on the conv outputs;
-    the result has x.dtype."""
+    (xr, wr, br) with xr a tensor or pair, wr (1, 1, 1, Cr, Cout), br (Cout,);
+    gate: None or the attention map (N, D, H, W) float32, applied to x and
+    xr (gate_plain). Convs run in x.dtype; the epilogue runs in
+    float32 on the conv outputs; the result has x.dtype."""
     xs = as_pair(x)
+    if gate is not None:
+        xs = tuple(gate_plain(v, gate) for v in xs)
     y = _conv_sum(xs, w)
     if scale is not None:
         y = y * scale.float()
@@ -82,7 +100,10 @@ def conv333_plain(x, w: torch.Tensor, scale: Optional[torch.Tensor] = None,
         y = torch.where(y >= 0, y, alpha.float() * y)
     if residual is not None:
         xr, wr, br = residual
-        y = y + (_conv_sum(as_pair(xr), wr) + br.float())
+        xr = as_pair(xr)
+        if gate is not None:
+            xr = tuple(gate_plain(v, gate) for v in xr)
+        y = y + (_conv_sum(xr, wr) + br.float())
     return y.to(xs[0].dtype)
 
 
@@ -219,7 +240,8 @@ def _ch(t: Optional[torch.Tensor]) -> int:
 
 _ARGTYPES = ([ctypes.c_void_p, ctypes.c_int] * 4
              + [ctypes.c_void_p] * 5 + [ctypes.c_int] + [ctypes.c_void_p] * 2
-             + [ctypes.c_int] * 11 + [ctypes.c_void_p])
+             + [ctypes.c_int] * 10 + [ctypes.c_void_p, ctypes.c_int,
+                                      ctypes.c_void_p])
 
 
 def _lib():
@@ -233,8 +255,8 @@ def _lib():
 
 def launch(out: torch.Tensor, xs, wm: torch.Tensor, n_t: int, cop: int,
            kd: int, scale=None, shift=None, alpha=None, rs=(), wr=None,
-           rbias=None, stride: int = 1, th: int = 0, what: str = "conv333"
-           ) -> None:
+           rbias=None, stride: int = 1, th: int = 0, gate=None,
+           what: str = "conv333") -> None:
     """One launch of csrc/conv333.cu on the current stream of out's device;
     raises if the launcher refuses it. The arguments are as the kernel
     takes them (prepared by conv333 and ops/dsconv.py:ds_conv, which count
@@ -242,7 +264,9 @@ def launch(out: torch.Tensor, xs, wm: torch.Tensor, n_t: int, cop: int,
     16-byte aligned), wm/wr packed by pack_weights_gmma for N width n_t
     over cop output channels, the epilogue vectors from _epi; out the
     contiguous bf16 output. stride 2 (kd 3, one input, no residual, even
-    W) takes th, the tile height (8 or 16); stride 1 takes th = 0."""
+    W) takes th, the tile height (8 or 16); stride 1 takes th = 0. gate:
+    None or the contiguous f32 map (N, D, H, W) that the gated instance
+    (stride 1) applies to every staged input."""
     xa = xs[0]
     xb = xs[1] if len(xs) > 1 else None
     ra = rs[0] if rs else None
@@ -256,21 +280,23 @@ def launch(out: torch.Tensor, xs, wm: torch.Tensor, n_t: int, cop: int,
         _ptr(rb), _ch(rb), _ptr(wm), _ptr(wr), _ptr(scale), _ptr(shift),
         _ptr(alpha), alpha.numel() if alpha is not None else 1, _ptr(rbias),
         _ptr(out), n, d, h, w, out.shape[-1], n_t, cop, kd, stride, th,
-        idx, torch._C._cuda_getCurrentRawStream(idx))
+        _ptr(gate), idx, torch._C._cuda_getCurrentRawStream(idx))
     _build.check(lib, err, what)
 
 
 def conv333(x, w: torch.Tensor, scale: Optional[torch.Tensor] = None,
             shift: Optional[torch.Tensor] = None,
             alpha: Optional[torch.Tensor] = None,
-            residual=None) -> torch.Tensor:
-    """(3,3,kd) conv + epilogue (+ residual); see conv333_plain for the
-    arguments. CUDA tensors go to the hand-written kernel (bf16 activations,
-    contiguous NDHWC, one device), CPU tensors to conv333_plain."""
+            residual=None, gate: Optional[torch.Tensor] = None
+            ) -> torch.Tensor:
+    """(3,3,kd) conv + epilogue (+ residual), optionally gated; see
+    conv333_plain for the arguments. CUDA tensors go to the hand-written
+    kernel (bf16 activations, contiguous NDHWC, one device, a contiguous
+    float32 gate), CPU tensors to conv333_plain."""
     xs = as_pair(x)
     dev = xs[0].device
     if dev.type == "cpu":
-        return conv333_plain(x, w, scale, shift, alpha, residual)
+        return conv333_plain(x, w, scale, shift, alpha, residual, gate)
     if dev.type != "cuda":
         raise ValueError(f"conv333: unsupported device {dev}")
     if len(xs) > 2:
@@ -300,12 +326,22 @@ def conv333(x, w: torch.Tensor, scale: Optional[torch.Tensor] = None,
                              f"does not match {crs} -> {cout}")
         wrp = packed_weights(wr, "conv333", crs, n_t, dev)
         rbias = _epi(br, cout, dev)
+    if gate is not None and (
+            gate.device != dev or gate.dtype != torch.float32
+            or not gate.is_contiguous() or tuple(gate.shape) != tuple(shape)):
+        raise ValueError(f"conv333: gate must be a contiguous float32 "
+                         f"{tuple(shape)} map on {dev}, got "
+                         f"{tuple(gate.shape)} {gate.dtype} on {gate.device}")
     out = torch.empty((*shape, cout), dtype=torch.bfloat16, device=dev)
     memo = {}
     launch(out, _tma_ready(xs, memo), wm, n_t, cop, int(w.shape[2]), scale,
-           shift, alpha, _tma_ready(rs, memo), wrp, rbias)
-    conv333.launches += 1
+           shift, alpha, _tma_ready(rs, memo), wrp, rbias, gate=gate)
+    if gate is None:
+        conv333.launches += 1
+    else:
+        conv333.gated_launches += 1
     return out
 
 
 conv333.launches = 0
+conv333.gated_launches = 0

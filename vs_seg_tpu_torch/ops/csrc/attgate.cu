@@ -13,11 +13,18 @@
 //   g0[v, c] = att[v] * x0[v, c] + x0[v, c]
 //   g1[v, c] = att[v] * x1[v, c] + x1[v, c]            (when x1 is given)
 //
+// With no x0 (the att-only mode of ops/l2block.py:att_map) it gates nothing
+// and writes the unrounded f32 att instead, beside the bf16 map: the gate
+// of l2_block's conv0 then runs in conv333.cu's gated instance on the
+// staged halos (fmaf(att, x, x) in f32 on this same att), so the gated pair
+// never reaches device memory.
+//
 // Layout: a1 NDHWC bf16 with Ca channels, Ca % 16 == 0 and Ca <= 256, base
 // 16-byte aligned (the wrapper, ops/att.py:launch_attgate, pads other
 // channel counts with zeros in a copy, and w2 with them); x0, x1, g0, g1
 // NDHWC bf16 with any Cx channels; att (N, D, H, W) bf16, or null when the
-// caller drops the map; w2 f32 (kd*9*Ca + 1): the (kd*9, Ca) taps, tap =
+// caller drops the map; att32 (N, D, H, W) f32, or null (only with no x0,
+// and then required); w2 f32 (kd*9*Ca + 1): the (kd*9, Ca) taps, tap =
 // (kd*3+kh)*3+kw, then b2. f32 accumulation; each weight enters the tensor
 // cores as two bf16 terms (hi = rn(w), lo = rn(w - hi): about 16 bits, a1
 // is bf16 already); an f32 sigmoid and gate on the unrounded att; each
@@ -57,7 +64,8 @@
 //   the block; Cx % 8 != 0 or unaligned bases take a scalar path.
 // - Tile size is chosen at launch from Ca and kd: the widest TW <= 32 (W
 //   cut into equal tiles) and the tallest TH <= 8 whose ring fits two
-//   blocks per SM (113 KB), else one (227 KB); depth is cut into chunks
+//   blocks per SM (113 KB), else one (227 KB; in the att-only mode
+//   always the largest that fits one); depth is cut into chunks
 //   when the columns alone would leave the SMs short of blocks (at kd = 3
 //   each chunk reads 2 planes more). The halo rows of an ldmatrix are
 //   Ca * 2 bytes apart, so at Ca = 32 and 64 they meet 4- and 8-way bank
@@ -83,6 +91,7 @@ struct Args {
   __nv_bfloat16* ga;
   __nv_bfloat16* gb;
   __nv_bfloat16* att;
+  float* att32;                   // unrounded att
   int D, H, W, C, CX;
   int th, tw, tiles_h, tiles_w, dchunks, dc;
   int slot_pitch, slot_bytes, off_w, off_q, off_att, off_bar;
@@ -208,7 +217,7 @@ __global__ void __launch_bounds__(NTHREADS)
   const int g = lane >> 2, t = lane & 3;
   const int npos = (th + 2) * wp, ntile = (npos + 15) / 16;
   const int rows_h = min(th, a.H - h0), cols = min(tw, a.W - w0);
-  const int nx = a.xb ? 2 : 1;
+  const int nx = a.xa ? (a.xb ? 2 : 1) : 0;
   // this lane's ldmatrix row: matrices (rows 0-7, k 0-7), (8-15, 0-7),
   // (0-7, 8-15), (8-15, 8-15) take their row addresses from lanes 0-7,
   // 8-15, 16-23, 24-31
@@ -274,10 +283,14 @@ __global__ void __launch_bounds__(NTHREADS)
           zv += q_s[((ty + kh) * wp + tx + kw) * 9 + kh * 3 + kw];
       const float sv = 1.f / (1.f + expf(-zv));
       att_s[v] = sv;
-      if (a.att && ty < rows_h && tx < cols)
-        a.att[(((size_t)n * a.D + z) * a.H + h0 + ty) * a.W + w0 + tx] =
-            __float2bfloat16_rn(sv);
+      if (ty < rows_h && tx < cols) {
+        const size_t row = ((size_t)n * a.D + z) * a.H + h0 + ty;
+        if (a.att) a.att[row * a.W + w0 + tx] = __float2bfloat16_rn(sv);
+        if (a.att32) a.att32[row * a.W + w0 + tx] = sv;
+      }
     }
+    if (nx == 0) continue;   // att only: the next plane's __syncthreads
+                             // keeps Q until every thread has read it
     __syncthreads();      // att_s is complete
 
     // the gate: rows of cols * CX contiguous values
@@ -344,15 +357,21 @@ bool aligned16(const void* p) {
 }  // namespace
 
 // xb/gb null: one gated input; att null: no attention map is written.
+// xa/ga null (the att-only mode; xb, gb null too, cx ignored): att32, the
+// unrounded map, is written, else att32 must be null.
 extern "C" int attgate_launch(const void* a1, const void* w2, const void* xa,
                               const void* xb, void* ga, void* gb, void* att,
-                              int n, int d, int h, int w, int ca, int cx,
-                              int kd, int device, void* stream) {
+                              void* att32, int n, int d, int h, int w, int ca,
+                              int cx, int kd, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (ca < 16 || ca % 16 || ca > 256 || cx < 1 || (kd != 1 && kd != 3) ||
-      n < 1 || d < 1 || h < 1 || w < 1 || !aligned16(a1) ||
-      (xb == nullptr) != (gb == nullptr))
+  const bool att_only = xa == nullptr;
+  if (ca < 16 || ca % 16 || ca > 256 || (kd != 1 && kd != 3) || n < 1 ||
+      d < 1 || h < 1 || w < 1 || !aligned16(a1) ||
+      (xb == nullptr) != (gb == nullptr) ||
+      (xa == nullptr) != (ga == nullptr) ||
+      (att_only ? (xb != nullptr || att32 == nullptr)
+                : (cx < 1 || att32 != nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   static int sms[64] = {0};
   if (device < 0 || device >= 64)
@@ -371,8 +390,10 @@ extern "C" int attgate_launch(const void* a1, const void* w2, const void* xa,
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   // the tile: widest TW, then tallest TH, whose ring fits two blocks per
-  // SM, else the first that fits one; W is split into equal tiles (W = 48:
-  // two of 24, not 32 + 16)
+  // SM, else (and always in the att-only mode, where no gate pass needs a
+  // second block beside it: H100, 0.54 against 0.58 ms at up_2) the first
+  // that fits one; W is split into equal tiles (W = 48: two of 24, not
+  // 32 + 16)
   Layout best = {}, one = {};
   for (int tw0 : {32, 16, 8}) {
     const int nt = (w + tw0 - 1) / tw0;
@@ -383,7 +404,7 @@ extern "C" int attgate_launch(const void* a1, const void* w2, const void* xa,
       if (!one.smem && l.smem <= MAX_SMEM) one = l;
     }
   }
-  if (!best.smem) best = one;
+  if (!best.smem || att_only) best = one;
   if (!best.smem) return static_cast<int>(cudaErrorInvalidValue);
 
   Args a;
@@ -393,6 +414,7 @@ extern "C" int attgate_launch(const void* a1, const void* w2, const void* xa,
   a.ga = static_cast<__nv_bfloat16*>(ga);
   a.gb = static_cast<__nv_bfloat16*>(gb);
   a.att = static_cast<__nv_bfloat16*>(att);
+  a.att32 = static_cast<float*>(att32);
   a.D = d;
   a.H = h;
   a.W = w;
@@ -408,7 +430,7 @@ extern "C" int attgate_launch(const void* a1, const void* w2, const void* xa,
   a.off_bar = best.off_bar;
   a.tiles_h = (h + a.th - 1) / a.th;
   a.tiles_w = (w + a.tw - 1) / a.tw;
-  a.vec_x = cx % 8 == 0 && aligned16(xa) && aligned16(ga) &&
+  a.vec_x = !att_only && cx % 8 == 0 && aligned16(xa) && aligned16(ga) &&
             (xb == nullptr || (aligned16(xb) && aligned16(gb)));
   const void* kernel = kd == 3 ? reinterpret_cast<const void*>(
                                     attgate_kernel<3>)

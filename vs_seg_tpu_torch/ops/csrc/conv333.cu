@@ -25,6 +25,14 @@
 // x may be a pair (xa, xb) standing for its channel concat, and so may the
 // residual input r; nothing is concatenated in memory.
 //
+// Gated (G; stride 1, through ops/l2block.py:l2_block): every staged input,
+// the residual's included, is first gated by an attention map,
+//   x'[v, ci] = bf16(fmaf(att[v], x[v, ci], x[v, ci]))    (att f32),
+// so out = conv(x') (+ conv1x1(r')) with x' never in device memory: the
+// conv0 of vs_seg_tpu/ops/pallas_l2block.py:l2_block (_l2block_kernel stage
+// D) on the pair that its stage C gated, the same expression and rounding
+// as csrc/attgate.cu's gate.
+//
 // Layout: activations NDHWC bf16 with C % 8 == 0 and 16-byte aligned bases
 // (the wrapper pads other channel counts). The epilogue vectors are f32 and
 // read where they lie: scale (Cout) or null (1), shift (Cout) or null (0),
@@ -115,6 +123,48 @@
 //   16 (MT = 2) or 8 (MT = 1), the wrapper's choice (ops/dsconv.py:plan;
 //   8 where 16 leaves SMs idle): TH = 32 does not fit (3 slots of 71 KB
 //   halo + slab).
+// - Gated (G; conv333_gated_kernel): the MMAs read gated rows, each
+//   landed slot gated in place, every 16-byte row of both half planes (8
+//   fmaf in f32, one bf16 rounding). The block is warp-specialized, as
+//   csrc/conv333_dw.cu: the two consumer warpgroups run the ungated loop
+//   unchanged but for the barrier they wait on; a producer warp issues the
+//   copies; 7 gating warps (GATERS threads) gate. The producer and gating
+//   warps hand registers to the consumers (setmaxnreg, 184 a consumer
+//   thread), so the instance takes MT = 3 (TH = 24, which divides the
+//   flagship's H of 96, 48 and 24) at every N, where the fused residual's
+//   second accumulator set fits beside the first at N = 48 (MT = 4 spilled;
+//   MT = 2 was 7-40 % slower), and one block per SM. Its epilogue vectors
+//   sit in a table in shared memory, filled once per block (a load per
+//   column and tile from global memory cost 5 % at up_2).
+//   A gating thread loads the att values of its halo positions (the
+//   stage's depth plane, rows h0 - 1 .. h0 + TH, columns w0 - 1 .. w0 + 16;
+//   0 outside the volume, where the halo is zero-filled and so is x')
+//   with plain loads from the f32 map (19 MB at up_2, L2-resident) before
+//   it waits for the slot; a TMA box of the map in the slot (20 f32 wide)
+//   faulted on the card. The gate is branch-free (a thread past the last
+//   position gates scratch rows in a half plane's padding; out-of-volume
+//   att is a select). Barrier protocol of stage k (slot s = k % 3), with a
+//   third mbarrier per slot, gated[s] (GATERS arrivals a phase):
+//     - producer: wait empty[s] for use k / 3 - 1 (k >= 3); announce and
+//       issue stage k's copies on full[s];
+//     - each gating thread: load its att values; wait full[s]; gate its
+//       rows; fence.proxy.async.shared::cta (its generic-proxy writes
+//       become visible to the async proxy, wgmma's); arrive on gated[s];
+//     - each consumer thread: wait gated[s]; issue and retire stage k's
+//       wgmmas; arrive on empty[s] (one arrival per warp, as ungated).
+//   The producer refills slot s only after empty[s], so no generic-proxy
+//   write of the gate can meet a TMA write of the next use, and a gating
+//   thread gates use u + 1 of a slot only after its full phase u + 1,
+//   which follows every consumer's release of use u. What did not work
+//   (PERF.md, section 6): the consumers gating the next slot between their
+//   wgmma commit and wait, with a __syncthreads or an mbarrier per stage,
+//   made ptxas serialize every wgmma of the instance (C7520, "compiler-
+//   inserted WG.AR in divergent path"; so did any gate before the loop or
+//   the stage walk's advance before the MMAs), 1.9x the ungated time; one
+//   gating warpgroup whose thread 0 also produced delayed the copies
+//   behind the gate (1.7x).
+//   Stage order and wgmma sequence are those of the ungated instance, so the
+//   output equals conv333 on an explicitly gated input bit for bit.
 // Bounds: any N, D, H, W; tiles <= 2^31.
 
 #include "common.cuh"
@@ -129,6 +179,18 @@ constexpr int NWARPS = NTHREADS / 32;
 constexpr int STAGES = 3;                // ring slots
 constexpr int KC = 16;                   // input channels per stage (wgmma K)
 constexpr int MT4_MAX_N = 48;            // N up to which MT = 4
+// the gated instance: its producer warp and gating warps (two warpgroups),
+// the registers a thread of them and of a consumer warpgroup takes
+// (setmaxnreg: 256 x 184 + 256 x 72 = 64 K), its ring slots and m64 tiles
+// per consumer warpgroup
+constexpr int GTHREADS = 256;
+constexpr int GATERS = GTHREADS - 32;
+constexpr int CONS_REGS = 184, GATE_REGS = 72;
+constexpr int GSTAGES = 3;
+constexpr int GMT = 3;
+// output channels (N tiles x N) whose epilogue vectors the gated instance
+// keeps in shared memory
+constexpr int GEPI = 384;
 
 // m64 tiles per warpgroup of a stride-1 kernel: 4 (TH = 32, M = 512) as far
 // as the registers allow
@@ -138,11 +200,12 @@ constexpr int mt_s1() {
 }
 
 // One kernel instance: N width, fused residual (F), stride S, m64 tiles per
-// warpgroup MT.
-template <int N_, bool F_, int S_, int MT_>
+// warpgroup MT, gated (G).
+template <int N_, bool F_, int S_, int MT_, bool G_ = false>
 struct Cfg {
   static constexpr int N = N_, S = S_, MT = MT_;
-  static constexpr bool F = F_;
+  static constexpr bool F = F_, G = G_;
+  static_assert(!G || S == 1, "the gate is a stride-1 instance");
   static constexpr int TH = 8 * MT;          // tile height (rows of 2 m64)
   // halo: (TH + 2) rows x 18 positions at S = 1; (2 TH + 1) input rows x
   // 17 positions of the W-pair view at S = 2
@@ -153,10 +216,16 @@ struct Cfg {
   static constexpr int HALO_BYTES = 2 * S * HALF_PITCH;  // S parities x 2
   static constexpr int WBYTES = 9 * KC * N * 2;    // a main stage's slab
   static constexpr int RBYTES = KC * N * 2;         // a residual slab
+  // the gate's scratch row: a half plane's padding
+  static_assert(!G || HALF_PITCH - HALF_BYTES >= 32, "no scratch rows");
   // a ring slot: the halo, the main slab and, when the residual is fused
   // into the main stages (F), the residual slab; a multiple of 128 bytes
   static constexpr int SLOT = HALO_BYTES + WBYTES + (F ? RBYTES : 0);
-  static constexpr int SMEM = STAGES * SLOT + 2 * STAGES * 8;
+  // ring slots; full and empty barriers per slot, and gated (G); the
+  // gated instance's epilogue table (scale, shift, alpha, residual bias)
+  static constexpr int ST = G ? GSTAGES : STAGES;
+  static constexpr int SMEM =
+      ST * SLOT + (G ? 3 : 2) * ST * 8 + (G ? 4 * GEPI * 4 : 0);
 };
 
 // The residual accumulators of a fused kernel (a dummy otherwise).
@@ -177,6 +246,7 @@ struct Args {
   const float *scale, *shift, *alpha, *rbias;   // each may be null
   int alpha_n;                    // 1 (one slope) or cout
   __nv_bfloat16* out;             // (N, Do, Ho, Wo, cout)
+  const float* att;               // the gate's map (G): (N, D, H, W)
   int Nb, D, H, W, cout, kd;      // input sizes
   int Do, Ho, Wo;                 // output sizes ((X - 1) / S + 1)
   int th, tiles_w, tiles_hw, ntiles, total;   // tile height, tile counts
@@ -449,6 +519,72 @@ __device__ __forceinline__ void produce(const Walk<C::S>& w, char* slot,
               full);
 }
 
+// The gate (G), by gating thread t: positions t, t + GATERS, ... of the
+// stage's HH x HW halo, GITER<C> of them, each two
+// rows (the two 8-channel half planes) under one att value. gate_att loads
+// the att values (0 outside the volume, where the halo is zero-filled)
+// before the wait for the slot.
+template <class C>
+constexpr int GITER = (C::HH * C::HW + GATERS - 1) / GATERS;
+
+template <class C>
+__device__ __forceinline__ void gate_att(const Walk<C::S>& w, const Args& a,
+                                         int t, float (&s)[GITER<C>]) {
+  constexpr int NPOS = C::HH * C::HW;
+  const int dz = w.res ? w.d : w.d + w.p - a.kd / 2;
+  const float* plane = a.att + ((size_t)w.n * a.D + dz) * a.H * a.W;
+#pragma unroll
+  for (int it = 0; it < GITER<C>; ++it) {
+    const int pos = min(it * GATERS + t, NPOS - 1);
+    const int r = pos / C::HW, c = pos - r * C::HW;
+    const int h = w.h0 - 1 + r, x = w.w0 - 1 + c;
+    const bool in = (unsigned)h < (unsigned)a.H && (unsigned)x < (unsigned)a.W;
+    const float v = __ldg(plane + (in ? h * a.W + x : 0));
+    s[it] = in ? v : 0.f;
+  }
+}
+
+// x' = bf16(fmaf(att, x, x)) on thread t's rows of a landed slot, in place
+// (a thread past the last position gates two scratch rows in the padding
+// of half plane 0); then its writes are made visible to the async proxy.
+template <class C>
+__device__ __forceinline__ void gate_rows(char* slot, int t,
+                                          const float (&s)[GITER<C>]) {
+  constexpr int NPOS = C::HH * C::HW;
+#pragma unroll
+  for (int it = 0; it < GITER<C>; ++it) {
+    const int pos = it * GATERS + t;
+    char* p = slot + (pos < NPOS ? pos * 16 : C::HALF_BYTES);
+    uint4* r0 = reinterpret_cast<uint4*>(p);
+    uint4* r1 = reinterpret_cast<uint4*>(p + (pos < NPOS ? C::HALF_PITCH
+                                                          : 16));
+    float f[8], g[8];
+    unpack8(*r0, f);
+    unpack8(*r1, g);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      f[e] = fmaf(s[it], f[e], f[e]);
+      g[e] = fmaf(s[it], g[e], g[e]);
+    }
+    *r0 = pack8(f);
+    *r1 = pack8(g);
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Gate stage w's slot once it has landed (its `full` barrier, parity),
+// then arrive on its `gated` barrier.
+template <class C>
+__device__ __forceinline__ void gate(char* slot, const Walk<C::S>& w,
+                                     const Args& a, int t, uint64_t* full,
+                                     uint64_t* gated, int parity) {
+  float s[GITER<C>];
+  gate_att<C>(w, a, t, s);
+  mbar_wait(full, parity);
+  gate_rows<C>(slot, t, s);
+  mbar_arrive(gated);
+}
+
 // The MMAs of one stage: 9 taps (main) or the centre tap (residual), MT
 // m64 tiles per warpgroup; a fused kernel's centre-plane main stage also
 // runs the residual's centre tap into racc.
@@ -544,6 +680,32 @@ __device__ __forceinline__ void activate(float (&acc)[C::MT][C::N / 2],
     const float al =
         a.alpha ? __ldg(a.alpha + (a.alpha_n == 1 ? 0 : co)) : 1.f;
     const float rb = a.rbias ? __ldg(a.rbias + co) : 0.f;
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+      float v = acc[m][e] * s + h;
+      v = v >= 0.f ? v : al * v;
+      if constexpr (C::F) {
+        v += racc[m][e];
+        racc[m][e] = 0.f;
+      }
+      acc[m][e] = v + rb;
+    }
+  }
+}
+
+// activate, the epilogue vectors read from the gated instance's table in
+// shared memory (ep[0..3]: scale, shift, alpha, residual bias per padded
+// output channel): the same values, without a global load per column
+// and tile.
+template <class C>
+__device__ __forceinline__ void activate_table(
+    float (&acc)[C::MT][C::N / 2], RAcc<C>& racc, int nt, const float* ep) {
+  constexpr int N = C::N, MT = C::MT;
+#pragma unroll
+  for (int e = 0; e < N / 2; ++e) {
+    const int co = nt * N + frag_col(e);
+    const float s = ep[co], h = ep[GEPI + co], al = ep[2 * GEPI + co],
+                rb = ep[3 * GEPI + co];
 #pragma unroll
     for (int m = 0; m < MT; ++m) {
       float v = acc[m][e] * s + h;
@@ -653,6 +815,97 @@ __global__ void __launch_bounds__(NTHREADS)
   }
 }
 
+// The gated instance (G): the two consumer warpgroups run the ungated
+// kernel's loop, waiting on each slot's `gated` barrier instead of `full`;
+// threads NTHREADS .. are a producer warp (one thread issues the copies)
+// and GATERS gating threads. See the header for the protocol.
+template <class C>
+__global__ void __launch_bounds__(NTHREADS + GTHREADS, 1)
+    conv333_gated_kernel(const __grid_constant__ Maps maps, const Args a) {
+  constexpr int N = C::N, MT = C::MT, SLOT = C::SLOT, ST = C::ST;
+  constexpr bool F = C::F;
+  extern __shared__ __align__(128) char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + ST * SLOT);
+  uint64_t* empty = full + ST;
+  uint64_t* gated = full + 2 * ST;
+  float* ep = reinterpret_cast<float*>(gated + ST);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], NWARPS);
+      mbar_init(&gated[s], GATERS);
+    }
+    mbar_init_fence();
+  }
+  // the epilogue table, as activate reads the vectors (padded columns
+  // take channel cout - 1's values; they are not stored)
+  for (int i = threadIdx.x; i < a.ntiles * N; i += blockDim.x) {
+    const int co = min(i, a.cout - 1);
+    ep[i] = a.scale ? a.scale[co] : 1.f;
+    ep[GEPI + i] = a.shift ? a.shift[co] : 0.f;
+    ep[2 * GEPI + i] = a.alpha ? a.alpha[a.alpha_n == 1 ? 0 : co] : 1.f;
+    ep[3 * GEPI + i] = a.rbias ? a.rbias[co] : 0.f;
+  }
+  __syncthreads();
+  // the warpgroup, read through a shuffle so that the compiler knows it is
+  // the same in every thread of a warp (a wgmma in a branch it takes for
+  // divergent is serialized)
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x >> 7, 0);
+  if (wg >= NWG) {
+    // the producer and gating warps hand registers to the consumers
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(GATE_REGS));
+    const int t = threadIdx.x - NTHREADS;
+    Walk<1> g;
+    g.start(blockIdx.x, a);
+    if (t < 32) {
+      // the producer: stage k into slot k % ST once the consumers have
+      // released its use k / ST - 1
+      if (t == 0) {
+        for (int k = 0; g.tile < a.total; ++k) {
+          const int slot = k % ST;
+          if (k >= ST) mbar_wait(&empty[slot], ((k - ST) / ST) & 1);
+          produce<C>(g, smem + slot * SLOT, &full[slot], maps, a);
+          g.advance(a);
+        }
+      }
+    } else {
+      for (int k = 0; g.tile < a.total; ++k) {
+        const int slot = k % ST;
+        gate<C>(smem + slot * SLOT, g, a, t - 32, &full[slot], &gated[slot],
+                (k / ST) & 1);
+        g.advance(a);
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONS_REGS));
+    float acc[MT][N / 2];
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int e = 0; e < N / 2; ++e) acc[m][e] = 0.f;
+    RAcc<C> racc;
+    if constexpr (F) {
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int e = 0; e < N / 2; ++e) racc[m][e] = 0.f;
+    }
+    Walk<1> cons;
+    cons.start(blockIdx.x, a);
+    for (int k = 0; cons.tile < a.total; ++k) {
+      const int slot = k % ST;
+      mbar_wait(&gated[slot], (k / ST) & 1);
+      compute<C>(!cons.res, F && !cons.res && cons.p == a.kd / 2,
+                 smem + slot * SLOT, acc, racc);
+      __syncwarp();
+      if ((threadIdx.x & 31) == 0) mbar_arrive(&empty[slot]);
+      if (cons.last_main(a)) activate_table<C>(acc, racc, cons.nt, ep);
+      if (cons.last(a)) store<C>(acc, cons, a);
+      cons.advance(a);
+    }
+  }
+}
+
 // TMA map of one NDHWC bf16 input: one 8-channel half plane of a halo per
 // box. S = 1: dims (C, W, H, D, N), box (8, 18, TH + 2, 1, 1). S = 2: the
 // W-pair view, dims (C, 2, W/2, H, N*D), box (8, 1, 17, 2 TH + 1, 1).
@@ -688,14 +941,16 @@ int launch(const void* const* ins, const int* cs, Args a, int device,
   static int sms[64] = {0};
   if (device < 0 || device >= 64)
     return static_cast<int>(cudaErrorInvalidDevice);
+  void (*kernel)(Maps, Args) = conv333_kernel<C>;
+  if constexpr (C::G) kernel = conv333_gated_kernel<C>;
+  constexpr int THREADS = NTHREADS + (C::G ? GTHREADS : 0);
   if (per_sm[device] == 0) {
     cudaError_t err = cudaFuncSetAttribute(
-        conv333_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        SMEM);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
     if (err != cudaSuccess) return static_cast<int>(err);
     int nb = 0, nsm = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &nb, conv333_kernel<C>, NTHREADS, SMEM);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&nb, kernel, THREADS,
+                                                        SMEM);
     if (err != cudaSuccess) return static_cast<int>(err);
     err = cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, device);
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -716,20 +971,28 @@ int launch(const void* const* ins, const int* cs, Args a, int device,
   a.total = (int)total;
   const long long cap = (long long)per_sm[device] * sms[device];
   const int grid = (int)(a.total < cap ? a.total : cap);
-  conv333_kernel<C><<<grid, NTHREADS, SMEM, s>>>(maps, a);
+  kernel<<<grid, THREADS, SMEM, s>>>(maps, a);
   return static_cast<int>(cudaGetLastError());
 }
 
 // a fused residual's second accumulator set fits beside the first for
 // N <= 48 (at N >= 64 it spilled and was slower than the separate residual
 // stages)
-template <int N>
-int launch_s1(bool fused, const void* const* ins, const int* cs,
-              const Args& a, int device, cudaStream_t s) {
+template <int N, bool G>
+int launch_s1g(bool fused, const void* const* ins, const int* cs,
+               const Args& a, int device, cudaStream_t s) {
+  constexpr int MT = G ? GMT : mt_s1<N>();
   if constexpr (N <= MT4_MAX_N) {
-    if (fused) return launch<Cfg<N, true, 1, mt_s1<N>()>>(ins, cs, a, device, s);
+    if (fused) return launch<Cfg<N, true, 1, MT, G>>(ins, cs, a, device, s);
   }
-  return launch<Cfg<N, false, 1, mt_s1<N>()>>(ins, cs, a, device, s);
+  return launch<Cfg<N, false, 1, MT, G>>(ins, cs, a, device, s);
+}
+
+template <int N>
+int launch_s1(bool fused, bool gated, const void* const* ins, const int* cs,
+              const Args& a, int device, cudaStream_t s) {
+  return gated ? launch_s1g<N, true>(fused, ins, cs, a, device, s)
+               : launch_s1g<N, false>(fused, ins, cs, a, device, s);
 }
 
 // stride 2: TH = 16 (MT = 2) or 8 (MT = 1)
@@ -742,7 +1005,8 @@ int launch_s2(int th, const void* const* ins, const int* cs, const Args& a,
 
 }  // namespace
 
-// stride 1 or 2; th: the stride-2 tile height (8 or 16), 0 at stride 1
+// stride 1 or 2; th: the stride-2 tile height (8 or 16), 0 at stride 1;
+// att: the gate's f32 map (N, D, H, W), or null (ungated); stride 1 only
 extern "C" int conv333_launch(const void* xa, int ca, const void* xb, int cb,
                               const void* ra, int cra, const void* rb, int crb,
                               const void* wm, const void* wr,
@@ -751,11 +1015,14 @@ extern "C" int conv333_launch(const void* xa, int ca, const void* xb, int cb,
                               const void* rbias,
                               void* out, int n, int d, int h, int w, int cout,
                               int ntile, int cop, int kd, int stride, int th,
-                              int device, void* stream) {
+                              const void* att, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const void* ins[4] = {xa, xb, ra, rb};
   const int cs[4] = {ca, xb ? cb : 0, ra ? cra : 0, rb ? crb : 0};
+  const bool gated = att != nullptr;
+  if (gated && (stride != 1 || cop > GEPI))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (ntile < 8 || cop % ntile != 0 || cop < cout || (kd != 1 && kd != 3) ||
       !xa || n < 1 || d < 1 || h < 1 || w < 1 || cout < 1 ||
       (wr != nullptr) != (ra != nullptr) || (alpha_n != 1 && alpha_n != cout))
@@ -795,6 +1062,7 @@ extern "C" int conv333_launch(const void* xa, int ca, const void* xb, int cb,
   a.alpha_n = alpha_n;
   a.rbias = static_cast<const float*>(rbias);
   a.out = static_cast<__nv_bfloat16*>(out);
+  a.att = static_cast<const float*>(att);
   a.cout = cout;
   a.kd = kd;
   a.tiles_w = (a.Wo + TW - 1) / TW;
@@ -810,13 +1078,20 @@ extern "C" int conv333_launch(const void* xa, int ca, const void* xb, int cb,
     }
   }
   switch (ntile) {
-    case 8: return launch_s1<8>(fused, ins, cs, a, device, s);
-    case 16: return launch_s1<16>(fused, ins, cs, a, device, s);
-    case 32: return launch_s1<32>(fused, ins, cs, a, device, s);
-    case 48: return launch_s1<48>(fused, ins, cs, a, device, s);
-    case 64: return launch_s1<64>(fused, ins, cs, a, device, s);
-    case 80: return launch_s1<80>(fused, ins, cs, a, device, s);
-    case 96: return launch_s1<96>(fused, ins, cs, a, device, s);
+    case 8:
+      return launch_s1<8>(fused, gated, ins, cs, a, device, s);
+    case 16:
+      return launch_s1<16>(fused, gated, ins, cs, a, device, s);
+    case 32:
+      return launch_s1<32>(fused, gated, ins, cs, a, device, s);
+    case 48:
+      return launch_s1<48>(fused, gated, ins, cs, a, device, s);
+    case 64:
+      return launch_s1<64>(fused, gated, ins, cs, a, device, s);
+    case 80:
+      return launch_s1<80>(fused, gated, ins, cs, a, device, s);
+    case 96:
+      return launch_s1<96>(fused, gated, ins, cs, a, device, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -13,10 +13,15 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
      the flagship shapes of the whole-volume path (batch of 8 windows of
      384x384x64, D-first): the ring probe (csrc/ring.cuh, one (16,128) f32
      plane per depth slice of the volume, bit-equal), conv333 single and
-     pair+residual, attgate,
-     ru_block at down_2/down_3, and the blend over
+     pair+residual, attgate, and the blend over
      the full 448x448x80 volume with its 8 overlapping windows. Kernel and
-     plain times come from CUDA events. l2_block at up_2/up_3/up_4
+     plain times come from CUDA events. ru_block at down_2/3/4 and the
+     bottom (RU_SITES: one launch of conv333.cu's unit kernel (ru_unit)
+     each, its weights resident at down_2, its slabs staged elsewhere;
+     bit-equal to the parent chain of two conv333 launches and over two
+     runs, within KERNEL_TOL of its twin; by CUDA-graph replay beside that
+     chain and the cuDNN chain of its two convs, with its bound and the
+     host's enqueue). l2_block at up_2/up_3/up_4
      (L2B_SITES: conv333, attgate's att-only mode (att_map) and conv333's
      gated instance, one launch each; out and att bit-equal to the parent
      conv333 + attgate + conv333 chain and over two runs, within
@@ -86,8 +91,9 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
      back with the original affine and shape, labelmaps and Dice of the
      two paths agree, and each path's compute seconds per volume. Figures
      are drawn when matplotlib is installed.
- 11. conv333 at each of its sites (CONV_SITES): the 11 ungated launches
-     of one 8-window forward and the 3 conv0 of l2_block's parent chain,
+ 11. conv333 at each of its sites (CONV_SITES): the 3 ungated launches
+     of one 8-window forward, the 8 of ru_block's parent chains
+     and the 3 conv0 of l2_block's parent chain,
      configuration A's kd = 1 conv sites and those of
      the chains its fused kernels replaced, and three train dgrad shapes,
      each against its plain twin, with the kernel's
@@ -166,10 +172,12 @@ STEP_REPS = 3            # timed train steps per path and turn
 # counted apart: down_2/3/4 x 2, upatt_2/3/4 x 3, up_2/3/4 x 2, bottom_att x
 # 2, bottom x 2.
 TRAIN_SITES = 25
-# conv333 launches of one eval forward of one crop: 4 ru_blocks x 2 and the
-# 3 l2_blocks' conv1; their conv0 is the gated instance, with attgate's
-# att-only mode (att_map) before it: 3 each.
-EVAL_CONV333 = 4 * 2 + 3
+# conv333 launches of one eval forward of one crop: the 3 l2_blocks' conv1;
+# their conv0 is the gated instance, with attgate's att-only mode (att_map)
+# before it: 3 each. Each of the 4 ru_blocks (down_2, down_3, down_4, the
+# bottom) is one launch of conv333.cu's unit kernel (ru_unit).
+EVAL_CONV333 = 3
+EVAL_RU = {"ru_block": 4, "ru_unit": 4}
 EVAL_L2 = {"l2_block": 3, "att_map": 3, "conv333_gated": 3, "attgate": 0}
 # Published H100 SXM peaks (dense) for the kernels' bounds.
 PEAK_BF16 = 989e12       # FLOP/s, tensor cores
@@ -264,15 +272,6 @@ def kernel_checks(dev, gen, card: str):
     def vec(c, lo, hi, g=gen):
         return (torch.rand(c, generator=g) * (hi - lo) + lo).to(dev)
 
-    def ru_args(cin, cout):
-        return dict(w0=weight((3, 3, 3), cin, cout),
-                    bn0_scale=vec(cout, .5, 1.5),
-                    bn0_shift=vec(cout, -.2, .2), alpha0=vec(1, .1, .3),
-                    w1=weight((3, 3, 3), cout, cout),
-                    bn1_scale=vec(cout, .5, 1.5),
-                    bn1_shift=vec(cout, -.2, .2), alpha1=vec(1, .1, .3),
-                    wr=weight((1, 1, 1), cin, cout), br=vec(cout, -.2, .2))
-
     def l2_args(c, g):
         return dict(w1=weight((3, 3, 3), 2 * c, c, g), b1=vec(c, -.2, .2, g),
                     w2=weight((3, 3, 3), c, 1, g), b2=vec(1, -.2, .2, g),
@@ -344,26 +343,24 @@ def kernel_checks(dev, gen, card: str):
                     f32_flop=(2 * 27 + 4) * 48 * vox))
     del a1
 
-    # ru_block at down_2 (32 -> 48, 64x96x96) and down_3 (48 -> 64, 32x48x48)
+    # ru_block at its four sites (RU_SITES): down_2 and down_3 drawn from
+    # gen as before, down_4 and the bottom from their own generator, so the
+    # later phases' draws stay as they were
     errs = []
-    for name, shape, cin, cout in (("down_2", (B, 64, 96, 96), 32, 48),
-                                   ("down_3", (B, 32, 48, 48), 48, 64)):
-        xr = randn(*shape, cin)
-        kw = ru_args(cin, cout)
-        errs.append(compare(f"ru_block {name} {shape}x{cin}->{cout}",
-                            rublock.ru_block(xr, **kw),
-                            rublock.ru_block_plain(xr, **kw), KERNEL_TOL))
-        if name == "down_2":
-            rec["ru_block"] = dict(
-                shape=f"down_2 {shape}x{cin}->{cout}",
-                ms=cuda_ms(lambda: rublock.ru_block(xr, **kw)),
-                plain_ms=cuda_ms(lambda: rublock.ru_block_plain(xr, **kw)),
-                library_ms=None,
-                bound=bound(nbytes(xr, *kw.values())
-                            + xr[..., 0].numel() * cout * 2,
-                            2 * xr[..., 0].numel() * (
-                                27 * cin * cout + 27 * cout * cout
-                                + cin * cout)))
+    g4 = torch.Generator().manual_seed(SEED + 8)
+    for site, shape, cin, cout in RU_SITES:
+        g = gen if site in ("down_2", "down_3") else g4
+        xr = torch.randn((*shape, cin), generator=g).to(dev, torch.bfloat16)
+        kw = ru_site_args(dev, g, cin, cout)
+        row = ru_site(site, xr, kw, card)
+        errs.append(row["max_abs_err"])
+        if site == "down_2":
+            for k in ("ru_block", "ru_unit"):
+                rec[k] = dict(shape=f"down_2 {shape}x{cin}->{cout}",
+                              ms=row["ms"], plain_ms=row["plain_ms"],
+                              library_ms=None, bound=row["bound"],
+                              max_abs_err=row["max_abs_err"])
+        del xr, kw
     rec["ru_block"]["max_abs_err"] = max(errs)
 
     # l2_block at its three sites (L2B_SITES): up_2 and up_3 drawn from
@@ -428,7 +425,8 @@ def _counters():
                                       tail2d)
     fns = {"conv333": conv333.conv333, "attgate": l2block.attgate,
            "att_map": l2block.att_map,
-           "ru_block": rublock.ru_block, "l2_block": l2block.l2_block,
+           "ru_block": rublock.ru_block, "ru_unit": rublock.ru_unit,
+           "l2_block": l2block.l2_block,
            "blend_scatter": blend.blend_scatter,
            "conv333_dw": conv333_dw.conv333_dw,
            "ru_block2d": block2d.ru_block2d,
@@ -494,7 +492,7 @@ def model_run(dev, gen, card: str):
     assert len(staged.starts_padded) == SW_BATCH
     # the model's own sites: 4 encoder units (down_2, down_3, down_4,
     # bottom), 3 decoder levels (up_2, up_3, up_4), 1 window batch
-    expect = {"ru_block": 4, **EVAL_L2, "conv333": EVAL_CONV333,
+    expect = {**EVAL_RU, **EVAL_L2, "conv333": EVAL_CONV333,
               "blend_scatter": 1, "conv333_dw": 0, **NO_KD1}
 
     def run(use_kernels: bool):
@@ -720,7 +718,7 @@ def train_run(dev, card: str):
     check_counts(counts, {
         "conv333_dw": TRAIN_SITES * TRAIN_STEPS,
         "conv333": TRAIN_SITES * TRAIN_STEPS + EVAL_CONV333,
-        "ru_block": 4, **EVAL_L2, "blend_scatter": 0, **NO_KD1}, "training")
+        **EVAL_RU, **EVAL_L2, "blend_scatter": 0, **NO_KD1}, "training")
 
     # ms/step and peak memory, device-resident batch, turns plain, kernel,
     # kernel, plain
@@ -771,6 +769,127 @@ def train_run(dev, card: str):
         raise AssertionError(f"epoch losses differ: {ek} vs {ep}")
     torch.cuda.synchronize()
     return counts
+
+
+# ru_block's sites for one 8-window batch (D-first): (site, (N, D, H, W),
+# Cin, Cout); ops/rublock.py:plan gives each the unit kernel, down_2 with
+# its weights resident, the others with its slabs staged
+RU_SITES = (("down_2", (SW_BATCH, 64, 96, 96), 32, 48),
+            ("down_3", (SW_BATCH, 32, 48, 48), 48, 64),
+            ("down_4", (SW_BATCH, 16, 24, 24), 64, 80),
+            ("bottom", (SW_BATCH, 8, 12, 12), 80, 96))
+
+
+def ru_site_args(dev, gen, cin, cout):
+    """Seeded ru_block params at one site (drawn on the host from gen in
+    phase 2's order)."""
+    import numpy as np
+    import torch
+
+    def weight(k, ci, co):
+        b = 1.0 / np.sqrt(ci * int(np.prod(k)))
+        return ((torch.rand((*k, ci, co), generator=gen) * 2 - 1) * b
+                ).to(dev)
+
+    def vec(c, lo, hi):
+        return (torch.rand(c, generator=gen) * (hi - lo) + lo).to(dev)
+
+    return dict(w0=weight((3, 3, 3), cin, cout),
+                bn0_scale=vec(cout, .5, 1.5), bn0_shift=vec(cout, -.2, .2),
+                alpha0=vec(1, .1, .3), w1=weight((3, 3, 3), cout, cout),
+                bn1_scale=vec(cout, .5, 1.5), bn1_shift=vec(cout, -.2, .2),
+                alpha1=vec(1, .1, .3), wr=weight((1, 1, 1), cin, cout),
+                br=vec(cout, -.2, .2))
+
+
+def ru_cudnn(x, kw):
+    """The library yardstick of ru_block: the cuDNN chain of its two convs
+    (channels-last F.conv3d, no epilogue or residual; no single PyTorch
+    call computes the unit)."""
+    import torch
+    import torch.nn.functional as F
+
+    wt0, wt1 = (kw[k].to(torch.bfloat16).permute(4, 3, 2, 0, 1).contiguous()
+                for k in ("w0", "w1"))
+    xc = x.permute(0, 4, 1, 2, 3)
+
+    def cudnn():
+        return F.conv3d(F.conv3d(xc, wt0, padding=1), wt1, padding=1)
+
+    return cudnn
+
+
+def ru_bound(x, kw, out):
+    """ru_block's bound: x, the params and out moved once (u0 never has to
+    be); the MACs of conv0, conv1 and the 1x1 residual."""
+    cin, cout = x.shape[-1], out.shape[-1]
+    vox = x[..., 0].numel()
+    return bound(nbytes(x, out, *kw.values()),
+                 2 * vox * (27 * cin * cout + 27 * cout * cout + cin * cout))
+
+
+def ru_site(site, x, kw, card: str):
+    """ru_block at one site: the route ops/rublock.py:plan gives it (the unit
+    kernel: one ru_unit launch and no conv333; the chain: two conv333
+    launches), out within KERNEL_TOL of the twin and bit-equal to the parent
+    chain (ru_chain(conv333, ...): the same stage order, wgmma sequence and
+    epilogue) and over two runs; its device time by CUDA-graph replay
+    beside the parent chain and the cuDNN chain of its two convs, the twin's
+    event time, the bound and the host's enqueue. Prints a JSON line;
+    returns its row."""
+    import torch
+
+    from vs_seg_tpu_torch.ops import conv333, rublock
+
+    cin, cout = x.shape[-1], kw["w0"].shape[-1]
+    name = f"ru_block {site} {tuple(x.shape[:4])}x{cin}->{cout}"
+    p = rublock.plan(x.shape[:4], cin, cout)
+    if p.fused:
+        p = rublock.plan(x.shape[:4], cin, cout,
+                         rublock.unit_grid(x.device, cin, cout))
+
+    def run():
+        return rublock.ru_block(x, **kw)
+
+    def chain():
+        return rublock.ru_chain(conv333.conv333, x, **kw)
+
+    before = (rublock.ru_unit.launches, conv333.conv333.launches)
+    got = run()
+    launched = [rublock.ru_unit.launches - before[0],
+                conv333.conv333.launches - before[1]]
+    route = "unit" if p.fused else "chain"
+    if launched != ([1, 0] if p.fused else [0, 2]):
+        raise AssertionError(f"{name}: launches (ru_unit, conv333) "
+                             f"{launched} on the {route} route")
+    if not torch.equal(got, run()):
+        raise AssertionError(f"{name}: two runs differ")
+    err = compare(name, got, rublock.ru_block_plain(x, **kw), KERNEL_TOL)
+    ref = chain()
+    compare(f"{name}, the parent chain", got, ref, KERNEL_TOL)
+    if not torch.equal(got, ref):
+        raise AssertionError(f"{name}: not bit-equal to the parent chain")
+    log(f"  {name}: bit-equal to the parent chain ({route}, p0 {p.p0} of "
+        f"{p.grid} blocks on conv0 if the unit: {p.why})")
+    b = ru_bound(x, kw, got)
+    del got, ref
+    row = dict(site=site, shape=[*x.shape[:4]], cin=cin, cout=cout,
+               route=route, p0=p.p0, grid=p.grid,
+               ms=graph_ms(run), chain_ms=graph_ms(chain),
+               cudnn_chain_ms=graph_ms(ru_cudnn(x, kw)),
+               plain_ms=cuda_ms(lambda: rublock.ru_block_plain(x, **kw)),
+               host_enqueue_ms=host_ms(run), bound_ms=b[0], bound_by=b[1],
+               max_abs_err=err, card=card)
+    row["tflops"] = b[3] / row["ms"] / 1e9
+    log(f"  {name}: {row['route']} {row['ms']!r} ms device (graph replay), "
+        f"host enqueue {row['host_enqueue_ms']!r} ms/call; parent chain "
+        f"{row['chain_ms']!r} ms, cuDNN chain {row['cudnn_chain_ms']!r} ms, "
+        f"plain {row['plain_ms']!r} ms, bound {b[0]!r} ms ({b[1]}: "
+        f"{b[2] / 1e9:.3f} GB, {b[3] / 1e9:.1f} GFLOP) = {row['tflops']!r} "
+        f"TFLOP/s on {card}")
+    print(json.dumps({"ru_block_site": row}), flush=True)
+    row["bound"] = b
+    return row
 
 
 # ru_block2d's sites for one 8-window batch (D-first): (site, (N, D, H, W),
@@ -1429,7 +1548,7 @@ def routes_run(dev, gen, card: str, model, staged, default_logits):
     from vs_seg_tpu_torch.infer.engine import make_predictor
     from vs_seg_tpu_torch.infer.sliding_window import sliding_window_inference
 
-    base = {"ru_block": 4, **EVAL_L2, "blend_scatter": 1,
+    base = {**EVAL_RU, **EVAL_L2, "blend_scatter": 1,
             "conv333_dw": 0, "ds_conv": 0, "ring_probe": 0,
             "mosaic_probe": 0}
     configs = {
@@ -1674,11 +1793,14 @@ _L = {i: (SW_BATCH, ROI[2] >> max(0, i - 2), ROI[0] >> i, ROI[1] >> i)
       for i in range(6)}
 _BOT = _L[5]
 CONV_SITES = (
-    # the conv333 sites of one 8-window forward (default routes): ru_block
-    # at down_2/3/4 and the bottom (conv0, then conv1 + residual from the
-    # block input), l2_block at up_2/3/4 (conv1 + ReLU; its conv0 runs as
-    # the gated instance, timed in phase 2's l2_block rows: the "conv0"
-    # rows here are the parent chain's, on a materialised pair)
+    # the conv333 sites of one 8-window forward (default routes) and of
+    # the parent chains the unit kernel and the gated instance replaced:
+    # ru_block at down_2/3/4 and the bottom (conv0, then conv1 + residual
+    # from the block input: the unit kernel runs each unit in one launch,
+    # timed in phase 2's ru_block rows), l2_block at up_2/3/4 (conv1 +
+    # ReLU, on the path; its conv0 runs as the gated instance, timed in
+    # phase 2's l2_block rows: the "conv0" rows here are the parent
+    # chain's, on a materialised pair)
     ("down_2 unit0", _L[2], (32,), 48, 3, None, "bn"),
     ("down_2 unit1", _L[2], (48,), 48, 3, (32,), "bn"),
     ("down_3 unit0", _L[3], (48,), 64, 3, None, "bn"),
@@ -2165,8 +2287,8 @@ def cli_run(dev, card: str, model):
     wall = time.perf_counter() - t
     forwards = CLI_CASES          # one 8-window batch per volume
     check_counts(counts, {
-        "ds_conv": 3 * forwards, "ru_block": 4 * forwards,
-        **{k: n * forwards for k, n in EVAL_L2.items()},
+        "ds_conv": 3 * forwards,
+        **{k: n * forwards for k, n in {**EVAL_RU, **EVAL_L2}.items()},
         "conv333": EVAL_CONV333 * forwards, "blend_scatter": forwards,
         "conv333_dw": 0, "ru_block2d": 0, "l2_block2d": 0, "tail_block": 0,
         "fused_attention_gate": 0, "ring_probe": 0, "mosaic_probe": 0},
@@ -2306,6 +2428,8 @@ def main() -> int:
         "conv333_gated": ("csrc/conv333.cu",
                           "vs_seg_tpu/ops/pallas_l2block.py:313"),
         "ru_block": ("rublock.py", "vs_seg_tpu/ops/pallas_rublock.py:183"),
+        "ru_unit": ("csrc/conv333.cu",
+                    "vs_seg_tpu/ops/pallas_rublock.py:183"),
         "l2_block": ("l2block.py", "vs_seg_tpu/ops/pallas_l2block.py:391"),
         "blend_scatter": ("csrc/blend.cu",
                           "vs_seg_tpu/ops/pallas_blend.py:107"),

@@ -2,7 +2,8 @@
 the card, at small and ragged shapes that the flagship path does not reach
 (channel counts that are not multiples of 8 or 16, W not a multiple of 16,
 H not a multiple of 8, more than 64 output channels, odd sizes for the
-stride-2 ds_conv), and the inference CLI on a small synthetic dataset.
+stride-2 ds_conv), ru_block at the flagship's four encoder sites, and the
+inference CLI on a small synthetic dataset.
 
 These tests need an NVIDIA GPU and nvcc: they carry the `gpu` marker and
 skip without CUDA. They import no JAX, so on the GPU machine they run
@@ -188,6 +189,95 @@ def test_ru_block_and_l2_block_kernels_match_plain(dev):
     for got, ref in zip(l2block.l2_block(xa, xb, **kw),
                         l2block.l2_block_plain(xa, xb, **kw)):
         _check(got, ref)
+
+
+def _ru_params(g, dev, cin, cout):
+    return dict(w0=_w(g, dev, (3, 3, 3), cin, cout),
+                bn0_scale=_v(g, dev, cout, .5, 1.5),
+                bn0_shift=_v(g, dev, cout, -.2, .2),
+                alpha0=_v(g, dev, 1, .1, .3),
+                w1=_w(g, dev, (3, 3, 3), cout, cout),
+                bn1_scale=_v(g, dev, cout, .5, 1.5),
+                bn1_shift=_v(g, dev, cout, -.2, .2),
+                alpha1=_v(g, dev, 1, .1, .3),
+                wr=_w(g, dev, (1, 1, 1), cin, cout),
+                br=_v(g, dev, cout, -.2, .2))
+
+
+@pytest.mark.parametrize("shape,cin,cout", [
+    ((1, 3, 40, 20), 32, 48),   # 2 x 2 tiles a plane, ragged H and W
+    ((2, 5, 33, 47), 32, 48),   # B > 1, 3 x 3 tiles, more planes
+    ((1, 1, 8, 16), 32, 48),    # D = 1: the centre plane only
+    ((1, 4, 16, 16), 12, 48),   # Cin padded to 16 in a copy
+    ((2, 5, 33, 47), 48, 64),   # slabs staged, TH = 16
+    ((1, 4, 16, 16), 64, 80),
+    ((2, 3, 20, 9), 80, 96),
+])
+def test_ru_unit_kernel_matches_parent_chain(dev, shape, cin, cout):
+    """ru_block where ops/rublock.py:plan takes the unit: one ru_unit
+    launch, no conv333; out bit-equal to the parent chain (two conv333
+    launches: the same stage order, wgmma sequence and epilogue) whatever
+    the role split and ring depth, two runs bit-equal, within TOL of the
+    twin."""
+    g = _g()
+    x = _x(g, dev, *shape, cin)
+    kw = _ru_params(g, dev, cin, cout)
+    before = (rublock.ru_unit.launches, conv333.conv333.launches,
+              rublock.ru_block.launches)
+    got = rublock.ru_block(x, **kw)
+    assert (rublock.ru_unit.launches - before[0],
+            conv333.conv333.launches - before[1],
+            rublock.ru_block.launches - before[2]) == (1, 0, 1)
+    chain = rublock.ru_chain(conv333.conv333, x, **kw)
+    assert torch.equal(got, chain)
+    assert torch.equal(got, rublock.ru_block(x, **kw))
+    _check(got, rublock.ru_block_plain(x, **kw))
+    grid = rublock.unit_grid(dev, cin, cout)
+    for p0 in (1, grid - 1):
+        assert torch.equal(rublock.ru_unit(x, p0=p0, **kw), chain), p0
+
+
+@pytest.mark.parametrize("site,shape,cin,cout", [
+    ("down_2", (8, 64, 96, 96), 32, 48), ("down_3", (8, 32, 48, 48), 48, 64),
+    ("down_4", (8, 16, 24, 24), 64, 80), ("bottom", (8, 8, 12, 12), 80, 96)])
+def test_ru_block_at_the_flagship_sites(dev, site, shape, cin, cout):
+    """The flagship's four encoder units, each one launch of the unit
+    kernel (its weights resident at down_2, its slabs staged below):
+    bit-equal to the parent chain, within TOL of the twin."""
+    g = _g()
+    x = _x(g, dev, *shape, cin)
+    kw = _ru_params(g, dev, cin, cout)
+    mode = rublock.plan(shape, cin, cout).mode
+    assert mode == ("resident" if site == "down_2" else "streamed")
+    n0 = (rublock.ru_unit.launches, conv333.conv333.launches)
+    got = rublock.ru_block(x, **kw)
+    assert (rublock.ru_unit.launches - n0[0],
+            conv333.conv333.launches - n0[1]) == (1, 0)
+    assert torch.equal(got, rublock.ru_chain(conv333.conv333, x, **kw))
+    _check(got, rublock.ru_block_plain(x, **kw))
+
+
+def test_ru_unit_kernel_refuses_what_it_cannot_take(dev):
+    """No fallback: a shape the plan does not take, a role split outside 1
+    .. grid - 1 and float32 raise before a launch; a launch the launcher
+    refuses (more conv0 blocks than the grid) raises."""
+    g = _g()
+    x = _x(g, dev, 1, 2, 16, 16, 32)
+    kw = _ru_params(g, dev, 32, 48)
+    grid = rublock.unit_grid(dev, 32, 48)
+    with pytest.raises(ValueError, match="built for"):
+        rublock.ru_unit(_x(g, dev, 1, 2, 16, 16, 32),
+                        **_ru_params(g, dev, 32, 32))
+    for p0 in (0, grid):
+        with pytest.raises(ValueError, match="p0"):
+            rublock.ru_unit(x, p0=p0, **kw)
+    with pytest.raises(TypeError, match="bfloat16"):
+        rublock.ru_unit(x.float(), **kw)
+    p = rublock.plan(x.shape[:4], 32, 48, grid, p0=grid + 1)
+    u0 = torch.empty((*x.shape[:4], 48), dtype=torch.bfloat16, device=dev)
+    cnt = torch.zeros(2, dtype=torch.int32, device=dev)
+    with pytest.raises(RuntimeError, match="ru_unit: CUDA launch failed"):
+        rublock.launch_unit(x, u0, torch.empty_like(u0), cnt, p, **kw)
 
 
 def _l2_params(g, dev, c):

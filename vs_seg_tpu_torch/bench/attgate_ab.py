@@ -1,5 +1,6 @@
 """A/B timing of attgate, conv333, conv333_dw, ds_conv, ru_block2d,
-l2_block2d, tail_block or l2_block builds at their sites, on one GPU.
+l2_block2d, tail_block, l2_block or ru_block builds at their sites, on one
+GPU.
 
     python -m vs_seg_tpu_torch.bench.attgate_ab OTHER.cu [MORE.cu ...]
     python -m vs_seg_tpu_torch.bench.attgate_ab --kernel conv333 OLD.cu
@@ -14,6 +15,8 @@ l2_block2d, tail_block or l2_block builds at their sites, on one GPU.
         [OTHER.cu ...] [--tail-tiles 8,16]
     python -m vs_seg_tpu_torch.bench.attgate_ab --kernel l2_block \
         [OTHER.cu ...]
+    python -m vs_seg_tpu_torch.bench.attgate_ab --kernel ru_block \
+        [OTHER.cu ...] [--ru-p0 56,0.5] [--ru-roles]
 
 Builds each given source (a file with the C interface of the kernel's
 csrc/<kernel>.cu: another design, or an earlier commit's kernel, e.g. from
@@ -60,7 +63,17 @@ kernel holds one slot of each input, so the tile height is its only
 choice); l2_block at chip_smoke.L2B_SITES (up_2/3/4) likewise, the given
 sources as conv333.cu variants (the gated instance is conv0; conv1 and
 the chains run the tree's) beside the conv333 + attgate + conv333 chain it
-replaced (ops/l2block.py:l2_chain) and the cuDNN chain of its two convs.
+replaced (ops/l2block.py:l2_chain) and the cuDNN chain of its two convs;
+ru_block at chip_smoke.RU_SITES (down_2/3/4, the bottom) likewise, the
+given sources as conv333.cu variants (the unit kernel is its instance U,
+taken where ops/rublock.py:plan takes the shape) beside the two conv333
+launches of the parent chain (ops/rublock.py:ru_chain) and the cuDNN chain
+of its two convs; where the unit is taken, --ru-p0 times the tree's kernel
+at other role splits (blocks on conv0, or below 1 a share of the grid),
+and
+--ru-roles each role alone with its weights resident (every block on one
+role; conv1 on a complete u0, its counters full) beside conv333's launch
+of the same conv (time only: the diagnostics write no whole unit).
 Prints one
 line per site with the mean of the two turns of each build, its bound and
 the card, the sums over the sites, and a JSON line of all the times last.
@@ -84,7 +97,7 @@ import numpy as np
 import torch
 
 from vs_seg_tpu_torch.ops import (_build, block2d, conv333, conv333_dw,
-                                  dsconv, l2block, tail2d)
+                                  dsconv, l2block, rublock, tail2d)
 
 REPS = 10
 # ru_block2d's sites: a graph of REPS chain calls at down_0 would hold 48 GB
@@ -107,17 +120,19 @@ def _build_lib(kernel: str, name: str, src: Path) -> ctypes.CDLL:
 TREE = {"attgate": (l2block, ("attgate",)),
         "conv333": (conv333, ("conv333",)),
         "l2_block": (l2block, ("conv333",)),
+        "ru_block": (rublock, ("conv333",)),
         "conv333_dw": (conv333_dw, ("conv333_dw",)),
         "ds_conv": (dsconv, ("conv333", "dsconv")),
         "ru_block2d": (block2d, ("rublock2d",)),
         "l2_block2d": (block2d, ("l2block2d",)),
         "tail_block": (tail2d, ("tail2d",))}
 TREE_SRC = {"attgate": "attgate.cu", "conv333": "conv333.cu",
-            "l2_block": "conv333.cu", "conv333_dw": "conv333_dw.cu",
+            "l2_block": "conv333.cu", "ru_block": "conv333.cu",
+            "conv333_dw": "conv333_dw.cu",
             "ds_conv": "conv333.cu", "ru_block2d": "rublock2d.cu",
             "l2_block2d": "l2block2d.cu", "tail_block": "tail2d.cu"}
 # the kernels timed by CUDA-graph replay, beside the chains they replaced
-FUSED = ("ru_block2d", "l2_block2d", "tail_block", "l2_block")
+FUSED = ("ru_block2d", "l2_block2d", "tail_block", "l2_block", "ru_block")
 
 
 def _load_py(name: str, py: Path):
@@ -204,6 +219,71 @@ def _l2b_sites(cs, dev):
         ref = l2block.l2_block_plain(xa, xb, **kw)
         yield (f"{site} {shape}x{c}x2", run, ref, cs.KERNEL_TOL,
                cs.l2_bound(xa, xb, kw, *ref), extra)
+
+
+def _ru_sites(cs, dev, p0s, roles):
+    """ru_block at RU_SITES: as _l2b_sites; where the unit is taken, the
+    tree's kernel at the role splits `p0s`, and
+    with `roles` each role alone ("diag" entries, not held to the twin)
+    beside conv333's launch of the same conv."""
+    gen = torch.Generator().manual_seed(cs.SEED + 9)
+    for site, shape, cin, cout in cs.RU_SITES:
+        x = torch.randn((*shape, cin), generator=gen).to(dev, torch.bfloat16)
+        kw = cs.ru_site_args(dev, gen, cin, cout)
+
+        def run(mod, x=x, kw=kw, **opt):
+            if opt:
+                return (mod.ru_unit(x, **opt, **kw),)
+            return (mod.ru_block(x, **kw),)
+
+        extra = {"parent chain": lambda x=x, kw=kw: (
+                     rublock.ru_chain(conv333.conv333, x, **kw),),
+                 "cudnn chain": lambda f=cs.ru_cudnn(x, kw): (f(),)}
+        p = rublock.plan(shape, cin, cout)
+        if p.fused:
+            grid = rublock.unit_grid(dev, cin, cout)
+            for p0 in p0s:
+                n0 = round(p0 * grid) if p0 < 1 else int(p0)
+                extra[f"tree p0 {p0}"] = (
+                    lambda n0=n0, run=run: run(rublock, p0=n0))
+            if roles:
+                extra.update(_ru_roles(x, kw, shape, cin, cout, grid))
+        ref = (rublock.ru_block_plain(x, **kw),)
+        yield (f"{site} {shape}x{cin}->{cout}", run, ref, cs.KERNEL_TOL,
+               cs.ru_bound(x, kw, ref[0]), extra)
+
+
+def _ru_roles(x, kw, shape, cin, cout, grid):
+    """The unit kernel with every block on one role, its weights resident
+    (conv1 reads a complete u0 with its counters full), beside conv333's
+    launch of the same conv: diagnostics, timed only."""
+    u0 = conv333.conv333(x, kw["w0"], kw["bn0_scale"], kw["bn0_shift"],
+                         kw["alpha0"])
+    out = torch.empty_like(u0)
+    scratch = torch.empty_like(u0)
+    nd = shape[0] * shape[1]
+
+    def alone(role):
+        q = rublock.plan(shape, cin, cout, grid, p0=grid if role == 0 else 0)
+
+        def fn():
+            if role == 0:
+                cnt = torch.zeros(nd, dtype=torch.int32, device=x.device)
+                rublock.launch_unit(x, scratch, out, cnt, q, **kw)
+            else:
+                cnt = torch.full((nd,), q.target, dtype=torch.int32,
+                                 device=x.device)
+                rublock.launch_unit(x, u0, out, cnt, q, **kw)
+            return (out,)
+        return fn
+
+    return {"diag conv0 alone": alone(0), "diag conv1 alone": alone(1),
+            "diag conv333 conv0": lambda: (conv333.conv333(
+                x, kw["w0"], kw["bn0_scale"], kw["bn0_shift"],
+                kw["alpha0"]),),
+            "diag conv333 conv1": lambda: (conv333.conv333(
+                u0, kw["w1"], kw["bn1_scale"], kw["bn1_shift"], kw["alpha1"],
+                residual=(x, kw["wr"], kw["br"])),)}
 
 
 def _dw_sites(cs, dev):
@@ -321,8 +401,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("sources", nargs="*", type=Path,
                     help="sources to time beside the tree's (at least one, "
-                         "but for ru_block2d, l2_block2d, tail_block and "
-                         "l2_block)")
+                         "but for ru_block2d, l2_block2d, tail_block, "
+                         "l2_block and ru_block)")
     ap.add_argument("--kernel", choices=("attgate", "conv333", "conv333_dw",
                                          "ds_conv", *FUSED),
                     default="attgate")
@@ -338,6 +418,13 @@ def main(argv=None) -> int:
     ap.add_argument("--tail-tiles", default="",
                     help="tail_block: also time the tree's kernel at these "
                          "tile heights (comma list, e.g. 8,16)")
+    ap.add_argument("--ru-p0", default="",
+                    help="ru_block: also time the tree's unit kernel with "
+                         "these blocks on conv0 (comma list; a value below 1 "
+                         "is a share of the grid)")
+    ap.add_argument("--ru-roles", action="store_true",
+                    help="ru_block: also time each role alone beside "
+                         "conv333's launch of the same conv")
     ap.add_argument("--time-only", action="store_true",
                     help="time the builds without holding them to the twin")
     args = ap.parse_args(argv)
@@ -381,6 +468,11 @@ def main(argv=None) -> int:
     elif kernel == "l2_block":
         sites = _l2b_sites(cs, dev)
         timer = cs.graph_ms
+    elif kernel == "ru_block":
+        sites = _ru_sites(cs, dev, [float(v) for v in args.ru_p0.split(",")
+                                    if v],
+                          args.ru_roles)
+        timer = cs.graph_ms
     elif kernel == "tail_block":
         sites = _tail_sites(cs, dev, [int(t) for t in
                                       args.tail_tiles.split(",") if t])
@@ -410,7 +502,7 @@ def main(argv=None) -> int:
             del outs
         first = None
         for name, fn in extra.items() if not args.time_only else ():
-            if not name.startswith("cudnn"):
+            if not name.startswith(("cudnn", "diag")):
                 use("tree")
                 cs.compare(f"{name} {site}", fn()[0], ref[0], tol)
         del ref
@@ -436,7 +528,8 @@ def main(argv=None) -> int:
                 f"{n} {sum(v) / len(v)!r} ms" for n, v in host[site].items()),
                 flush=True)
     use("tree")
-    entries = list(next(iter(times.values())))
+    entries = [n for n in next(iter(times.values()))
+               if all(n in t for t in times.values())]
     print(f"  {kernel} over {len(times)} sites: " + ", ".join(
         f"{n} {sum(sum(t[n]) / len(t[n]) for t in times.values())!r} ms"
         for n in entries) + f"; bound {sum(bounds.values())!r} ms on {card}",

@@ -25,6 +25,11 @@
 // x may be a pair (xa, xb) standing for its channel concat, and so may the
 // residual input r; nothing is concatenated in memory.
 //
+// The unit (U; ru_unit_kernel, through ops/rublock.py:ru_unit): one eval
+// encoder ResidualUnit of vs_seg_tpu/ops/pallas_rublock.py:ru_block in one
+// cooperative launch, u0 = conv0(x) and out = conv1(u0) + conv1x1(x), as
+// the two launches of ops/rublock.py:ru_chain compute them, bit for bit.
+//
 // Gated (G; stride 1, through ops/l2block.py:l2_block): every staged input,
 // the residual's included, is first gated by an attention map,
 //   x'[v, ci] = bf16(fmaf(att[v], x[v, ci], x[v, ci]))    (att f32),
@@ -165,6 +170,49 @@
 //   behind the gate (1.7x).
 //   Stage order and wgmma sequence are those of the ungated instance, so the
 //   output equals conv333 on an explicitly gated input bit for bit.
+// - The unit (U; ru_unit_kernel): the two launches of a ResidualUnit each
+//   re-read their 16 x N weight slab from L2 with every stage (41 % of the
+//   bytes a stage stages at down_2) because one conv333 block serves any
+//   conv of the path. Here the blocks of one launch take roles: blocks
+//   0 .. p0 - 1 run conv0's tiles (x -> u0), the others conv1's (u0 ->
+//   out, then the residual's centre-plane stages on x), each walking its
+//   role's tiles as the ungated instance does ((h, w) fastest, then d,
+//   then n, so u0's planes complete in order). Each role loads its packed
+//   weights into shared memory once (down_2: 82,944 B for conv0, 124,416 +
+//   3,072 B for conv1) and its ring stages only halos; a producer warp
+//   beside the two consumer warpgroups issues the copies (288 threads, MT
+//   = 4, one block per SM at N = 48). Each consumer warp stores its rows
+//   of a tile through shared memory (store_rows). u0 goes from role to
+//   role through device memory (L2 at these sizes) plane by plane:
+//     - each consumer warp of a conv0 block, after storing its rows of a
+//       tile: fence.proxy.async.global, __syncwarp, and its lane 0
+//       __threadfence + red.release.gpu add 1 to the counter of the
+//       tile's (n, d) plane (a per-warp arrival, so no barrier across the
+//       warpgroups sits in the consumer loop);
+//     - conv1's producer, before the first copy of a tile from u0 plane
+//       d' (d - 1 .. d + 1 inside the volume): ld.acquire.gpu on that
+//       plane's counter until it reads NWARPS x tiles per plane, then
+//       fence.proxy.async.global, so the TMA (async proxy) reads what the
+//       generic-proxy stores wrote.
+//   conv0 blocks never wait on another block and conv1 blocks wait only on
+//   conv0's planes; the launch is cooperative (every block resident), so
+//   the waits end. Stage order, wgmma sequence and epilogue are the
+//   ungated instance's (activate's arithmetic from a table in shared
+//   memory, as G), so u0 and out equal ru_chain(conv333, ...) bit for bit
+//   whatever p0 is. The wrapper zeroes the counters and allocates u0.
+//   What a clock64() profile of the roles showed (PERF.md, section 6): the
+//   slab was not what bounded a stage. Resident weights took conv0 from
+//   1.09 to 1.09 ms and conv1 from 1.49-1.55 to 1.31 ms at down_2; the
+//   MMAs of a stage ran at the tensor cores' rate, and the epilogue's
+//   4-byte scattered stores held the tensor cores idle for 35-60 % of a
+//   block's cycles. The unit stores through shared memory instead
+//   (store_rows: 16-byte stores of whole output rows), which took the
+//   roles to 0.885 and 1.065 ms; with no store at all they take 0.65 and
+//   0.99 ms, the rate at which the producer's TMA boxes of 16-byte rows
+//   (two per stage, 34 x 18 rows each) arrive.
+//   Where a role's weights do not fit beside the ring (N = 64, 80, 96:
+//   down_3, down_4, the bottom), the same launch stages each stage's slab
+//   with its halo, as conv333 does (RES false), with conv333's MT.
 // Bounds: any N, D, H, W; tiles <= 2^31.
 
 #include "common.cuh"
@@ -587,18 +635,17 @@ __device__ __forceinline__ void gate(char* slot, const Walk<C::S>& w,
 
 // The MMAs of one stage: 9 taps (main) or the centre tap (residual), MT
 // m64 tiles per warpgroup; a fused kernel's centre-plane main stage also
-// runs the residual's centre tap into racc.
+// runs the residual's centre tap into racc. halo and wts: the shared
+// addresses of the stage's halo and of its weight slab.
 template <class C>
-__device__ __forceinline__ void compute(bool main, bool fres,
-                                        const char* slot,
-                                        float (&acc)[C::MT][C::N / 2],
-                                        RAcc<C>& racc) {
+__device__ __forceinline__ void compute_at(bool main, bool fres,
+                                           uint32_t halo, uint32_t wts,
+                                           float (&acc)[C::MT][C::N / 2],
+                                           RAcc<C>& racc) {
   constexpr int N = C::N, MT = C::MT, PITCH = C::HALF_PITCH, HW = C::HW;
   constexpr bool F = C::F;
   constexpr int SBO = C::S * HW * 16;   // the next output row of a tile
   const int wg = threadIdx.x >> 7;
-  const uint32_t halo = smem_u32(slot);
-  const uint32_t wts = halo + C::HALO_BYTES;
 #pragma unroll
   for (int m = 0; m < MT; ++m) fence_regs(acc[m]);
   if constexpr (F) {
@@ -652,6 +699,17 @@ __device__ __forceinline__ void compute(bool main, bool fres,
 #pragma unroll
     for (int m = 0; m < MT; ++m) fence_regs(racc[m]);
   }
+}
+
+// compute on a ring slot that holds the stage's halo and, after it, its
+// weight slab(s)
+template <class C>
+__device__ __forceinline__ void compute(bool main, bool fres,
+                                        const char* slot,
+                                        float (&acc)[C::MT][C::N / 2],
+                                        RAcc<C>& racc) {
+  const uint32_t halo = smem_u32(slot);
+  compute_at<C>(main, fres, halo, halo + C::HALO_BYTES, acc, racc);
 }
 
 // Accumulator element e of an m64 tile: row (voxel of the tile) and column
@@ -906,6 +964,257 @@ __global__ void __launch_bounds__(NTHREADS + GTHREADS, 1)
   }
 }
 
+// ---- The encoder ResidualUnit (U): conv0 and conv1 in one launch ----
+//
+// One Args per role: 0 is conv0 (x -> u0, no residual), 1 is conv1 (u0 ->
+// out, + the 1x1 residual of x as separate centre-plane stages). Each
+// role's packed weights (one N tile) stay resident in shared memory.
+struct Unit {
+  Args a[2];
+  int wmain[2];        // bytes of each role's packed main weight
+  int wres;            // bytes of conv1's packed residual weight
+  int wmax;            // the weight region: max(wmain[0], wmain[1] + wres)
+  int* cnt;            // (N * D): conv0 warps that stored their rows of a
+                       // u0 plane, zeroed by the caller
+  int target;          // arrivals that complete a plane: NWARPS x tiles
+  int p0;              // blocks 0 .. p0 - 1 run conv0, the others conv1
+};
+
+// The unit's threads: one producer warp (its thread 0 issues every copy)
+// beside the two consumer warpgroups.
+constexpr int UTHREADS = NTHREADS + 32;
+
+__device__ __forceinline__ void red_release_add(int* p, int v) {
+  asm volatile("red.release.gpu.global.add.s32 [%0], %1;\n" ::"l"(p), "r"(v)
+               : "memory");
+}
+
+// Wait until conv0's warps have stored every row of a u0 plane (its counter
+// reads `target`), then order the TMA copies that follow after those
+// generic-proxy stores. Traps after ~2^24 polls (a lost arrival surfaces as
+// a launch error, not a hung card).
+__device__ __forceinline__ void wait_plane(const int* c, int target) {
+  uint32_t polls = 0;
+  for (;;) {
+    int v;
+    asm volatile("ld.acquire.gpu.global.s32 %0, [%1];\n"
+                 : "=r"(v)
+                 : "l"(c)
+                 : "memory");
+    if (v >= target) break;
+    if (++polls == (1u << 24)) __trap();
+    __nanosleep(100);
+  }
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
+
+// A unit stage's copies: the halo alone (the weights are resident), from
+// the main input (map 0: x for conv0, u0 for conv1) or the residual's
+// (map 2: x).
+template <class C>
+__device__ __forceinline__ void produce_halo(const Walk<1>& w, char* slot,
+                                             uint64_t* full, const Maps& maps,
+                                             const Args& a) {
+  const int c0 = w.j * KC;
+  const int dz = w.res ? w.d : w.d + w.p - a.kd / 2;
+  const CUtensorMap* m = &maps.m[w.res ? 2 : 0];
+  mbar_expect_tx(full, 2 * C::HALF_BYTES);
+  tma_load_5d(slot, m, full, c0, w.w0 - 1, w.h0 - 1, dz, w.n);
+  tma_load_5d(slot + C::HALF_PITCH, m, full, c0 + 8, w.w0 - 1, w.h0 - 1, dz,
+              w.n);
+}
+
+// The unit's store of a tile (one N tile, cout == N): each consumer warp
+// rounds its rows of one m64 tile at a time to bf16 into its staging rows
+// in shared memory (16 rows x N), then writes them out 16 bytes a lane,
+// whole output rows of consecutive voxels. The 4-byte scattered stores of
+// `store` took 35-60 % of a unit block's cycles at down_2 (a clock64()
+// profile); the same values in this order took 55-60 % as long.
+// Zeroes the accumulators.
+template <class C>
+__device__ __forceinline__ void store_rows(float (&acc)[C::MT][C::N / 2],
+                                           const Walk<1>& t, const Args& a,
+                                           char* stg) {
+  constexpr int N = C::N, MT = C::MT, CH = N * 2 / 16;
+  const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3,
+            lane = threadIdx.x & 31;
+  __nv_bfloat162* s2 = reinterpret_cast<__nv_bfloat162*>(stg);
+#pragma unroll
+  for (int m = 0; m < MT; ++m) {
+    const int mt = wg * MT + m;
+#pragma unroll
+    for (int e = 0; e < N / 2; e += 2) {
+      // frag_row(e) - 16 * warp: the warp's row of the m64 tile
+      const int r = (lane >> 2) + ((e >> 1) & 1) * 8;
+      s2[(r * N + frag_col(e)) / 2] =
+          __floats2bfloat162_rn(acc[m][e], acc[m][e + 1]);
+      acc[m][e] = 0.f;
+      acc[m][e + 1] = 0.f;
+    }
+    __syncwarp();
+#pragma unroll
+    for (int c = lane; c < 16 * CH; c += 32) {
+      const int r = c / CH, q = c - r * CH;
+      const int row = warp * 16 + r;
+      const int h = t.h0 + (mt >> 1) * 8 + (row >> 3);
+      const int w = t.w0 + (mt & 1) * 8 + (row & 7);
+      if (h < a.Ho && w < a.Wo)
+        *reinterpret_cast<uint4*>(
+            a.out + ((((size_t)t.n * a.Do + t.d) * a.Ho + h) * a.Wo + w) *
+                        a.cout + q * 8) =
+            reinterpret_cast<const uint4*>(stg)[c];
+    }
+    __syncwarp();
+  }
+}
+
+// One block of role R (0: conv0, 1: conv1): its resident weights (RES),
+// its epilogue table, then the persistent walk over its role's tiles
+// (tiles first, first + step, ...), the producer warp ahead of the
+// consumers on a ring of ST slots: halos alone (RES), or each halo with
+// its stage's weight slab as conv333 stages them (the weights too large
+// to stay). conv0's consumer warps each announce their stored rows of a
+// tile on the tile's plane counter; conv1's producer waits on the counters
+// of the planes a stage reads before it copies their halo.
+template <class C, int ST, int R, bool RES>
+__device__ __forceinline__ void unit_role(const Maps& maps, const Args& a,
+                                          const Unit& u, char* smem,
+                                          int first, int step) {
+  constexpr int N = C::N, MT = C::MT;
+  constexpr int SLOT = RES ? C::HALO_BYTES : C::SLOT;
+  // shared memory: the ring, the weights, each consumer warp's staging
+  // rows, the epilogue table, the barriers
+  char* wreg = smem + ST * SLOT;
+  char* stg = wreg + u.wmax;
+  float* ep = reinterpret_cast<float*>(stg + NWARPS * 16 * N * 2);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ep + 4 * GEPI);
+  uint64_t* empty = full + ST;
+  uint64_t* wbar = empty + ST;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], NWARPS);
+    }
+    mbar_init(wbar, 1);
+    mbar_init_fence();
+  }
+  for (int i = threadIdx.x; i < N; i += blockDim.x) {
+    const int co = min(i, a.cout - 1);
+    ep[i] = a.scale ? a.scale[co] : 1.f;
+    ep[GEPI + i] = a.shift ? a.shift[co] : 0.f;
+    ep[2 * GEPI + i] = a.alpha ? a.alpha[a.alpha_n == 1 ? 0 : co] : 1.f;
+    ep[3 * GEPI + i] = a.rbias ? a.rbias[co] : 0.f;
+  }
+  __syncthreads();
+  // the warpgroup, read through a shuffle so that the compiler knows it is
+  // the same in every thread of a warp (a wgmma in a branch it takes for
+  // divergent is serialized)
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x >> 7, 0);
+  if (wg >= NWG) {
+    if (threadIdx.x != NTHREADS) return;
+    // the producer: the resident weights once, by flat bulk copies of one
+    // stage's slab each, on wbar; then every stage's halo (and slab)
+    if constexpr (RES) {
+      const char* wm = reinterpret_cast<const char*>(a.wm);
+      mbar_expect_tx(wbar, u.wmain[R] + (R ? u.wres : 0));
+      for (int off = 0; off < u.wmain[R]; off += C::WBYTES)
+        bulk_load(wreg + off, wm + off, C::WBYTES, wbar);
+      if constexpr (R == 1) {
+        const char* wr = reinterpret_cast<const char*>(a.wr);
+        for (int off = 0; off < u.wres; off += C::RBYTES)
+          bulk_load(wreg + u.wmain[1] + off, wr + off, C::RBYTES, wbar);
+      }
+    }
+    Walk<1> w;
+    w.start(first, a);
+    int okt = -1;          // the tile whose planes `ok` holds
+    unsigned ok = 0;       // bit p: the plane of depth tap p is complete
+    for (int k = 0; w.tile < a.total; ++k) {
+      const int slot = k % ST;
+      if (k >= ST) mbar_wait(&empty[slot], ((k - ST) / ST) & 1);
+      if constexpr (R == 1) {
+        if (!w.res) {
+          if (w.tile != okt) {
+            okt = w.tile;
+            ok = 0;
+          }
+          if (!((ok >> w.p) & 1)) {
+            wait_plane(u.cnt + (size_t)w.n * a.D + w.d + w.p - a.kd / 2,
+                       u.target);
+            ok |= 1u << w.p;
+          }
+        }
+      }
+      if constexpr (RES)
+        produce_halo<C>(w, smem + slot * SLOT, &full[slot], maps, a);
+      else
+        produce<C>(w, smem + slot * SLOT, &full[slot], maps, a);
+      if (w.last(a))
+        w.start(w.tile + step, a);
+      else
+        w.advance(a);
+    }
+    return;
+  }
+  float acc[MT][N / 2];
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int e = 0; e < N / 2; ++e) acc[m][e] = 0.f;
+  RAcc<C> racc;
+  const uint32_t ring = smem_u32(smem), wbase = smem_u32(wreg);
+  if constexpr (RES) mbar_wait(wbar, 0);
+  Walk<1> cons;
+  cons.start(first, a);
+  for (int k = 0; cons.tile < a.total; ++k) {
+    const int slot = k % ST;
+    mbar_wait(&full[slot], (k / ST) & 1);
+    // the stage's slab in the resident weights: (chunk, depth tap) of the
+    // main weight, or the residual's chunk after it; else after its halo
+    const uint32_t halo = ring + slot * SLOT;
+    const uint32_t wts =
+        RES ? wbase + (cons.res ? u.wmain[1] + cons.j * C::RBYTES
+                                : (cons.j * a.kd + cons.p) * C::WBYTES)
+            : halo + C::HALO_BYTES;
+    compute_at<C>(!cons.res, false, halo, wts, acc, racc);
+    __syncwarp();
+    if ((threadIdx.x & 31) == 0) mbar_arrive(&empty[slot]);
+    if (cons.last_main(a)) activate_table<C>(acc, racc, 0, ep);
+    if (cons.last(a)) {
+      store_rows<C>(acc, cons, a, stg + (threadIdx.x >> 5) * 16 * N * 2);
+      if constexpr (R == 0) {
+        // this warp's rows of the tile are stored: make them visible to
+        // the async proxy (conv1's TMA) and announce them at gpu scope
+        asm volatile("fence.proxy.async.global;\n" ::: "memory");
+        __syncwarp();
+        if ((threadIdx.x & 31) == 0) {
+          __threadfence();
+          red_release_add(u.cnt + (size_t)cons.n * a.D + cons.d, 1);
+        }
+      }
+      cons.start(cons.tile + step, a);
+    } else {
+      cons.advance(a);
+    }
+  }
+}
+
+// The unit: blocks 0 .. p0 - 1 run conv0's tiles, the others conv1's; one
+// cooperative launch, so every block is resident and conv1's waits on
+// conv0's planes always end.
+template <class C, int ST, bool RES>
+__global__ void __launch_bounds__(UTHREADS, 1)
+    ru_unit_kernel(const __grid_constant__ Maps m0,
+                   const __grid_constant__ Maps m1,
+                   const __grid_constant__ Unit u) {
+  extern __shared__ __align__(128) char smem[];
+  if ((int)blockIdx.x < u.p0)
+    unit_role<C, ST, 0, RES>(m0, u.a[0], u, smem, blockIdx.x, u.p0);
+  else
+    unit_role<C, ST, 1, RES>(m1, u.a[1], u, smem, blockIdx.x - u.p0,
+                             gridDim.x - u.p0);
+}
+
 // TMA map of one NDHWC bf16 input: one 8-channel half plane of a halo per
 // box. S = 1: dims (C, W, H, D, N), box (8, 18, TH + 2, 1, 1). S = 2: the
 // W-pair view, dims (C, 2, W/2, H, N*D), box (8, 1, 17, 2 TH + 1, 1).
@@ -1003,7 +1312,147 @@ int launch_s2(int th, const void* const* ins, const int* cs, const Args& a,
   return launch<Cfg<N, false, 2, 2>>(ins, cs, a, device, s);
 }
 
+// The unit's dynamic shared memory: the ring, the weight region (wmax 0
+// when the slabs are staged), the staging rows, the epilogue table and the
+// barriers (full and empty per slot, wbar).
+template <class C, int ST, bool RES>
+int unit_smem(int wmax) {
+  return ST * (RES ? C::HALO_BYTES : C::SLOT) + wmax +
+         NWARPS * 16 * C::N * 2 + 4 * GEPI * 4 + (2 * ST + 1) * 8;
+}
+
+// The unit at N width C::N with ST ring slots, its weights resident (RES)
+// or staged with each stage: a grid of every block the card holds at once
+// (cooperative; a refused size or shared-memory request is returned), p0
+// of them on conv0. The grid goes to *grid; with x null nothing launches.
+template <class C, int ST, bool RES>
+int launch_unit(Unit u, const void* x, int cx, const void* u0, int device,
+                cudaStream_t s, int* grid_out) {
+  void (*kernel)(Maps, Maps, Unit) = ru_unit_kernel<C, ST, RES>;
+  const int smem = unit_smem<C, ST, RES>(u.wmax);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int nb = 0, nsm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&nb, kernel, UTHREADS,
+                                                      smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (nb < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+  const int grid = nb * nsm;
+  if (grid_out) *grid_out = grid;
+  if (!x) return 0;
+  if (u.p0 < 0 || u.p0 > grid) return static_cast<int>(cudaErrorInvalidValue);
+  for (int r = 0; r < 2; ++r) {
+    Args& a = u.a[r];
+    a.th = C::TH;
+    a.tiles_hw = a.tiles_w * ((a.Ho + a.th - 1) / a.th);
+    const long long total = (long long)a.Nb * a.Do * a.ntiles * a.tiles_hw;
+    if (total > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+    a.total = (int)total;
+  }
+  u.target = NWARPS * u.a[0].tiles_hw * u.a[0].ntiles;
+  Maps m0 = {}, m1 = {};
+  err = input_map<C>(&m0.m[0], x, cx, u.a[0]);
+  if (err == cudaSuccess) err = input_map<C>(&m1.m[0], u0, u.a[0].cout, u.a[1]);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  m1.m[2] = m0.m[0];
+  void* args[] = {(void*)&m0, (void*)&m1, (void*)&u};
+  return static_cast<int>(cudaLaunchCooperativeKernel(
+      (const void*)kernel, dim3(grid), dim3(UTHREADS), args, smem, s));
+}
+
 }  // namespace
+
+// The encoder ResidualUnit in one cooperative launch (U; see the header):
+// x (n, d, h, w, cx) bf16 (cx % 8 == 0, 16-byte aligned); u0 and out (...,
+// cout) bf16, u0 scratch for conv0's output; cnt n * d zeroed int32; w0,
+// w1, wr packed by pack_weights_gmma with N = cout (one N tile); the
+// epilogue vectors f32 as conv333_launch takes them (a0n, a1n: 1 or
+// cout slopes), br conv1's residual bias. p0: blocks on conv0, 0 .. the
+// grid (every block the card holds at once at one block per SM); 0 runs
+// conv1 alone and needs cnt already complete, the grid runs conv0 alone;
+// Built for cout = 48 with resident weights and for cout = 64, 80 and 96
+// with each stage's slab staged, 3 ring slots each (4 were no faster at
+// down_2). grid: if not null, set to the launch's grid (the blocks the card holds
+// at once, one role or the other each); with x null only that is done.
+extern "C" int ru_unit_launch(const void* x, int cx, void* u0, void* out,
+                              void* cnt, const void* w0, const void* w1,
+                              const void* wr, const void* s0, const void* h0,
+                              const void* a0, int a0n, const void* s1,
+                              const void* h1, const void* a1, int a1n,
+                              const void* br, int n, int d, int h, int w,
+                              int cout, int p0, int device, void* stream,
+                              int* grid) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (cx < 8 || cx % 8 != 0 ||
+      (x && (!u0 || !out || !cnt || !w0 || !w1 || !wr || n < 1 || d < 1 ||
+             h < 1 || w < 1 || (reinterpret_cast<uintptr_t>(x) & 15) != 0 ||
+             (reinterpret_cast<uintptr_t>(u0) & 15) != 0 ||
+             (a0n != 1 && a0n != cout) || (a1n != 1 && a1n != cout))))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Unit u = {};
+  for (int r = 0; r < 2; ++r) {
+    Args& a = u.a[r];
+    a.Nb = n;
+    a.D = a.Do = d;
+    a.H = a.Ho = h;
+    a.W = a.Wo = w;
+    a.cout = cout;
+    a.kd = 3;
+    a.tiles_w = (w + TW - 1) / TW;
+    a.ntiles = 1;
+    a.att = nullptr;
+  }
+  const int xch = (cx + KC - 1) / KC, uch = (cout + KC - 1) / KC;
+  Args& c0 = u.a[0];
+  c0.nch[0] = c0.nch_all = xch;
+  c0.wm = static_cast<const __nv_bfloat16*>(w0);
+  c0.scale = static_cast<const float*>(s0);
+  c0.shift = static_cast<const float*>(h0);
+  c0.alpha = static_cast<const float*>(a0);
+  c0.alpha_n = a0n;
+  c0.out = static_cast<__nv_bfloat16*>(u0);
+  Args& c1 = u.a[1];
+  c1.nch[0] = c1.nch_all = uch;
+  c1.rch[0] = c1.rch_all = c1.res_stages = xch;
+  c1.wm = static_cast<const __nv_bfloat16*>(w1);
+  c1.wr = static_cast<const __nv_bfloat16*>(wr);
+  c1.scale = static_cast<const float*>(s1);
+  c1.shift = static_cast<const float*>(h1);
+  c1.alpha = static_cast<const float*>(a1);
+  c1.alpha_n = a1n;
+  c1.rbias = static_cast<const float*>(br);
+  c1.out = static_cast<__nv_bfloat16*>(out);
+  u.cnt = static_cast<int*>(cnt);
+  u.p0 = p0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // the weights stay resident at N = 48 (down_2); at 64, 80 and 96 each
+  // stage stages its slab
+  switch (cout) {
+    case 48: {
+      using C = Cfg<48, false, 1, mt_s1<48>()>;
+      u.wmain[0] = xch * 3 * C::WBYTES;
+      u.wmain[1] = uch * 3 * C::WBYTES;
+      u.wres = xch * C::RBYTES;
+      u.wmax = u.wmain[0] > u.wmain[1] + u.wres ? u.wmain[0]
+                                                 : u.wmain[1] + u.wres;
+      return launch_unit<C, STAGES, true>(u, x, cx, u0, device, s, grid);
+    }
+    case 64:
+      return launch_unit<Cfg<64, false, 1, mt_s1<64>()>, STAGES, false>(
+          u, x, cx, u0, device, s, grid);
+    case 80:
+      return launch_unit<Cfg<80, false, 1, mt_s1<80>()>, STAGES, false>(
+          u, x, cx, u0, device, s, grid);
+    case 96:
+      return launch_unit<Cfg<96, false, 1, mt_s1<96>()>, STAGES, false>(
+          u, x, cx, u0, device, s, grid);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
 
 // stride 1 or 2; th: the stride-2 tile height (8 or 16), 0 at stride 1;
 // att: the gate's f32 map (N, D, H, W), or null (ungated); stride 1 only

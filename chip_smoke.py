@@ -14,8 +14,10 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
      384x384x64, D-first): the ring probe (csrc/ring.cuh, one (16,128) f32
      plane per depth slice of the volume, bit-equal), conv333 single and
      pair+residual, attgate, and the blend over
-     the full 448x448x80 volume with its 8 overlapping windows. Kernel and
-     plain times come from CUDA events. ru_block at down_2/3/4 and the
+     the full 448x448x80 volume with its 8 overlapping windows (bit-equal,
+     its v4 instance asserted; by CUDA-graph replay, with its event time
+     and the host's enqueue beside it). Kernel and plain times come from
+     CUDA events unless named otherwise. ru_block at down_2/3/4 and the
      bottom (RU_SITES: one launch of conv333.cu's unit kernel (ru_unit)
      each, its weights resident at down_2, its slabs staged elsewhere;
      bit-equal to the parent chain of two conv333 launches and over two
@@ -392,8 +394,13 @@ def kernel_checks(dev, gen, card: str):
     preds = randn(len(starts), *roi, 2)
     out0 = torch.rand((*vol, 2), generator=gen).to(dev)
     w0 = torch.rand((*vol, 1), generator=gen).to(dev)
+    before = dict(blend.blend_scatter.instances)
     ko, kwt = blend.blend_scatter(out0.clone(), w0.clone(), preds, starts,
                                   mask, imp)
+    took = {k: v - before[k] for k, v in blend.blend_scatter.instances.items()}
+    if took != {"v4": 1, "v1": 0}:
+        raise AssertionError(f"blend: the flagship geometry took {took} "
+                             "launches, expected one of the v4 instance")
     po, pw = blend.blend_scatter_plain(out0.clone(), w0.clone(), preds,
                                        starts, mask, imp)
     e = max(compare("blend out_acc (80,448,448,2) 8 windows", ko, po,
@@ -401,10 +408,13 @@ def kernel_checks(dev, gen, card: str):
             compare("blend w_acc (80,448,448,1) 8 windows", kwt, pw,
                     BLEND_TOL))
     oa, wa = out0.clone(), w0.clone()
+
+    def run():
+        blend.blend_scatter(oa, wa, preds, starts, mask, imp)
+
     rec["blend_scatter"] = dict(
         max_abs_err=e, shape="(80,448,448,2) <- 8 x (64,384,384,2)",
-        ms=cuda_ms(lambda: blend.blend_scatter(oa, wa, preds, starts, mask,
-                                               imp)),
+        ms=graph_ms(run),
         plain_ms=cuda_ms(lambda: blend.blend_scatter_plain(
             oa, wa, preds, starts, mask, imp)),
         library_ms=None,
@@ -412,6 +422,11 @@ def kernel_checks(dev, gen, card: str):
         # channel a multiply-add, per voxel the weight and its sum
         bound=bound(nbytes(preds, imp) + 2 * nbytes(out0, w0),
                     f32_flop=preds[..., 0].numel() * (2 * 2 + 2)))
+    r = rec["blend_scatter"]
+    log(f"  blend_scatter: instance v4, {r['ms']!r} ms device (graph "
+        f"replay), {cuda_ms(run)!r} ms by events back to back, host "
+        f"enqueue {host_ms(run)!r} ms a call, plain {r['plain_ms']!r} ms, "
+        f"bound {r['bound'][0]!r} ms on {card}")
     torch.cuda.synchronize()
     return rec
 

@@ -398,20 +398,79 @@ def test_l2_block_kernel_allocates_no_gated_pair(dev):
     assert peaks[0] + pair <= peaks[1] + att32, peaks
 
 
+def _blend_inputs(case, dtype, dev):
+    """(out_acc, w_acc, preds, starts, mask, importance, instance) of a
+    blend case: "flagship" (80,448,448,2) <- 8 x (64,384,384,2) at the
+    sliding window's starts, "original" (the first case of this test),
+    else a row of bench/attgate_ab.py:BLEND_CASES."""
+    from vs_seg_tpu_torch.bench.attgate_ab import BLEND_CASES, blend_case
+    from vs_seg_tpu_torch.infer.sliding_window import (
+        dense_patch_starts, gaussian_importance_map)
+    if case == "flagship":
+        g = _g()
+        starts = dense_patch_starts((80, 448, 448), (64, 384, 384), 0.25)
+        imp = torch.from_numpy(gaussian_importance_map((64, 384, 384)))
+        return (torch.randn((80, 448, 448, 2), generator=g).to(dev),
+                (torch.rand((80, 448, 448, 1), generator=g) + 0.5).to(dev),
+                torch.randn((8, 64, 384, 384, 2), generator=g).to(dev, dtype),
+                starts, np.ones(8, np.float32), imp.to(dev), "v4")
+    if case == "original":
+        g = _g()
+        starts = np.array([[0, 0, 0], [4, 8, 8], [2, 4, 2], [4, 8, 8]],
+                          np.int32)
+        mask = np.array([1.0, 1.0, 1.0, 0.0], np.float32)
+        preds = torch.randn((4, 4, 8, 8, 3), generator=g).to(dev, dtype)
+        imp = (torch.rand((4, 8, 8), generator=g) + 0.1).to(dev)
+        out0 = torch.randn((12, 16, 16, 3), generator=g).to(dev)
+        w0 = torch.rand((12, 16, 16, 1), generator=g).to(dev)
+        return out0, w0, preds, starts, mask, imp, "v1"
+    row = next(c for c in BLEND_CASES if c[0] == case)
+    return (*blend_case(row, dtype, dev), row[6])
+
+
+@pytest.mark.parametrize("case", [
+    "original", "flagship", "unaligned", "unaligned O=3",
+    "masked duplicate O=1", "masked duplicate O=2", "masked duplicate O=8",
+    "N=20", "small box"])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_blend_kernel_matches_plain_exactly(dev, dtype):
-    g = _g()
-    starts = np.array([[0, 0, 0], [4, 8, 8], [2, 4, 2], [4, 8, 8]], np.int32)
-    mask = np.array([1.0, 1.0, 1.0, 0.0], np.float32)
-    preds = torch.randn((4, 4, 8, 8, 3), generator=g).to(dev, dtype)
-    imp = (torch.rand((4, 8, 8), generator=g) + 0.1).to(dev)
-    out0 = torch.randn((12, 16, 16, 3), generator=g).to(dev)
-    w0 = torch.rand((12, 16, 16, 1), generator=g).to(dev)
-    ko, kw = blend.blend_scatter(out0.clone(), w0.clone(), preds, starts,
-                                 mask, imp)
+def test_blend_kernel_matches_plain_exactly(dev, dtype, case):
+    """Bit-equal to the twin and over two runs, on the instance the wrapper
+    should pick, one launch per WMAX windows (bench/attgate_ab.py --kernel
+    blend holds the same cases to the parent kernel)."""
+    out0, w0, preds, starts, mask, imp, inst = _blend_inputs(case, dtype, dev)
+    before = dict(blend.blend_scatter.instances)
+    runs = [blend.blend_scatter(out0.clone(), w0.clone(), preds, starts,
+                                mask, imp) for _ in range(2)]
+    took = {k: v - before[k] for k, v in blend.blend_scatter.instances.items()}
+    launches = 2 * -(-len(starts) // blend.WMAX)
+    assert took == {"v4": 0, "v1": 0, inst: launches}, took
     po, pw = blend.blend_scatter_plain(out0.clone(), w0.clone(), preds,
                                        starts, mask, imp)
-    assert torch.equal(ko, po) and torch.equal(kw, pw)
+    for ko, kw in runs:
+        assert torch.equal(ko, po) and torch.equal(kw, pw)
+
+
+@pytest.mark.parametrize("case", ["masked duplicate O=2", "unaligned",
+                                  "N=20"])
+def test_blend_replays_from_a_cuda_graph(dev, case):
+    """blend_scatter captured in a CUDA graph (its window table in the
+    launch's arguments) and replayed twice gives what two eager calls give.
+    """
+    out0, w0, preds, starts, mask, imp, _ = _blend_inputs(
+        case, torch.bfloat16, dev)
+    eo, ew = out0.clone(), w0.clone()
+    for _ in range(2):
+        blend.blend_scatter(eo, ew, preds, starts, mask, imp)
+    go, gw = out0.clone(), w0.clone()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        blend.blend_scatter(go, gw, preds, starts, mask, imp)
+    go.copy_(out0)       # capture does not run the kernel; reset anyway
+    gw.copy_(w0)
+    graph.replay()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(go, eo) and torch.equal(gw, ew)
 
 
 @pytest.mark.parametrize("shape,cin,cout", [

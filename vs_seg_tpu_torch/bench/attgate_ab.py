@@ -1,6 +1,6 @@
 """A/B timing of attgate, conv333, conv333_dw, ds_conv, ru_block2d,
-l2_block2d, tail_block, l2_block or ru_block builds at their sites, on one
-GPU.
+l2_block2d, tail_block, l2_block, ru_block or blend builds at their sites,
+on one GPU.
 
     python -m vs_seg_tpu_torch.bench.attgate_ab OTHER.cu [MORE.cu ...]
     python -m vs_seg_tpu_torch.bench.attgate_ab --kernel conv333 OLD.cu
@@ -17,6 +17,7 @@ GPU.
         [OTHER.cu ...]
     python -m vs_seg_tpu_torch.bench.attgate_ab --kernel ru_block \
         [OTHER.cu ...] [--ru-p0 56,0.5] [--ru-roles]
+    python -m vs_seg_tpu_torch.bench.attgate_ab --kernel blend [OLD.cu ...]
 
 Builds each given source (a file with the C interface of the kernel's
 csrc/<kernel>.cu: another design, or an earlier commit's kernel, e.g. from
@@ -73,7 +74,14 @@ at other role splits (blocks on conv0, or below 1 a share of the grid),
 and
 --ru-roles each role alone with its weights resident (every block on one
 role; conv1 on a complete u0, its counters full) beside conv333's launch
-of the same conv (time only: the diagnostics write no whole unit).
+of the same conv (time only: the diagnostics write no whole unit);
+blend at phase 2's flagship geometry (the 448x448x80 volume, its 8
+windows, bf16 predictions, O = 2): each source's blend_launch called
+directly (a source without `blend_wmax` has the parent's interface, whose
+starts and mask are device arrays: staged once, outside the graph), out_acc
+and w_acc held bit-equal to the plain twin, over two runs and to the first
+source there and at every BLEND_CASES row in bf16 and f32, then timed at
+the flagship geometry by graph replay with the host's enqueue, in turns.
 Prints one
 line per site with the mean of the two turns of each build, its bound and
 the card, the sums over the sites, and a JSON line of all the times last.
@@ -96,8 +104,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from vs_seg_tpu_torch.ops import (_build, block2d, conv333, conv333_dw,
-                                  dsconv, l2block, rublock, tail2d)
+from vs_seg_tpu_torch.ops import (_build, blend, block2d, conv333,
+                                  conv333_dw, dsconv, l2block, rublock, tail2d)
 
 REPS = 10
 # ru_block2d's sites: a graph of REPS chain calls at down_0 would hold 48 GB
@@ -125,12 +133,14 @@ TREE = {"attgate": (l2block, ("attgate",)),
         "ds_conv": (dsconv, ("conv333", "dsconv")),
         "ru_block2d": (block2d, ("rublock2d",)),
         "l2_block2d": (block2d, ("l2block2d",)),
-        "tail_block": (tail2d, ("tail2d",))}
+        "tail_block": (tail2d, ("tail2d",)),
+        "blend": (blend, ("blend",))}
 TREE_SRC = {"attgate": "attgate.cu", "conv333": "conv333.cu",
             "l2_block": "conv333.cu", "ru_block": "conv333.cu",
             "conv333_dw": "conv333_dw.cu",
             "ds_conv": "conv333.cu", "ru_block2d": "rublock2d.cu",
-            "l2_block2d": "l2block2d.cu", "tail_block": "tail2d.cu"}
+            "l2_block2d": "l2block2d.cu", "tail_block": "tail2d.cu",
+            "blend": "blend.cu"}
 # the kernels timed by CUDA-graph replay, beside the chains they replaced
 FUSED = ("ru_block2d", "l2_block2d", "tail_block", "l2_block", "ru_block")
 
@@ -397,14 +407,162 @@ def _tail_sites(cs, dev, ths):
                extra)
 
 
+# blend's cases beside the flagship geometry, in bf16 and f32 predictions
+# (tests/test_torch_cuda.py holds the tree's kernel to its twin at each):
+# (name, volume (D, H, W), roi, starts, mask, O, the instance it takes)
+BLEND_CASES = (
+    # w-starts not multiples of 4 and RW = 6
+    ("unaligned", (12, 20, 30), (4, 8, 6),
+     ((0, 0, 1), (4, 8, 5), (2, 4, 3), (8, 12, 24)), (1, 1, 1, 1), 2, "v1"),
+    ("unaligned O=3", (12, 20, 30), (4, 8, 6),
+     ((0, 0, 1), (4, 8, 5), (2, 4, 3), (8, 12, 24)), (1, 1, 1, 1), 3, "v1"),
+    # a masked window (a padded batch slot) on a duplicate start
+    ("masked duplicate O=1", (12, 16, 16), (4, 8, 8),
+     ((0, 0, 0), (4, 8, 8), (2, 4, 2), (4, 8, 8)), (1, 1, 1, 0), 1, "v1"),
+    ("masked duplicate O=2", (12, 16, 16), (4, 8, 8),
+     ((0, 0, 0), (4, 8, 8), (2, 4, 4), (4, 8, 8)), (1, 1, 1, 0), 2, "v4"),
+    ("masked duplicate O=8", (12, 16, 16), (4, 8, 8),
+     ((0, 0, 0), (4, 8, 8), (2, 4, 2), (4, 8, 8)), (1, 1, 1, 0), 8, "v1"),
+    # N = 20 overlapping windows: three launches in index order
+    ("N=20", (16, 24, 32), (8, 8, 8),
+     tuple((d, h, w) for d in (0, 4, 6, 8, 2) for h, w in ((0, 0), (8, 12),
+                                                          (4, 20), (16, 24))),
+     (1,) * 19 + (0,), 2, "v4"),
+    # a box smaller than the volume: the outside is left untouched
+    ("small box", (16, 32, 36), (4, 8, 8), ((2, 4, 8), (4, 8, 12)), (1, 1),
+     2, "v4"),
+)
+
+
+def blend_case(case, dtype, dev, seed=0):
+    """Inputs of one BLEND_CASES row: (out_acc, w_acc, preds, starts, mask,
+    importance), the accumulators random and nonzero."""
+    _, vol, roi, starts, mask, o, _ = case
+    g = torch.Generator().manual_seed(seed)
+    starts = np.array(starts, np.int64)
+    preds = torch.randn((len(starts), *roi, o), generator=g).to(dev, dtype)
+    imp = (torch.rand(roi, generator=g) + 0.1).to(dev)
+    out0 = torch.randn((*vol, o), generator=g).to(dev)
+    w0 = (torch.rand((*vol, 1), generator=g) + 0.5).to(dev)
+    return out0, w0, preds, starts, np.array(mask, np.float32), imp
+
+
+def _blend_parent_call(lib, out_acc, w_acc, preds, starts, starts_d,
+                       mask_d, imp):
+    """The parent interface's launch: starts and mask as device arrays
+    (`starts` their host copy, for the box), one launch over the union box
+    of all the windows."""
+    fn = lib.blend_launch
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int]
+                       + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 15
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    n, rd, rh, rw, o = preds.shape
+    D, H, W, _ = out_acc.shape
+    lo = starts.min(axis=0)
+    box = (starts + np.array([rd, rh, rw])).max(axis=0) - lo
+    dev = out_acc.device
+    err = fn(conv333._ptr(out_acc), conv333._ptr(w_acc), conv333._ptr(preds),
+             int(preds.dtype == torch.float32), conv333._ptr(starts_d),
+             conv333._ptr(mask_d), conv333._ptr(imp), n, D, H, W, o, rd, rh,
+             rw, *(int(v) for v in lo), *(int(v) for v in box), dev.index,
+             ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    _build.check(lib, err, "blend (parent interface)")
+
+
+def _blend_ab(cs, libs, card, time_only):
+    """blend at phase 2's flagship geometry, each source's blend_launch
+    called directly; see the module docstring."""
+    from vs_seg_tpu_torch.infer.sliding_window import (
+        dense_patch_starts, gaussian_importance_map)
+    dev = torch.device("cuda:0")
+    gen = torch.Generator().manual_seed(cs.SEED)
+    vol = (cs.VOLUME[2], cs.VOLUME[0], cs.VOLUME[1])
+    roi = (cs.ROI[2], cs.ROI[0], cs.ROI[1])
+    starts = dense_patch_starts(vol, roi, 0.25)
+    mask = np.ones(len(starts), np.float32)
+    imp = torch.from_numpy(gaussian_importance_map(roi)).to(dev)
+    preds = torch.randn((len(starts), *roi, 2), generator=gen).to(
+        dev, torch.bfloat16)
+    out0 = torch.rand((*vol, 2), generator=gen).to(dev)
+    w0 = torch.rand((*vol, 1), generator=gen).to(dev)
+    # staged once, outside any graph, for sources of the parent interface
+    starts_d = torch.from_numpy(starts.astype(np.int32)).to(dev)
+    mask_d = torch.from_numpy(mask).to(dev)
+
+    def call(name, oa, wa):
+        lib = libs[name]
+        if hasattr(lib, "blend_wmax"):
+            blend.launch(lib, oa, wa, preds, starts, mask, imp)
+        else:
+            _blend_parent_call(lib, oa, wa, preds, starts, starts_d, mask_d,
+                               imp)
+
+    site = f"full volume {vol}x2 <- {len(starts)} x {roi}x2 bf16"
+    names = list(libs)
+    if not time_only:
+        check = [(site, (out0, w0, preds, starts, mask, imp))] + [
+            (f"{c[0]} {str(dt)[6:]}", blend_case(c, dt, dev))
+            for c in BLEND_CASES for dt in (torch.bfloat16, torch.float32)]
+        for case, (o0, ww0, pr, st, mk, im) in check:
+            ref = blend.blend_scatter_plain(o0.clone(), ww0.clone(), pr, st,
+                                            mk, im)
+            first = None
+            for name in names:
+                lib = libs[name]
+                got = [(o0.clone(), ww0.clone()) for _ in range(2)]
+                for oa, wa in got:
+                    if hasattr(lib, "blend_wmax"):
+                        blend.launch(lib, oa, wa, pr, st, mk, im)
+                    else:
+                        _blend_parent_call(
+                            lib, oa, wa, pr, st,
+                            torch.from_numpy(st.astype(np.int32)).to(dev),
+                            torch.from_numpy(mk).to(dev), im)
+                torch.cuda.synchronize()
+                eq = [torch.equal(g, r) for g, r in zip(got[0], ref)]
+                eq += [torch.equal(g, r) for g, r in zip(*got)]
+                if first is not None:
+                    eq += [torch.equal(g, f)
+                           for g, f in zip(got[0], first[1])]
+                print(f"  {name} {case}: bit-equal to the plain twin, over "
+                      "two runs" + ("" if first is None else
+                                    f" and to {first[0]}")
+                      + f" (out_acc, w_acc each): {eq}", flush=True)
+                if not all(eq):
+                    raise AssertionError(f"blend {name} {case}: not "
+                                         "bit-equal")
+                if first is None:
+                    first = (name, got[0])
+            del ref, first, got
+    b = cs.bound(cs.nbytes(preds, imp) + 2 * cs.nbytes(out0, w0),
+                 f32_flop=preds[..., 0].numel() * (2 * 2 + 2))
+    times, host = {}, {}
+    oa, wa = out0.clone(), w0.clone()
+    for name in names + names[::-1]:
+        fn = (lambda name=name: call(name, oa, wa))
+        times.setdefault(name, []).append(cs.graph_ms(fn, REPS))
+        host.setdefault(name, []).append(cs.host_ms(fn, REPS))
+    print(f"  blend {site}: " + ", ".join(
+        f"{n} {sum(v) / len(v)!r} ms {v}" for n, v in times.items())
+        + f"; bound {b[0]!r} ms on {card}", flush=True)
+    print(f"  blend {site} host enqueue per call: " + ", ".join(
+        f"{n} {sum(v) / len(v)!r} ms" for n, v in host.items()), flush=True)
+    print(json.dumps({"card": card, "kernel": "blend", "ms": {site: times},
+                      "host_enqueue_ms": {site: host},
+                      "bound_ms": {site: b[0]}}))
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("sources", nargs="*", type=Path,
                     help="sources to time beside the tree's (at least one, "
                          "but for ru_block2d, l2_block2d, tail_block, "
-                         "l2_block and ru_block)")
+                         "l2_block, ru_block and blend)")
     ap.add_argument("--kernel", choices=("attgate", "conv333", "conv333_dw",
-                                         "ds_conv", *FUSED),
+                                         "ds_conv", *FUSED, "blend"),
                     default="attgate")
     ap.add_argument("--ds-th", default="",
                     help="ds_conv: also time the tree's kernel at these "
@@ -428,7 +586,7 @@ def main(argv=None) -> int:
     ap.add_argument("--time-only", action="store_true",
                     help="time the builds without holding them to the twin")
     args = ap.parse_args(argv)
-    if not args.sources and args.kernel not in FUSED:
+    if not args.sources and args.kernel not in (*FUSED, "blend"):
         ap.error(f"--kernel {args.kernel} needs a source to time")
     if not torch.cuda.is_available():
         raise RuntimeError("attgate_ab: no CUDA device")
@@ -445,6 +603,8 @@ def main(argv=None) -> int:
     with ThreadPoolExecutor(len(srcs)) as pool:
         libs = dict(zip(srcs, pool.map(_build_lib, [kernel] * len(srcs),
                                        srcs, srcs.values())))
+    if kernel == "blend":
+        return _blend_ab(cs, libs, card, args.time_only)
     mods = {name: _wrapper(kernel, src) for name, src in srcs.items()}
     mods["tree"] = TREE[kernel][0]
     keys = TREE[kernel][1]

@@ -119,6 +119,20 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
      backward, dw_train_sites): two runs bit-equal, within DW_TOL of the
      plain twin, the kernel's time beside cuDNN's wgrad, the bound,
      TFLOP/s and the host's enqueue time per call, and their sums.
+ 15. The training CLI end to end (`cli.train.main` in this process, its
+     config_from_args wrapped to set the epochs: the reference CLI has no
+     epochs flag) at full width on 384x384x64 crops of TRAIN_CLI_CASES + 1
+     synthetic 448x448x80 cases: (i) the host loader, (ii) --device_cache,
+     (iii) (i)'s last checkpoint resumed for one more epoch under
+     --profile_steps 2; each with its launch counts (reset just before,
+     read just after), finite losses, the checkpoints reloaded and the
+     figures when matplotlib is found; ms/step (each step synchronised,
+     the first left out) and device ms/step; the trace's busy share and
+     device ms by kernel family. Then the DeviceLoader: one epoch under
+     torch.cuda.set_sync_debug_mode("error"), its crops at given draws
+     bit-equal to the host transforms' crops, its upload seconds, device
+     MiB and ms per batch; and to_device_batch's ms per crop beside the
+     parent's order (the numpy transpose first), in turns.
 
 The kernels are built in parallel, one nvcc per source. Every kernel record
 carries its time, its plain twin's, the time of one library call computing
@@ -127,8 +141,8 @@ bytes it must move (inputs read once, outputs written once) over the HBM
 rate and its operations over the peak rate for their type (H100 SXM, dense:
 989 TFLOP/s bf16 tensor cores, 67 TFLOP/s f32, 3.35 TB/s). The last stdout
 line is {"ok": true, "device": {...}}; the line before it is the per-kernel
-JSON record, whose launch counts add up every main path (phases 3, 6, 8
-and 10).
+JSON record, whose launch counts add up every main path (phases 3, 6, 8,
+10 and 15).
 """
 
 from __future__ import annotations
@@ -2356,6 +2370,355 @@ def cli_run(dev, card: str, model):
     return counts
 
 
+TRAIN_CLI_CASES = 2      # synthetic training cases of phase 15 (+1 val)
+TRAIN_CLI_EPOCHS = 2     # epochs of phase 15's runs (i) and (ii)
+TDB_REPS = 5             # timed to_device_batch calls per order
+LOADER_EPOCHS = 5        # timed DeviceLoader epochs
+
+
+def train_cli_counts(steps: int, val_forwards: int) -> dict:
+    """Expected launches of a training CLI run of `steps` train steps and
+    `val_forwards` eval forwards of one crop."""
+    return {"conv333_dw": TRAIN_SITES * steps,
+            "conv333": TRAIN_SITES * steps + EVAL_CONV333 * val_forwards,
+            **{k: n * val_forwards
+               for k, n in {**EVAL_RU, **EVAL_L2}.items()},
+            "blend_scatter": 0, **NO_KD1}
+
+
+def kernel_family(name: str) -> str:
+    """A trace kernel's family: the port's hand kernels by their
+    __global__ names, then the library's by name."""
+    import re
+    rules = (("conv333 gated", r"\bconv333_gated_kernel\b"),
+             ("conv333", r"\bconv333_kernel\b"),
+             ("conv333_dw", r"\bdw_kernel\b"),
+             ("ru_unit", r"\bru_unit_kernel\b"),
+             ("attgate", r"\battgate_kernel\b"),
+             ("library conv", r"cudnn|xmma|implicit_gemm|cutlass|conv|"
+                              r"wgrad|dgrad|fprop"),
+             ("gemm", r"gemm|gemv"),
+             ("elementwise", r"elementwise|Elementwise"),
+             ("reduction", r"reduce|Reduce|norm|Norm"),
+             ("copy/memset", r"[Mm]emcpy|[Mm]emset|[Cc]opy|CatArray"))
+    for fam, pat in rules:
+        if re.search(pat, name):
+            return fam
+    return "other"
+
+
+def trace_summary(folder: Path):
+    """Busy share and device ms by kernel family of the newest
+    torch.profiler trace in `folder`: the union of the device's kernel,
+    copy and memset intervals over the span of all the trace's events.
+    None when the trace holds no device event."""
+    traces = sorted(folder.glob("*.pt.trace.json"),
+                    key=lambda p: p.stat().st_mtime)
+    if not traces:
+        raise AssertionError(f"no torch.profiler trace under {folder}")
+    with open(traces[-1]) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X" and "dur" in e]
+    dev = [e for e in events
+           if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    if not dev:
+        return None
+    span0 = min(e["ts"] for e in events)
+    span1 = max(e["ts"] + e["dur"] for e in events)
+    busy, last = 0.0, span0
+    for s, e in sorted((e["ts"], e["ts"] + e["dur"]) for e in dev):
+        busy += max(0.0, e - max(s, last))
+        last = max(last, e)
+    fams = {}
+    for e in dev:
+        fam = kernel_family(e["name"])
+        fams[fam] = fams.get(fam, 0.0) + e["dur"] / 1e3
+    return {"file": traces[-1].name, "mib": traces[-1].stat().st_size / 2**20,
+            "window_ms": (span1 - span0) / 1e3, "busy_ms": busy / 1e3,
+            "busy_share": busy / (span1 - span0), "device_events": len(dev),
+            "families_ms": dict(sorted(fams.items(), key=lambda kv: -kv[1]))}
+
+
+def train_cli_run(dev, card: str):
+    """Phase 15: the training CLI end to end at full width (384x384x64
+    crops): (i) the host loader, (ii) --device_cache, (iii) (i)'s last
+    checkpoint resumed for one more epoch under --profile_steps 2; then the
+    device loader's crops and its freedom from syncs, and the host
+    transfer's time."""
+    import dataclasses
+    import importlib.util
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from vs_seg_tpu_torch.cli import train as cli_train
+    from vs_seg_tpu_torch.core.config import parse_cli
+    from vs_seg_tpu_torch.data.dataset import (CacheDataset, DataLoader,
+                                               load_split_csv)
+    from vs_seg_tpu_torch.data.device_pipeline import (DeviceCachedDataset,
+                                                       DeviceLoader)
+    from vs_seg_tpu_torch.data.synthetic import generate_dataset
+    from vs_seg_tpu_torch.data.transforms import get_transforms
+    from vs_seg_tpu_torch.models import build_model
+    from vs_seg_tpu_torch.train import trainer as tr
+
+    root = REPO / "build" / "chip_smoke_train_cli"
+    shutil.rmtree(root, ignore_errors=True)
+    t = time.perf_counter()
+    split = generate_dataset(str(root), n_train=TRAIN_CLI_CASES, n_val=1,
+                             n_test=0, shape=VOLUME, seed=SEED)
+    log(f"  {TRAIN_CLI_CASES} training + 1 validation synthetic cases of "
+        f"{VOLUME} written in {time.perf_counter() - t:.1f} s")
+    figs = importlib.util.find_spec("matplotlib") is not None
+    log(f"  matplotlib {'found' if figs else 'not found'}: figures "
+        f"{'on' if figs else 'off'}; tensorboardX "
+        f"{'found' if importlib.util.find_spec('tensorboardX') else 'not found'}")
+
+    def argv(name, *extra):
+        return ["--data_root", str(root), "--split", split,
+                "--results_folder_name", name, "--device", "cuda:0",
+                "--seed", str(SEED), *extra]
+
+    # The reference CLI has no epochs flag and the port adds none: each run
+    # wraps cli.train.config_from_args in this process to set num_epochs
+    # (val_interval 1). Each train step is timed by CUDA events around it
+    # and by the host clock after a synchronize.
+    real_cfg, real_make, real_trainer = (cli_train.config_from_args,
+                                         tr.make_train_step,
+                                         cli_train.Trainer)
+    step_log, fit_s = [], []
+
+    def timed_make(*args, **kwargs):
+        step = real_make(*args, **kwargs)
+
+        def timed(image, label, gen):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            loss = step(image, label, gen)
+            end.record()
+            torch.cuda.synchronize()
+            step_log.append((time.perf_counter(), start.elapsed_time(end)))
+            return loss
+        return timed
+
+    class TimedTrainer(real_trainer):
+        def fit(self, *args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = super().fit(*args, **kwargs)
+            torch.cuda.synchronize()
+            fit_s.append(time.perf_counter() - t0)
+            return out
+
+    def run(mode, args, epochs, new_epochs):
+        log(f"  training CLI ({mode}): config_from_args wrapped to "
+            f"num_epochs={epochs}, val_interval=1")
+        cli_train.config_from_args = (
+            lambda a: dataclasses.replace(real_cfg(a), num_epochs=epochs,
+                                          val_interval=1))
+        step_log.clear()
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        state, losses, dice = cli_train.main(args, make_figures=figs)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        wall = time.perf_counter() - t0
+        steps = len(step_log)
+        if (steps != TRAIN_CLI_CASES * new_epochs or len(losses) != new_epochs
+                or len(dice) != new_epochs or state["epoch"] != epochs
+                or not np.isfinite(list(losses) + list(dice)).all()):
+            raise AssertionError(f"training CLI ({mode}): {steps} steps, "
+                                 f"losses {losses}, dice {dice}, epoch "
+                                 f"{state['epoch']}")
+        check_counts(counts, train_cli_counts(steps, new_epochs),
+                     f"training CLI ({mode})")
+        # ms/step: consecutive synchronised step ends within an epoch
+        # (loader fetch + host transfer + the step); the run's first step
+        # is left out
+        host = [(step_log[k][0] - step_log[k - 1][0]) * 1e3
+                for k in range(1, steps) if k % TRAIN_CLI_CASES]
+        device = [ms for _, ms in step_log[1:]]
+        log(f"training CLI ({mode}): epoch losses {losses}, val dice {dice}; "
+            f"{sum(host) / len(host):.1f} ms/step by the host clock "
+            f"(steps 2.. of each epoch: {host}), device "
+            f"{sum(device) / len(device):.1f} ms/step (steps 2..: {device}); "
+            f"fit wall {fit_s[-1]:.2f} s, CLI wall {wall:.2f} s on {card}")
+        return counts, (parse_cli(args), epochs)
+
+    total, cfgs = {}, {}
+    try:
+        tr.make_train_step = timed_make
+        cli_train.Trainer = TimedTrainer
+        for mode, args in (("host loader", argv("host")),
+                           ("--device_cache",
+                            argv("device_cache", "--device_cache"))):
+            counts, cfgs[mode] = run(mode, args, TRAIN_CLI_EPOCHS,
+                                     TRAIN_CLI_EPOCHS)
+            total = {k: total.get(k, 0) + n for k, n in counts.items()}
+        mode = "--resume --profile_steps 2"
+        resume = parse_cli(argv("resume"))
+        Path(resume.model_path).mkdir(parents=True, exist_ok=True)
+        shutil.copy(Path(cfgs["host loader"][0].model_path)
+                    / "last_epoch_model.ckpt",
+                    Path(resume.model_path) / "last_epoch_model.ckpt")
+        counts, cfgs[mode] = run(
+            mode, argv("resume", "--resume", "--profile_steps", "2"),
+            TRAIN_CLI_EPOCHS + 1, 1)
+        total = {k: total.get(k, 0) + n for k, n in counts.items()}
+    finally:
+        cli_train.config_from_args = real_cfg
+        tr.make_train_step = real_make
+        cli_train.Trainer = real_trainer
+
+    # the checkpoints reload; the figures and the trace are there
+    model = build_model(cfgs["host loader"][0], device=dev)
+    for mode, (cfg, epochs) in cfgs.items():
+        trainer = tr.Trainer(cfg, model, dev)
+        state = trainer.restore_state(str(Path(cfg.model_path)
+                                          / "last_epoch_model.ckpt"))
+        if state["epoch"] != epochs:
+            raise AssertionError(f"{mode}: last checkpoint at epoch "
+                                 f"{state['epoch']}, expected {epochs}")
+        best = Path(cfg.model_path) / "best_metric_model.ckpt"
+        if best.is_file() or not mode.startswith("--resume"):
+            # a resumed run writes one only if it beats (i)'s best
+            state = trainer.restore_state(str(best))
+            if state["epoch"] != state["best_metric_epoch"]:
+                raise AssertionError(f"{mode}: best checkpoint {state}")
+        if figs:
+            for name in ("check_validation_image_and_label.png",
+                         "epoch_average_loss_and_val_mean_dice.png"):
+                if not (Path(cfg.figures_path) / name).is_file():
+                    raise AssertionError(f"{mode}: no figure {name}")
+    log(f"  the checkpoints of the three runs reload into a Trainer; "
+        f"figures {'written' if figs else 'off'}")
+    del model, trainer, state
+    profile = Path(cfgs["--resume --profile_steps 2"][0].results_folder_path
+                   ) / "profile"
+    if not profile.is_dir() or not any(profile.iterdir()):
+        raise AssertionError(f"no trace under {profile}")
+    summary = trace_summary(profile)
+    if summary is None:
+        log(f"profiled step (run iii): the trace holds no device event: "
+            f"busy share not measured on {card}")
+    else:
+        fams = {k: round(v, 3) for k, v in summary["families_ms"].items()}
+        log(f"profiled step (run iii, 1 step: its epoch of "
+            f"{TRAIN_CLI_CASES} steps ends the window): busy share "
+            f"{summary['busy_share']!r} ({summary['busy_ms']:.2f} of "
+            f"{summary['window_ms']:.2f} ms, {summary['device_events']} "
+            f"device events, trace {summary['mib']:.1f} MiB); device ms "
+            f"by family {fams} on {card}")
+
+    # the device loader: upload, no sync, crops at given draws bit-equal
+    # to the host transforms' crops of the same cached volumes
+    train_files, _, _ = load_split_csv(split, "T1", str(root))
+    train_ds = CacheDataset(train_files, get_transforms(ROI)[0],
+                            num_workers=4)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    cache = DeviceCachedDataset(train_ds.cache, ROI, device=dev)
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t
+    mib = nbytes(cache.images, cache.labels) / 2**20
+    loader = DeviceLoader(cache, batch_size=1, shuffle=True, seed=SEED)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        batches = list(loader)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    shape = (1, ROI[2], ROI[0], ROI[1], 1)
+    for img, lbl in batches:
+        if (tuple(img.shape) != shape or tuple(lbl.shape) != shape
+                or img.dtype != torch.bfloat16 or lbl.dtype != torch.uint8
+                or img.device != dev):
+            raise AssertionError(f"device loader batch {img.shape} "
+                                 f"{img.dtype} {lbl.dtype} {img.device}")
+    log(f"  DeviceLoader: one epoch of {len(batches)} batches under "
+        f"torch.cuda.set_sync_debug_mode('error'): no sync")
+    del batches
+    t = time.perf_counter()
+    for _ in range(LOADER_EPOCHS):
+        for img, lbl in loader:
+            pass
+    torch.cuda.synchronize()
+    loader_ms = (time.perf_counter() - t) * 1e3 / (LOADER_EPOCHS * len(loader))
+    flips = set()
+    for seed in range(16):
+        i = seed % len(cache)
+        host = train_ds.get(i, np.random.default_rng(seed))
+        # the host's draws (RandFlip, then RandSpatialCrop of the flipped
+        # volume), read back from a generator in the same state
+        rng = np.random.default_rng(seed)
+        flip = bool(rng.random() < 0.5)
+        dims = train_ds.cache[i]["image"].shape[1:]
+        h0, w0, d0 = (int(rng.integers(0, n - c + 1)) if n > c else 0
+                      for n, c in zip(dims, ROI))
+        if flip:
+            h0 = dims[0] - ROI[0] - h0
+        img, lbl = cache.crop([i], [(d0, h0, w0)], [flip])
+        ref_img, ref_lbl = tr.to_device_batch(
+            {"image": host["image"][None], "label": host["label"][None]},
+            dev, torch.bfloat16)
+        if not (torch.equal(img, ref_img) and torch.equal(lbl, ref_lbl)):
+            raise AssertionError(f"device crop {i} at {(d0, h0, w0)} flip "
+                                 f"{flip} differs from the host transform's")
+        flips.add(flip)
+    if flips != {False, True}:
+        raise AssertionError(f"draws took only flips {flips}")
+    log("  device crops at 16 given draws (both flips) bit-equal to the "
+        "host transforms' crops of the same cached volumes")
+    log(f"device cache: upload {upload_s:.3f} s for {len(cache)} volumes, "
+        f"{mib:.1f} MiB on the device; DeviceLoader {loader_ms:.3f} ms per "
+        f"batch (mean of {LOADER_EPOCHS} epochs) on {card}")
+    del cache, loader, img, lbl, ref_img, ref_lbl
+
+    # the host transfer of one 384x384x64 crop: the torch cast, then the
+    # transpose (to_device_batch), beside the parent's numpy transpose
+    # first, in turns; the same bytes
+    batch = next(iter(DataLoader(train_ds, batch_size=1, shuffle=True,
+                                 seed=SEED)))
+
+    def numpy_first():
+        image = np.ascontiguousarray(np.transpose(batch["image"],
+                                                  (0, 4, 2, 3, 1)))
+        label = np.ascontiguousarray(np.transpose(batch["label"],
+                                                  (0, 4, 2, 3, 1)))
+        cast = label.astype(np.uint8)
+        if np.array_equal(cast, label):
+            label = cast
+        return (torch.from_numpy(image).to(torch.bfloat16).to(dev),
+                torch.from_numpy(label).to(dev))
+
+    def torch_first():
+        return tr.to_device_batch(batch, dev, torch.bfloat16)
+
+    outs = {}
+    times = {numpy_first: [], torch_first: []}
+    for fn in (numpy_first, torch_first, torch_first, numpy_first):
+        outs[fn] = fn()                      # warm-up
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(TDB_REPS):
+            fn()
+        torch.cuda.synchronize()
+        times[fn].append((time.perf_counter() - t) * 1e3 / TDB_REPS)
+    if not all(torch.equal(a, b) for a, b in zip(outs[numpy_first],
+                                                  outs[torch_first])):
+        raise AssertionError("to_device_batch differs from the numpy order")
+    tk, tn = times[torch_first], times[numpy_first]
+    log(f"to_device_batch (torch cast, then permute): "
+        f"{sum(tk) / len(tk):.1f} ms per {ROI} crop {tk}; the numpy "
+        f"transpose first: {sum(tn) / len(tn):.1f} ms {tn}; the same bytes; "
+        f"on {card}")
+    torch.cuda.synchronize()
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -2424,8 +2787,11 @@ def main() -> int:
     attgate_sweep(dev, card)
     phase("phase 14: conv333_dw at each of the train step's sites")
     dw_sweep(dev, card, rec)
+    phase("phase 15: the training CLI end to end at full width (host "
+          "loader, --device_cache, --resume with --profile_steps 2)")
+    tcli_counts = train_cli_run(dev, card)
     counts = {k: infer_counts[k] + train_counts[k] + route_counts[k]
-              + cli_counts[k] for k in infer_counts}
+              + cli_counts[k] + tcli_counts[k] for k in infer_counts}
     for k, r in rec.items():
         lib = "-" if r["library_ms"] is None else f"{r['library_ms']:.3f}"
         ms, by, moved, f16, f32 = r["bound"]

@@ -2,8 +2,10 @@
 the card, at small and ragged shapes that the flagship path does not reach
 (channel counts that are not multiples of 8 or 16, W not a multiple of 16,
 H not a multiple of 8, more than 64 output channels, odd sizes for the
-stride-2 ds_conv), ru_block at the flagship's four encoder sites, and the
-inference CLI on a small synthetic dataset.
+stride-2 ds_conv), ru_block at the flagship's four encoder sites, the
+inference CLI on a small synthetic dataset, and the device-resident
+training cache (its loader makes no sync; its crops equal the host
+transforms' bit for bit).
 
 These tests need an NVIDIA GPU and nvcc: they carry the `gpu` marker and
 skip without CUDA. They import no JAX, so on the GPU machine they run
@@ -847,3 +849,70 @@ def test_inference_cli_on_the_card(dev, tmp_path, monkeypatch):
         cfg, results_folder_name="plain"), model, loader, device=dev,
         export=False, make_figures=False, use_kernels=False)
     np.testing.assert_allclose(dice, plain, atol=1e-2)
+
+
+def _device_cache_samples(shapes=((40, 36, 20), (44, 36, 24), (40, 40, 20))):
+    rng = np.random.default_rng(0)
+    return [{"image": rng.normal(size=(1, *s)).astype(np.float32),
+             "label": (rng.random((1, *s)) > 0.7).astype(np.float32)}
+            for s in shapes]
+
+
+def test_device_loader_makes_no_sync(dev):
+    """Three epochs of a DeviceLoader (heterogeneous volumes, batch 2 with
+    a partial last batch) under sync debug mode "error": no host-device
+    sync; the mode is live (an .item() raises under it)."""
+    from vs_seg_tpu_torch.data.device_pipeline import (DeviceCachedDataset,
+                                                       DeviceLoader)
+
+    ds = DeviceCachedDataset(_device_cache_samples(), (32, 32, 16),
+                             device=dev)
+    loader = DeviceLoader(ds, batch_size=2, shuffle=True, seed=0)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        epochs = [list(loader) for _ in range(3)]
+        with pytest.raises(RuntimeError):
+            ds.images.float().sum().item()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    for batches in epochs:
+        assert [img.shape[0] for img, _ in batches] == [2, 1]
+        for img, lbl in batches:
+            assert img.is_cuda and tuple(img.shape[1:]) == (16, 32, 32, 1)
+            assert img.dtype == torch.bfloat16 and lbl.dtype == torch.uint8
+
+
+def test_device_crops_equal_host_crops_on_the_card(dev):
+    """The train transforms' random suffix on the host (RandFlip, then
+    RandSpatialCrop) against the device cache's crop at the same draws on
+    the card (a host flip then a crop at h0 is the crop at H - ch - h0,
+    then a flip): bit-equal to to_device_batch of the host crop."""
+    from vs_seg_tpu_torch.data.device_pipeline import DeviceCachedDataset
+    from vs_seg_tpu_torch.data.transforms import (Compose, RandFlip,
+                                                  RandSpatialCrop)
+    from vs_seg_tpu_torch.train.trainer import to_device_batch
+
+    crop = (32, 32, 16)
+    samples = _device_cache_samples()
+    ds = DeviceCachedDataset(samples, crop, device=dev)
+    suffix = Compose([RandFlip(prob=0.5, spatial_axis=0),
+                      RandSpatialCrop(crop)])
+    flips = set()
+    for seed in range(12):
+        i = seed % len(samples)
+        host = suffix(samples[i], np.random.default_rng(seed))
+        rng = np.random.default_rng(seed)
+        flip = bool(rng.random() < 0.5)
+        dims = samples[i]["image"].shape[1:]
+        h0, w0, d0 = (int(rng.integers(0, n - c + 1)) for n, c in
+                      zip(dims, crop))
+        if flip:
+            h0 = dims[0] - crop[0] - h0
+        img, lbl = ds.crop([i], [(d0, h0, w0)], [flip])
+        ref_img, ref_lbl = to_device_batch(
+            {"image": host["image"][None], "label": host["label"][None]},
+            dev, torch.bfloat16)
+        assert torch.equal(img, ref_img) and torch.equal(lbl, ref_lbl)
+        flips.add(flip)
+    assert flips == {False, True}

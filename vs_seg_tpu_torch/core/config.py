@@ -119,7 +119,10 @@ class Config:
     # None disables bucketing. Window placement ignores it, so results are
     # bit-identical with and without.
     sw_bucket: Optional[Shape3] = (64, 64, 16)
+    prefetch_depth: int = 2           # host loader: batches made ahead
     resume: bool = False
+    device_cache: bool = False  # training set on the device, crop/flip there
+    profile_steps: int = 0      # torch.profiler trace of N steady steps
     quantize_transfer: bool = False   # uint8 volume staging
     # --- the port's own: what JAX selects through its environment ---
     device: str = "cuda"
@@ -169,8 +172,6 @@ class Config:
 UNPORTED_FLAGS = {
     "sharded_inference": "item 5, multi-GPU (Queue 1 item 8)",
     "spatial_inference": "item 5, multi-GPU (Queue 1 item 8)",
-    "device_cache": "item 1, the training CLI and data/device_pipeline.py",
-    "profile_steps": "item 4, the rest of training (profiling)",
     "remat": "item 4, the rest of training (remat)",
 }
 
@@ -230,10 +231,11 @@ def add_reference_cli_flags(parser: argparse.ArgumentParser
                         help="shard each window's H across devices (not "
                              "ported)")
     parser.add_argument("--device_cache", action="store_true",
-                        help="cache the training set on the device (not "
-                             "ported)")
+                        help="cache the training set on the device and "
+                             "crop and flip there")
     parser.add_argument("--profile_steps", type=int, default=0,
-                        help="profile N steady training steps (not ported)")
+                        help="profile N steady training steps into "
+                             "<results>/profile/")
     parser.add_argument("--quantize_transfer", action="store_true",
                         help="stage inference volumes as uint8 (a quarter "
                              "of the float32 host->device bytes; max error "
@@ -280,6 +282,8 @@ def config_from_args(args: argparse.Namespace) -> Config:
         sw_bucket=_parse_bucket(args.sw_bucket),
         seed=args.seed,
         resume=args.resume,
+        device_cache=args.device_cache,
+        profile_steps=args.profile_steps,
         quantize_transfer=args.quantize_transfer,
         device=args.device,
         routes=Routes.parse(args.routes),

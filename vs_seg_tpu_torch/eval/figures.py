@@ -1,6 +1,10 @@
-"""Inference figures: the port's copy of the two run_inference figures of
-vs_seg_tpu/eval/figures.py (a 3-panel PNG per case at the label's
-centre-of-mass slice, and the Dice histogram).
+"""Figures: the port's copy of vs_seg_tpu/eval/figures.py, the reference's
+PNG outputs:
+  - the transform check of training (reference params/VSparams.py:266-297)
+  - the loss and Dice curves of training (:530-545)
+  - a 3-panel PNG per inferred case at the label's centre-of-mass slice
+    (:596-612)
+  - the Dice histogram of inference (:614-616)
 
 matplotlib is imported inside each function, so importing the port never
 needs it; without it a figure call raises an ImportError that names it.
@@ -24,6 +28,41 @@ def _pyplot():
     matplotlib.use("Agg")
     from matplotlib import pyplot as plt
     return plt
+
+
+def save_transform_check(image, label, figures_path: str) -> None:
+    """image/label: (H, W, D) arrays after val transforms."""
+    plt = _pyplot()
+    slice_idx = center_of_mass_slice(label)
+    plt.figure("check", (12, 6))
+    plt.clf()
+    plt.subplot(1, 2, 1)
+    plt.title("image")
+    plt.imshow(image[:, :, slice_idx], cmap="gray", interpolation="none")
+    plt.subplot(1, 2, 2)
+    plt.title("label")
+    plt.imshow(label[:, :, slice_idx], interpolation="none")
+    plt.savefig(os.path.join(figures_path, "check_validation_image_and_label.png"))
+    plt.close("all")
+
+
+def save_loss_and_dice_curves(epoch_loss_values, metric_values, val_interval: int,
+                              figures_path: str) -> None:
+    plt = _pyplot()
+    plt.figure("train", (12, 6))
+    plt.clf()
+    plt.subplot(1, 2, 1)
+    plt.title("Epoch Average Loss")
+    plt.xlabel("epoch")
+    plt.plot([i + 1 for i in range(len(epoch_loss_values))], epoch_loss_values)
+    plt.subplot(1, 2, 2)
+    plt.title("Val Mean Dice")
+    plt.xlabel("epoch")
+    plt.plot([val_interval * (i + 1) for i in range(len(metric_values))],
+             metric_values)
+    plt.savefig(os.path.join(figures_path,
+                             "epoch_average_loss_and_val_mean_dice.png"))
+    plt.close("all")
 
 
 def save_inference_panel(image, label, pred_argmax, dice: float, index: int,

@@ -12,10 +12,17 @@ device).
   - the learning rate divided by `lr_divisor` every `epochs_with_const_lr`
     epochs.
 
+Loaders yield host dict batches (data/dataset.py:DataLoader) or (image,
+label) device tuples (data/device_pipeline.py:DeviceLoader). An optional
+TensorBoard writer gets the epoch and validation scalars and, in debug mode,
+the image grid of vs_seg_tpu/train/trainer.py; `cfg.profile_steps` traces
+that many steady steps of the first epoch into <results>/profile/.
+
 The state is a dict: {"model", "optimizer", "generator", "epoch",
 "best_metric", "best_metric_epoch"}; the model and optimizer hold the
-tensors. Multi-GPU, the on-device data cache, profiling and legacy
-optimizer-state migration are not ported yet.
+tensors. `restore_state` reads the port's checkpoints and the JAX
+package's. Multi-GPU and legacy optimizer-state migration are not ported
+yet.
 """
 
 from __future__ import annotations
@@ -29,10 +36,14 @@ import numpy as np
 import torch
 from torch import nn
 
+from vs_seg_tpu_torch.compat import jax_ckpt
+from vs_seg_tpu_torch.compat.from_jax import load_jax_train_state
 from vs_seg_tpu_torch.core.device import DTYPES, resolve_device
-from vs_seg_tpu_torch.eval.metrics import dice_score
+from vs_seg_tpu_torch.core.observability import make_image_grid, start_trace
+from vs_seg_tpu_torch.eval.metrics import center_of_mass_slice, dice_score
 from vs_seg_tpu_torch.losses.dice import dice_spvpa_loss
-from vs_seg_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
+from vs_seg_tpu_torch.train.checkpoint import (ZIP_MAGIC, load_checkpoint,
+                                               save_checkpoint)
 
 
 def make_optimizer(params: Iterable[torch.Tensor], learning_rate: float,
@@ -86,34 +97,39 @@ def make_eval_step(model: nn.Module, *, supervised_attention: bool,
 
 def to_device_batch(batch, device, image_dtype=None):
     """(B, C, H, W, D) host batch -> (B, D, H, W, C) tensors on `device`.
-    Images are cast on the host to `image_dtype`; labels that are exact in
-    uint8 travel as uint8 and the steps cast them on the device."""
-    image = np.ascontiguousarray(np.transpose(batch["image"], (0, 4, 2, 3, 1)))
-    label = np.ascontiguousarray(np.transpose(batch["label"], (0, 4, 2, 3, 1)))
+    Images are cast on the host to `image_dtype`, then transposed (the same
+    bytes as transposing first: the cast is elementwise); labels that are
+    exact in uint8 travel as uint8 and the steps cast them on the device."""
+    label = np.asarray(batch["label"])
     if label.dtype != np.uint8:
         cast = label.astype(np.uint8)
         if np.array_equal(cast, label):
             label = cast
-    img = torch.from_numpy(image)
+    img = torch.from_numpy(np.asarray(batch["image"]))
     if image_dtype is not None:
         img = img.to(image_dtype)
+    img = img.permute(0, 4, 2, 3, 1).contiguous()
+    lbl = torch.from_numpy(label).permute(0, 4, 2, 3, 1).contiguous()
     return (img.to(device, non_blocking=True),
-            torch.from_numpy(label).to(device, non_blocking=True))
+            lbl.to(device, non_blocking=True))
 
 
 class Trainer:
     """Trainer(cfg, model, device).init_state() -> fit(state, train_loader,
     val_loader). Loaders yield dicts of numpy (B, C, H, W, D) "image" and
-    "label". `use_kernels=False` runs the all-plain path."""
+    "label", or (image, label) device tuples in (B, D, H, W, C).
+    `use_kernels=False` runs the all-plain path. `tb_writer` is a
+    tensorboardX SummaryWriter or None."""
 
     def __init__(self, cfg, model: nn.Module, device,
                  logger: Optional[logging.Logger] = None,
-                 use_kernels: bool = True):
+                 use_kernels: bool = True, tb_writer=None):
         self.cfg = cfg
         self.model = model
         self.device = resolve_device(device)
         self.logger = logger or logging.getLogger()
         self.use_kernels = use_kernels
+        self.tb_writer = tb_writer
         self._transfer_dtype = DTYPES[cfg.compute_dtype]
 
     def _optimizer(self):
@@ -128,6 +144,30 @@ class Trainer:
         return {"model": self.model, "optimizer": self._optimizer(),
                 "generator": torch.Generator(self.device).manual_seed(seed),
                 "epoch": 0, "best_metric": -1.0, "best_metric_epoch": -1}
+
+    def _device_batch(self, batch):
+        """A loader's batch -> (image in the compute dtype, label) on the
+        device; a device tuple is cast there and never leaves it."""
+        if isinstance(batch, tuple):
+            image, label = batch
+            return image.to(self._transfer_dtype), label
+        return to_device_batch(batch, self.device, self._transfer_dtype)
+
+    def _write_image_grid(self, train_loader) -> None:
+        """The debug-mode TensorBoard grid of centre-of-mass slices
+        (reference params/VSparams.py:417-426). It walks the loader once,
+        which advances a host loader's epoch, as JAX's does; a device
+        loader's crops stay on the device and give no grid."""
+        images = []
+        for batch in train_loader:
+            if not isinstance(batch, dict):
+                break
+            for image, label in zip(batch["image"], batch["label"]):
+                s = center_of_mass_slice(np.squeeze(label[0]))
+                images.append(image[0, :, :, s])
+                images.append(label[0, :, :, s])
+        grid = make_image_grid(images)
+        self.tb_writer.add_image("images", grid[None], 0)
 
     def fit(self, state: Dict[str, Any], train_loader, val_loader
             ) -> Tuple[Dict[str, Any], list, list]:
@@ -144,6 +184,12 @@ class Trainer:
         best_metric_epoch = int(state.get("best_metric_epoch", -1))
         start_epoch = int(state.get("epoch", 0))
         logger.info("Running the training loop...")
+        if cfg.debug and self.tb_writer is not None:
+            self._write_image_grid(train_loader)
+        # --profile_steps N: trace N steady steps of the first epoch (from
+        # its second step) into <results>/profile/
+        profile_steps = cfg.profile_steps
+        prof = None
         epoch_loss_values, metric_values = [], []
         start = time.perf_counter()
         for epoch in range(start_epoch, cfg.num_epochs):
@@ -162,13 +208,27 @@ class Trainer:
                 group["lr"] = lr
             step_losses = []
             for batch in train_loader:
-                image, label = to_device_batch(batch, self.device,
-                                               self._transfer_dtype)
+                image, label = self._device_batch(batch)
+                if (profile_steps and epoch == start_epoch
+                        and len(step_losses) == 1):
+                    profile_dir = os.path.join(cfg.results_folder_path,
+                                               "profile")
+                    logger.info("profiling %d steps -> %s", profile_steps,
+                                profile_dir)
+                    prof = start_trace(profile_dir, self.device)
                 loss = train_step(image, label, gen)
                 step_losses.append(loss)      # kept on the device: no sync
+                if prof is not None and len(step_losses) > profile_steps:
+                    float(loss)     # sync: the trace holds the whole step
+                    prof.stop()
+                    prof, profile_steps = None, 0
                 if epoch == start_epoch:
                     logger.info("%d/%d, train_loss: %.4f", len(step_losses),
                                 len(train_loader), float(loss))
+            if prof is not None:    # the epoch was shorter than the window
+                float(step_losses[-1])
+                prof.stop()
+                prof, profile_steps = None, 0
             epoch_loss = (float(torch.stack(step_losses).mean())
                           if step_losses else 0.0)
             epoch_loss_values.append(epoch_loss)
@@ -177,14 +237,20 @@ class Trainer:
             if (epoch + 1) % cfg.val_interval == 0:
                 metric_sum, val_loss, n_val = 0.0, 0.0, 0
                 for val_batch in val_loader:
-                    image, label = to_device_batch(val_batch, self.device,
-                                                   self._transfer_dtype)
+                    image, label = self._device_batch(val_batch)
                     loss, dice = eval_step(image, label)
                     metric_sum += float(dice)
                     val_loss += float(loss)
                     n_val += 1
                 metric = metric_sum / max(n_val, 1)
+                val_loss /= max(n_val, 1)
                 metric_values.append(metric)
+                if self.tb_writer is not None:
+                    self.tb_writer.add_scalars(
+                        "Loss Train/Val",
+                        {"train": epoch_loss, "val": val_loss}, epoch)
+                    self.tb_writer.add_scalar("Dice Score Val", metric,
+                                              epoch)
                 if metric > best_metric:
                     best_metric, best_metric_epoch = metric, epoch + 1
                     self._save(state, epoch + 1, best_metric,
@@ -199,6 +265,8 @@ class Trainer:
                     best_metric, best_metric_epoch)
         self._save(state, cfg.num_epochs, best_metric, best_metric_epoch,
                    "last_epoch_model.ckpt")
+        logger.info("Saved model of the last epoch at: %s",
+                    os.path.join(cfg.model_path, "last_epoch_model.ckpt"))
         state = dict(state, epoch=cfg.num_epochs, best_metric=best_metric,
                      best_metric_epoch=best_metric_epoch)
         return state, epoch_loss_values, metric_values
@@ -213,8 +281,18 @@ class Trainer:
             "best_metric_epoch": best_metric_epoch})
 
     def restore_state(self, path: str) -> Dict[str, Any]:
-        """A checkpoint of `_save` back into a training state (true resume):
-        weights, BatchNorm statistics, Adam moments, generator, counters."""
+        """A checkpoint back into a training state (true resume): weights,
+        BatchNorm statistics, Adam moments, counters, and the generator.
+        The kind is told apart by content, as load_model_state does: the
+        port's torch.save archive (`_save`) or the JAX package's msgpack
+        state (`_restore_jax`)."""
+        with open(path, "rb") as f:
+            head = f.read(4)
+        if jax_ckpt.is_msgpack_map(head):
+            return self._restore_jax(path)
+        if head != ZIP_MAGIC:
+            raise ValueError(f"{path}: neither a torch.save archive nor a "
+                             f"flax msgpack checkpoint (starts {head!r})")
         raw = load_checkpoint(path)
         self.model.load_state_dict(raw["model"], strict=True)
         state = self.init_state()
@@ -223,4 +301,27 @@ class Trainer:
         state.update(epoch=int(raw["epoch"]),
                      best_metric=float(raw["best_metric"]),
                      best_metric_epoch=int(raw["best_metric_epoch"]))
+        return state
+
+    def _restore_jax(self, path: str) -> Dict[str, Any]:
+        """A vs_seg_tpu training checkpoint: parameters, BatchNorm
+        statistics and the flattened Adam state through
+        load_jax_train_state. JAX's rbg dropout key cannot seed a
+        torch.Generator, so the generator is seeded from cfg.seed."""
+        raw = jax_ckpt.load_jax_checkpoint(path)
+        adam = raw["opt_state"].get("inner_state", {}).get("1", {})
+        if isinstance(adam.get("mu"), dict):
+            raise NotImplementedError(
+                f"{path} holds a legacy JAX optimizer state (per-parameter "
+                "Adam moment trees); migrating it is not ported to "
+                "vs_seg_tpu_torch yet (ROADMAP, Queue 1 item 7f)")
+        state = self.init_state()
+        scalars = load_jax_train_state(self.model, state["optimizer"], raw)
+        self.logger.info(
+            "resumed from the JAX checkpoint %s; its dropout key does not "
+            "carry over, the dropout generator is seeded from seed = %d",
+            path, self.cfg.seed)
+        state.update(epoch=int(scalars["epoch"]),
+                     best_metric=float(scalars["best_metric"]),
+                     best_metric_epoch=int(scalars["best_metric_epoch"]))
         return state

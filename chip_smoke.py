@@ -126,9 +126,11 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
      (iii) (i)'s last checkpoint resumed for one more epoch under
      --profile_steps 2; each with its launch counts (reset just before,
      read just after), finite losses, the checkpoints reloaded and the
-     figures when matplotlib is found; ms/step (each step synchronised,
-     the first left out) and device ms/step; the trace's busy share and
-     device ms by kernel family. Then the DeviceLoader: one epoch under
+     figures when matplotlib is found; ms/step by CUDA events from one
+     step's end to the next (each epoch's first step left out; the first
+     epoch synchronised by the CLI's train_loss line, later ones not) and
+     each step's device ms; the trace's busy share, device ms by kernel
+     family and its heaviest kernel names. Then the DeviceLoader: one epoch under
      torch.cuda.set_sync_debug_mode("error"), its crops at given draws
      bit-equal to the host transforms' crops, its upload seconds, device
      MiB and ms per batch; and to_device_batch's ms per crop beside the
@@ -2370,8 +2372,9 @@ def cli_run(dev, card: str, model):
     return counts
 
 
-TRAIN_CLI_CASES = 2      # synthetic training cases of phase 15 (+1 val)
-TRAIN_CLI_EPOCHS = 2     # epochs of phase 15's runs (i) and (ii)
+TRAIN_CLI_CASES = 6      # synthetic training cases of phase 15 (+1 val)
+TRAIN_CLI_EPOCHS = 3     # epochs of phase 15's runs (i) and (ii)
+TRACE_TOP = 12           # kernel names listed from phase 15's trace
 TDB_REPS = 5             # timed to_device_batch calls per order
 LOADER_EPOCHS = 5        # timed DeviceLoader epochs
 
@@ -2408,10 +2411,11 @@ def kernel_family(name: str) -> str:
 
 
 def trace_summary(folder: Path):
-    """Busy share and device ms by kernel family of the newest
-    torch.profiler trace in `folder`: the union of the device's kernel,
-    copy and memset intervals over the span of all the trace's events.
-    None when the trace holds no device event."""
+    """Busy share, device ms by kernel family and the TRACE_TOP kernel
+    names by device ms (each with its count) of the newest torch.profiler
+    trace in `folder`: the union of the device's kernel, copy and memset
+    intervals over the span of all the trace's events. None when the trace
+    holds no device event."""
     traces = sorted(folder.glob("*.pt.trace.json"),
                     key=lambda p: p.stat().st_mtime)
     if not traces:
@@ -2429,14 +2433,18 @@ def trace_summary(folder: Path):
     for s, e in sorted((e["ts"], e["ts"] + e["dur"]) for e in dev):
         busy += max(0.0, e - max(s, last))
         last = max(last, e)
-    fams = {}
+    fams, names = {}, {}
     for e in dev:
         fam = kernel_family(e["name"])
         fams[fam] = fams.get(fam, 0.0) + e["dur"] / 1e3
+        ms, n = names.get(e["name"], (0.0, 0))
+        names[e["name"]] = (ms + e["dur"] / 1e3, n + 1)
+    top = sorted(names.items(), key=lambda kv: -kv[1][0])[:TRACE_TOP]
     return {"file": traces[-1].name, "mib": traces[-1].stat().st_size / 2**20,
             "window_ms": (span1 - span0) / 1e3, "busy_ms": busy / 1e3,
             "busy_share": busy / (span1 - span0), "device_events": len(dev),
-            "families_ms": dict(sorted(fams.items(), key=lambda kv: -kv[1]))}
+            "families_ms": dict(sorted(fams.items(), key=lambda kv: -kv[1])),
+            "top": [(kernel_family(k), k, ms, n) for k, (ms, n) in top]}
 
 
 def train_cli_run(dev, card: str):
@@ -2482,8 +2490,8 @@ def train_cli_run(dev, card: str):
 
     # The reference CLI has no epochs flag and the port adds none: each run
     # wraps cli.train.config_from_args in this process to set num_epochs
-    # (val_interval 1). Each train step is timed by CUDA events around it
-    # and by the host clock after a synchronize.
+    # (val_interval 1). Each train step is bracketed by CUDA events, read
+    # after the fit: the timing adds no sync to the CLI's own.
     real_cfg, real_make, real_trainer = (cli_train.config_from_args,
                                          tr.make_train_step,
                                          cli_train.Trainer)
@@ -2498,8 +2506,7 @@ def train_cli_run(dev, card: str):
             start.record()
             loss = step(image, label, gen)
             end.record()
-            torch.cuda.synchronize()
-            step_log.append((time.perf_counter(), start.elapsed_time(end)))
+            step_log.append((start, end))
             return loss
         return timed
 
@@ -2535,17 +2542,31 @@ def train_cli_run(dev, card: str):
                                  f"{state['epoch']}")
         check_counts(counts, train_cli_counts(steps, new_epochs),
                      f"training CLI ({mode})")
-        # ms/step: consecutive synchronised step ends within an epoch
-        # (loader fetch + host transfer + the step); the run's first step
-        # is left out
-        host = [(step_log[k][0] - step_log[k - 1][0]) * 1e3
-                for k in range(1, steps) if k % TRAIN_CLI_CASES]
-        device = [ms for _, ms in step_log[1:]]
+        # ms/step by the device's clock: from the end of one step to the
+        # end of the next within an epoch (the loader's fetch, the host
+        # transfer, the step, and any wait of the device on the host), each
+        # epoch's first step left out. The CLI's train_loss line syncs every
+        # step of a run's first epoch; later epochs make no sync per step
+        # but the host loader's pageable copy (to_device_batch).
+        gaps = [[step_log[k - 1][1].elapsed_time(step_log[k][1])
+                 for k in range(e * TRAIN_CLI_CASES + 1,
+                                (e + 1) * TRAIN_CLI_CASES)]
+                for e in range(new_epochs)]
+        device = [a.elapsed_time(b) for a, b in step_log[1:]]
+        first = gaps[0]
+        later = [ms for epoch in gaps[1:] for ms in epoch]
+
+        def mean(xs):
+            return (f"{sum(xs) / len(xs):.1f} ms/step "
+                    f"{[round(x, 2) for x in xs]}")
         log(f"training CLI ({mode}): epoch losses {losses}, val dice {dice}; "
-            f"{sum(host) / len(host):.1f} ms/step by the host clock "
-            f"(steps 2.. of each epoch: {host}), device "
-            f"{sum(device) / len(device):.1f} ms/step (steps 2..: {device}); "
-            f"fit wall {fit_s[-1]:.2f} s, CLI wall {wall:.2f} s on {card}")
+            f"by the device clock, steps 2.. of each epoch: first epoch "
+            f"(synchronised each step by the CLI's train_loss line) "
+            f"{mean(first)}"
+            + (f"; epochs 2..{new_epochs} (no sync per step) {mean(later)}"
+               if later else "")
+            + f"; each step's own device time {mean(device)}; fit wall "
+            f"{fit_s[-1]:.2f} s, CLI wall {wall:.2f} s on {card}")
         return counts, (parse_cli(args), epochs)
 
     total, cfgs = {}, {}
@@ -2606,12 +2627,15 @@ def train_cli_run(dev, card: str):
             f"busy share not measured on {card}")
     else:
         fams = {k: round(v, 3) for k, v in summary["families_ms"].items()}
-        log(f"profiled step (run iii, 1 step: its epoch of "
-            f"{TRAIN_CLI_CASES} steps ends the window): busy share "
+        log(f"profiled steps (run iii, steps 2-3 of its first epoch, host "
+            f"loader, synchronised by the train_loss line): busy share "
             f"{summary['busy_share']!r} ({summary['busy_ms']:.2f} of "
             f"{summary['window_ms']:.2f} ms, {summary['device_events']} "
             f"device events, trace {summary['mib']:.1f} MiB); device ms "
             f"by family {fams} on {card}")
+        for fam, name, ms, n in summary["top"]:
+            log(f"  trace kernel [{fam}] {ms:.3f} ms in {n} launches: "
+                f"{name[:160]}")
 
     # the device loader: upload, no sync, crops at given draws bit-equal
     # to the host transforms' crops of the same cached volumes

@@ -53,7 +53,7 @@ from vs_seg_tpu_torch.data import synthetic as tsynthetic
 from vs_seg_tpu_torch.eval import figures as tfigures
 from vs_seg_tpu_torch.models import build_model
 from vs_seg_tpu_torch.train import trainer as ttrainer
-from vs_seg_tpu_torch.train.checkpoint import load_checkpoint
+from vs_seg_tpu_torch.train.checkpoint import checkpoint_kind, load_checkpoint
 
 REPO = Path(__file__).resolve().parents[1]
 SHAPE = (48, 48, 16)
@@ -192,12 +192,29 @@ def _jparse(argv):
 
 def _ckpt_scalars(path):
     """(epoch, best_metric, best_metric_epoch) of either checkpoint kind."""
-    with open(path, "rb") as f:
-        head = f.read(4)
     raw = (jax_ckpt.load_jax_checkpoint(str(path))
-           if jax_ckpt.is_msgpack_map(head) else load_checkpoint(str(path)))
+           if checkpoint_kind(str(path)) == "jax"
+           else load_checkpoint(str(path)))
     return (int(np.asarray(raw["epoch"])), float(np.asarray(
         raw["best_metric"])), int(np.asarray(raw["best_metric_epoch"])))
+
+
+@pytest.mark.parametrize("kind", ["torch", "jax", "neither"])
+def test_checkpoint_kind_by_content(tmp_path, kind):
+    """The kind comes from the file's first bytes, never its name: a
+    torch.save archive, a JAX package checkpoint (flax msgpack), or a
+    ValueError."""
+    path = str(tmp_path / "model.pth")
+    if kind == "torch":
+        torch.save({"epoch": 0}, path)
+    elif kind == "jax":
+        jsave_checkpoint(path, {"epoch": np.int32(0)})
+    else:
+        Path(path).write_bytes(b"\x00\x01\x02\x03 not a checkpoint")
+        with pytest.raises(ValueError, match="neither"):
+            checkpoint_kind(path)
+        return
+    assert checkpoint_kind(path) == kind
 
 
 def _rel_close(got, ref, tol):
@@ -291,22 +308,12 @@ def test_training_figures_match_jax(tmp_path):
                 == (tmp_path / "vs_seg_tpu" / name).read_bytes())
 
 
-def test_step_timer_eta():
-    t = tobs.StepTimer(total_steps=4)
-    for _ in range(2):
-        t.start()
-        t.stop()
-    assert t.count == 2 and t.eta_seconds() >= 0
-
-
-def test_profile_trace_writes_a_trace(tmp_path):
-    """profile_trace traces its block into the directory (CPU activity
-    here) and is a no-op when not enabled."""
-    with tobs.profile_trace(str(tmp_path / "off"), enabled=False) as prof:
-        torch.ones(4).sum()
-    assert prof is None and not (tmp_path / "off").exists()
-    with tobs.profile_trace(str(tmp_path / "on"), device="cpu") as prof:
-        torch.ones(4).sum()
+def test_start_trace_writes_a_trace(tmp_path):
+    """start_trace traces until stop() and writes one Chrome trace into
+    the directory (CPU activity here)."""
+    prof = tobs.start_trace(str(tmp_path / "on"), device="cpu")
+    torch.ones(4).sum()
+    prof.stop()
     assert len(list((tmp_path / "on").glob("*.pt.trace.json"))) == 1
 
 

@@ -84,7 +84,7 @@ def main(argv=None, make_figures: bool = True):
     else:
         train_loader = DataLoader(train_ds, batch_size=cfg.train_batch_size,
                                   shuffle=True, seed=cfg.seed,
-                                  prefetch=cfg.prefetch_depth)
+                                  prefetch=2)
         val_loader = DataLoader(val_ds, batch_size=1)
 
     logger.info("Setting up the model type...")

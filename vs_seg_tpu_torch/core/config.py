@@ -119,7 +119,6 @@ class Config:
     # None disables bucketing. Window placement ignores it, so results are
     # bit-identical with and without.
     sw_bucket: Optional[Shape3] = (64, 64, 16)
-    prefetch_depth: int = 2           # host loader: batches made ahead
     resume: bool = False
     device_cache: bool = False  # training set on the device, crop/flip there
     profile_steps: int = 0      # torch.profiler trace of N steady steps

@@ -33,7 +33,7 @@ from vs_seg_tpu_torch.core.device import resolve_device
 class DeviceCachedDataset:
     """Samples ((C, H, W, D) host dicts, e.g. CacheDataset.cache after the
     deterministic pad prefix) cached on `device` as (N, D, H, W, C): images
-    in `image_dtype` (bf16 by default, as in JAX), labels in uint8.
+    in bf16 (JAX's default), labels in uint8.
     `crop_shape` is reference-order (H, W, D), as pad_crop_shape.
 
     `augment=False` never flips (validation crops at random, like the
@@ -41,7 +41,6 @@ class DeviceCachedDataset:
 
     def __init__(self, samples: Sequence[dict],
                  crop_shape: Tuple[int, int, int], *, device,
-                 image_dtype: torch.dtype = torch.bfloat16,
                  augment: bool = True):
         self.device = resolve_device(device)
         shapes = [np.shape(s["image"]) for s in samples]
@@ -60,19 +59,19 @@ class DeviceCachedDataset:
         n = len(samples)
         big = tuple(int(v) for v in self.extents.max(axis=0))
         n_lbl = np.shape(samples[0]["label"])[0]
-        self.images = torch.zeros((n, *big, shapes[0][0]), dtype=image_dtype,
-                                  device=self.device)
+        self.images = torch.zeros((n, *big, shapes[0][0]),
+                                  dtype=torch.bfloat16, device=self.device)
         self.labels = torch.zeros((n, *big, n_lbl), dtype=torch.uint8,
                                   device=self.device)
         # volume by volume: the host holds one cast volume at a time
         for i, s in enumerate(samples):
             d, h, w = (int(v) for v in self.extents[i])
-            for dst, arr, dtype in ((self.images, s["image"], image_dtype),
-                                    (self.labels, s["label"], torch.uint8)):
+            for dst, arr in ((self.images, s["image"]),
+                             (self.labels, s["label"])):
                 host = torch.from_numpy(np.ascontiguousarray(arr)).permute(
                     3, 1, 2, 0)
                 dst[i, :d, :h, :w].copy_(host.to(
-                    dtype, memory_format=torch.contiguous_format))
+                    dst.dtype, memory_format=torch.contiguous_format))
 
     def __len__(self) -> int:
         return int(self.images.shape[0])

@@ -35,6 +35,19 @@ def load_checkpoint(path: str) -> Dict[str, Any]:
     return torch.load(path, map_location="cpu", weights_only=True)
 
 
+def checkpoint_kind(path: str) -> str:
+    """"torch" (a torch.save zip archive) or "jax" (a flax msgpack map),
+    told apart by content, never by name; anything else raises."""
+    with open(path, "rb") as f:
+        head = f.read(4)
+    if head == ZIP_MAGIC:
+        return "torch"
+    if jax_ckpt.is_msgpack_map(head):
+        return "jax"
+    raise ValueError(f"{path}: neither a torch.save archive nor a flax "
+                     f"msgpack checkpoint (starts {head!r})")
+
+
 def load_model_state(cfg, model: nn.Module) -> str:
     """Load the inference weights under cfg.model_path into `model`, in
     place; returns the kind read: "torch" or "jax" (best_metric_model.ckpt)
@@ -48,20 +61,16 @@ def load_model_state(cfg, model: nn.Module) -> str:
     ckpt_path = os.path.join(cfg.model_path, "best_metric_model.ckpt")
     pth_path = os.path.join(cfg.model_path, "best_metric_model.pth")
     if os.path.exists(ckpt_path):
-        with open(ckpt_path, "rb") as f:
-            head = f.read(4)
-        if head == ZIP_MAGIC:
+        kind = checkpoint_kind(ckpt_path)
+        if kind == "torch":
             model.load_state_dict(load_checkpoint(ckpt_path)["model"],
                                   strict=True)
-            return "torch"
-        if jax_ckpt.is_msgpack_map(head):
+        else:
             state = jax_ckpt.load_jax_checkpoint(ckpt_path)
             load_jax_variables(model, {
                 "params": state["params"],
                 "batch_stats": state.get("batch_stats", {})})
-            return "jax"
-        raise ValueError(f"{ckpt_path}: neither a torch.save archive nor a "
-                         f"flax msgpack checkpoint (starts {head!r})")
+        return kind
     if os.path.exists(pth_path):
         params, stats = torch_import.import_unet2d5_spvpa(
             torch_import.load_pth(pth_path), channels=tuple(cfg.channels),

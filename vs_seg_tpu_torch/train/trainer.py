@@ -42,7 +42,8 @@ from vs_seg_tpu_torch.core.device import DTYPES, resolve_device
 from vs_seg_tpu_torch.core.observability import make_image_grid, start_trace
 from vs_seg_tpu_torch.eval.metrics import center_of_mass_slice, dice_score
 from vs_seg_tpu_torch.losses.dice import dice_spvpa_loss
-from vs_seg_tpu_torch.train.checkpoint import (ZIP_MAGIC, load_checkpoint,
+from vs_seg_tpu_torch.train.checkpoint import (checkpoint_kind,
+                                               load_checkpoint,
                                                save_checkpoint)
 
 
@@ -286,13 +287,8 @@ class Trainer:
         The kind is told apart by content, as load_model_state does: the
         port's torch.save archive (`_save`) or the JAX package's msgpack
         state (`_restore_jax`)."""
-        with open(path, "rb") as f:
-            head = f.read(4)
-        if jax_ckpt.is_msgpack_map(head):
+        if checkpoint_kind(path) == "jax":
             return self._restore_jax(path)
-        if head != ZIP_MAGIC:
-            raise ValueError(f"{path}: neither a torch.save archive nor a "
-                             f"flax msgpack checkpoint (starts {head!r})")
         raw = load_checkpoint(path)
         self.model.load_state_dict(raw["model"], strict=True)
         state = self.init_state()

@@ -135,6 +135,18 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
      bit-equal to the host transforms' crops, its upload seconds, device
      MiB and ms per batch; and to_device_batch's ms per crop beside the
      parent's order (the numpy transpose first), in turns.
+ 16. The rest of the model zoo at full width: UNet2d5 (the flagship without
+     attention) and UNet (the vendored MONAI UNet, Config(model="UNet")'s
+     defaults, also under Routes(dsconv=True)) over phase 3's volume
+     through the kernels and the plain path, in the bf16 band and by
+     argmax agreement, with their launch counts checked (ZOO_EVAL) and
+     ms/volume; one train step of each (384x384x64, batch 1, bf16), the
+     first-step loss bit-equal and every gradient within GRAD_TOL, conv333
+     and conv333_dw launches checked (ZOO_TRAIN_SITES), ms/step and peak
+     memory; phase 6's flagship step with and without --remat (loss and
+     generator state equal, the largest gradient difference, ms/step and
+     peak memory both ways); blend_scatter with the constant importance
+     map and with sigma_scale 0.25 bit-equal to its twin.
 
 The kernels are built in parallel, one nvcc per source. Every kernel record
 carries its time, its plain twin's, the time of one library call computing
@@ -144,7 +156,7 @@ rate and its operations over the peak rate for their type (H100 SXM, dense:
 989 TFLOP/s bf16 tensor cores, 67 TFLOP/s f32, 3.35 TB/s). The last stdout
 line is {"ok": true, "device": {...}}; the line before it is the per-kernel
 JSON record, whose launch counts add up every main path (phases 3, 6, 8,
-10 and 15).
+10, 15 and 16).
 """
 
 from __future__ import annotations
@@ -495,24 +507,85 @@ def check_counts(counts, expect, path: str):
                                  f"run, expected {n} (one per site)")
 
 
-def model_run(dev, gen, card: str):
-    """Phase 3-4: the flagship whole-volume path, kernels vs plain."""
-    import numpy as np
+def randomise_bn(model, gen) -> None:
+    """Seeded BatchNorm running statistics (mean ~ N(0, 0.1), var in [0.5,
+    1.5)), so the eval fold is not the identity."""
     import torch
 
-    from vs_seg_tpu_torch.infer.engine import make_predictor
-    from vs_seg_tpu_torch.infer.sliding_window import (
-        sliding_window_inference, stage_volume)
-    from vs_seg_tpu_torch.models import UNet2d5_spvPA
     from vs_seg_tpu_torch.nn.layers import BatchNorm
-
-    model = UNet2d5_spvPA(dtype=torch.bfloat16, device=dev, generator=gen)
     with torch.no_grad():
         for m in model.modules():
             if isinstance(m, BatchNorm):
                 c = m.mean.numel()
                 m.mean.copy_(torch.randn(c, generator=gen) * 0.1)
                 m.var.copy_(torch.rand(c, generator=gen) + 0.5)
+
+
+def volume_paths(model, staged, routes, expect, card: str, tag: str):
+    """One model over the staged flagship volume through the kernels and
+    through the plain path (turns plain, kernel, kernel, plain; the
+    counters reset just before the first kernel turn, read just after):
+    logits in the bf16 band and by argmax agreement. Returns (counts, the
+    kernel path's logits)."""
+    import torch
+
+    from vs_seg_tpu_torch.infer.engine import make_predictor
+    from vs_seg_tpu_torch.infer.sliding_window import sliding_window_inference
+
+    def run(use_kernels: bool):
+        pred = make_predictor(model, torch.bfloat16, use_kernels=use_kernels,
+                              routes=routes)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = sliding_window_inference(
+            staged, ROI, pred, overlap=0.25, sw_batch_size=SW_BATCH,
+            use_kernels=use_kernels)
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t) * 1e3
+
+    run(True)      # warm-up: first launches, cuDNN algorithm choice
+    run(False)
+    times = {True: [], False: []}
+    outs, counts = {}, None
+    for use_kernels in (False, True, True, False):
+        if use_kernels and counts is None:
+            reset_counts()
+            outs[True], ms = run(True)
+            counts = read_counts()
+        else:
+            outs[use_kernels], ms = run(use_kernels)
+        times[use_kernels].append(ms)
+    check_counts(counts, expect, tag)
+    ko, po = outs[True], outs[False]
+    if tuple(ko.shape) != (*VOLUME, 2):
+        raise AssertionError(f"{tag}: output shape {tuple(ko.shape)}")
+    if not torch.isfinite(ko).all() or not torch.isfinite(po).all():
+        raise AssertionError(f"{tag}: non-finite logits")
+    compare(f"{tag}: whole-volume logits, kernel path vs plain path", ko, po,
+            LOGIT_TOL)
+    agree = float((ko.argmax(-1) == po.argmax(-1)).float().mean())
+    log(f"  {tag}: argmax agreement {agree!r} (min {ARGMAX_MIN})")
+    if agree < ARGMAX_MIN:
+        raise AssertionError(f"{tag}: argmax agreement {agree} < "
+                             f"{ARGMAX_MIN}")
+    k_ms = sum(times[True]) / 2
+    p_ms = sum(times[False]) / 2
+    log(f"  {tag}: kernel path {k_ms:.1f} ms/volume {times[True]}, plain "
+        f"path {p_ms:.1f} ms/volume {times[False]} on {card}")
+    return counts, ko
+
+
+def model_run(dev, gen, card: str):
+    """Phase 3-4: the flagship whole-volume path, kernels vs plain."""
+    import numpy as np
+    import torch
+
+    from vs_seg_tpu_torch.core.config import Routes
+    from vs_seg_tpu_torch.infer.sliding_window import stage_volume
+    from vs_seg_tpu_torch.models import UNet2d5_spvPA
+
+    model = UNet2d5_spvPA(dtype=torch.bfloat16, device=dev, generator=gen)
+    randomise_bn(model, gen)
     rng = np.random.default_rng(SEED)
     volume = rng.normal(size=(*VOLUME, 1)).astype(np.float32)
     t0 = time.perf_counter()
@@ -525,47 +598,9 @@ def model_run(dev, gen, card: str):
     # bottom), 3 decoder levels (up_2, up_3, up_4), 1 window batch
     expect = {**EVAL_RU, **EVAL_L2, "conv333": EVAL_CONV333,
               "blend_scatter": 1, "conv333_dw": 0, **NO_KD1}
-
-    def run(use_kernels: bool):
-        pred = make_predictor(model, torch.bfloat16, use_kernels=use_kernels)
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        out = sliding_window_inference(
-            staged, ROI, pred, overlap=0.25, sw_batch_size=SW_BATCH,
-            use_kernels=use_kernels)
-        torch.cuda.synchronize()
-        return out, (time.perf_counter() - t) * 1e3
-
-    run(True)      # warm-up: first launches, cuDNN algorithm choice
-    run(False)
-    times = {True: [], False: []}
-    counts = None
-    outs = {}
-    for use_kernels in (False, True, True, False):
-        if use_kernels and counts is None:
-            reset_counts()
-            outs[True], ms = run(True)
-            counts = read_counts()
-        else:
-            outs[use_kernels], ms = run(use_kernels)
-        times[use_kernels].append(ms)
-    check_counts(counts, expect, "inference")
-    ko, po = outs[True], outs[False]
-    if tuple(ko.shape) != (*VOLUME, 2):
-        raise AssertionError(f"output shape {tuple(ko.shape)}")
-    if not torch.isfinite(ko).all() or not torch.isfinite(po).all():
-        raise AssertionError("non-finite logits")
-    compare("whole-volume logits, kernel path vs plain path", ko, po,
-            LOGIT_TOL)
-    agree = float((ko.argmax(-1) == po.argmax(-1)).float().mean())
-    log(f"  argmax agreement {agree!r} (min {ARGMAX_MIN})")
-    if agree < ARGMAX_MIN:
-        raise AssertionError(f"argmax agreement {agree} < {ARGMAX_MIN}")
-    k_ms = sum(times[True]) / len(times[True])
-    p_ms = sum(times[False]) / len(times[False])
+    counts, ko = volume_paths(model, staged, Routes(), expect, card,
+                              "inference")
     log(f"staging (host prep + upload) {stage_ms:.1f} ms; card: {card}")
-    log(f"kernel path: {k_ms:.1f} ms/volume {times[True]} on {card}")
-    log(f"plain path: {p_ms:.1f} ms/volume {times[False]} on {card}")
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
         f"GiB on {card}")
     return counts, model, staged, ko
@@ -636,6 +671,21 @@ def train_kernel_checks(dev, gen, card: str):
     return rec
 
 
+def train_crop(cfg, rng):
+    """A seeded host batch {"image", "label"} of cfg.pad_crop_shape drawn
+    from the numpy Generator `rng`: a sparse binary label, one box of
+    32x38x12 voxels in a 384x384x64 crop, and a normal image plus it."""
+    import numpy as np
+    h, w, d = cfg.pad_crop_shape
+    lab = np.zeros((cfg.train_batch_size, 1, h, w, d), np.float32)
+    bh, bw, bd = h // 12, w // 10, d // 5
+    h0, w0, d0 = (int(rng.integers(0, s - e)) for s, e in
+                  ((h, bh), (w, bw), (d, bd)))
+    lab[..., h0:h0 + bh, w0:w0 + bw, d0:d0 + bd] = 1.0
+    img = rng.normal(size=lab.shape).astype(np.float32) + lab
+    return {"image": img, "label": lab}
+
+
 class StepLosses(logging.Handler):
     """Collects the float of every per-step train loss the Trainer logs."""
 
@@ -667,22 +717,9 @@ def train_run(dev, card: str):
                           generator=torch.Generator().manual_seed(SEED),
                           **cfg.model_kwargs())
     init = {k: v.clone() for k, v in model.state_dict().items()}
-    h, w, d = cfg.pad_crop_shape
     rng = np.random.default_rng(SEED + 1)
-
-    def crop():
-        # a seeded image and a sparse binary label: one box of 32x38x12
-        # voxels in a 384x384x64 crop
-        lab = np.zeros((cfg.train_batch_size, 1, h, w, d), np.float32)
-        bh, bw, bd = h // 12, w // 10, d // 5
-        h0, w0, d0 = (int(rng.integers(0, s - e)) for s, e in
-                      ((h, bh), (w, bw), (d, bd)))
-        lab[..., h0:h0 + bh, w0:w0 + bw, d0:d0 + bd] = 1.0
-        img = rng.normal(size=lab.shape).astype(np.float32) + lab
-        return {"image": img, "label": lab}
-
-    train_data = [crop() for _ in range(TRAIN_STEPS)]
-    val_data = [crop()]
+    train_data = [train_crop(cfg, rng) for _ in range(TRAIN_STEPS)]
+    val_data = [train_crop(cfg, rng)]
     log(f"  {TRAIN_STEPS} train crops + 1 validation crop of "
         f"{cfg.pad_crop_shape}, channels {tuple(cfg.channels)}, "
         f"compute {cfg.compute_dtype}")
@@ -2743,6 +2780,399 @@ def train_cli_run(dev, card: str):
     return total
 
 
+# Phase 16: the rest of the model zoo. Train-route (3,3,3) stride-1 conv
+# sites of one train step, pair halves apart: UNet2d5 = the flagship's 25
+# less its 11 attention convs; UNet = unit1 of down_0..4, the bottom's two,
+# each upres_i unit0 (upres_0 at 2 -> 2 channels, 384x384x64)
+ZOO_TRAIN_SITES = {"UNet2d5": 14, "UNet": 12}
+# eval launches of one 8-window batch: UNet2d5 runs ru_block at down_2/3/4
+# and the bottom and no decoder block (no attention); UNet's bottom is its
+# one two-subunit stride-1 unit, and under Routes(dsconv=True) ds_conv
+# takes the unit0 of its strided down_2/3/4 (32->48, 48->64, 64->80)
+ZOO_EVAL = {
+    "UNet2d5": {"ru_block": 4, "ru_unit": 4, "l2_block": 0, "att_map": 0,
+                "conv333_gated": 0, "attgate": 0, "conv333": 0,
+                "blend_scatter": 1, "conv333_dw": 0, **NO_KD1},
+    "UNet": {"ru_block": 1, "ru_unit": 1, "l2_block": 0, "att_map": 0,
+             "conv333_gated": 0, "attgate": 0, "conv333": 0,
+             "blend_scatter": 1, "conv333_dw": 0, **NO_KD1},
+}
+
+
+def step_grads(model, cfg, image, label, use_kernels: bool):
+    """(loss, {name: gradient}, generator state after) of one train forward
+    and backward from the model's current weights, dropout seeded by
+    cfg.seed."""
+    import torch
+
+    from vs_seg_tpu_torch.losses.dice import dice_spvpa_loss
+
+    model.zero_grad(set_to_none=True)
+    gen = torch.Generator(image.device).manual_seed(cfg.seed)
+    out = model(image, use_kernels=use_kernels, train=True, generator=gen)
+    logits, atts = out if isinstance(out, tuple) else (out, ())
+    loss = dice_spvpa_loss(logits, atts, label.float(),
+                           supervised_attention=cfg.attention,
+                           hardness_weighting=cfg.hardness)
+    loss.backward()
+    grads = {n: p.grad.float().clone() for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    return float(loss.detach()), grads, gen.get_state()
+
+
+def grad_errors(model, got, ref):
+    """Each gradient's max|got - ref| over its own largest |ref| (over the
+    model's largest for the conv biases in front of a train-mode
+    BatchNorm, whose gradient is rounding noise)."""
+    from vs_seg_tpu_torch.nn.blocks import Convolution
+    noise = {f"{n}.conv.bias" for n, m in model.named_modules()
+             if isinstance(m, Convolution) and m.norm is not None}
+    gmax = max(float(g.abs().max()) for g in ref.values())
+    out = {}
+    for n, r in ref.items():
+        scale = gmax if n in noise else float(r.abs().max())
+        out[n] = float((got[n] - r).abs().max()) / max(scale, 1e-30)
+    return out
+
+
+def time_steps(model, cfg, image, label, turns, card: str, tag: str):
+    """ms/step and peak device memory of make_train_step from the model's
+    current weights, STEP_REPS steps after a warm-up step per turn; `turns`
+    is a list of (name, use_kernels, setup) run in order, setup() called
+    before each turn. Returns {name: (mean ms/step, [ms], peak GiB)}."""
+    import torch
+
+    from vs_seg_tpu_torch.train import trainer as tr
+
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    res = {}
+    for name, use_kernels, setup in turns:
+        setup()
+        model.load_state_dict(init)
+        opt = tr.make_optimizer(model.parameters(), cfg.initial_learning_rate,
+                                cfg.weight_decay)
+        step = tr.make_train_step(model, opt,
+                                  supervised_attention=cfg.attention,
+                                  hardness=cfg.hardness,
+                                  use_kernels=use_kernels)
+        gen = torch.Generator(image.device).manual_seed(cfg.seed)
+        step(image, label, gen)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        for _ in range(STEP_REPS):
+            loss = step(image, label, gen)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3 / STEP_REPS
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        if not torch.isfinite(loss):
+            raise AssertionError(f"{tag} {name}: non-finite train loss")
+        prev = res.get(name, (0.0, [], 0.0))
+        res[name] = (0.0, prev[1] + [ms], max(prev[2], peak))
+    model.load_state_dict(init)
+    for name, (_, ts, peak) in list(res.items()):
+        res[name] = (sum(ts) / len(ts), ts, peak)
+        log(f"  {tag} train step, {name}: {res[name][0]:.1f} ms/step {ts}, "
+            f"peak device memory {peak:.2f} GiB on {card}")
+    return res
+
+
+def float32_grads(cfg, state, image, label, dev):
+    """{name: gradient} of one plain-path train step of cfg's model in
+    float32 from `state`, dropout seeded by cfg.seed (the masks do not
+    depend on the dtype)."""
+    import dataclasses
+
+    import torch
+
+    from vs_seg_tpu_torch.models import build_model
+
+    model = build_model(dataclasses.replace(cfg, compute_dtype="float32"),
+                        device=dev)
+    model.load_state_dict(state)
+    _, grads, _ = step_grads(model, cfg, image.float(), label, False)
+    del model
+    torch.cuda.empty_cache()
+    return grads
+
+
+def train_site_times(model, image, card: str, name: str):
+    """Per (3,3,3) train site of `model` (taken by a hook on Conv333Train's
+    wgrad during one kernel-path forward and backward of `image`): the
+    kernel's wgrad (conv333_dw) and dgrad (conv333) ms beside cuDNN's
+    (torch.nn.grad.conv3d_weight / conv3d_input) on seeded bf16 inputs of
+    the site's shapes, CUDA events; then their sums."""
+    import torch
+
+    from vs_seg_tpu_torch.ops import conv333, conv333_dw, train_conv
+
+    sites = []
+    inner = train_conv.conv333_dw
+
+    def hook(x, dy):
+        sites.append((tuple(int(v) for v in x.shape[:4]), int(x.shape[-1]),
+                      int(dy.shape[-1])))
+        return inner(x, dy)
+
+    train_conv.conv333_dw = hook
+    try:
+        gen = torch.Generator(image.device).manual_seed(SEED)
+        out = model(image, use_kernels=True, train=True, generator=gen)
+        logits = out[0] if isinstance(out, tuple) else out
+        logits.float().sum().backward()
+    finally:
+        train_conv.conv333_dw = inner
+    model.zero_grad(set_to_none=True)
+    del out, logits
+    gen = torch.Generator(image.device).manual_seed(SEED + 3)
+    sums = [0.0] * 4
+    for shape, cin, cout in sites:
+        x = torch.randn((*shape, cin), generator=gen, device=image.device,
+                        dtype=torch.bfloat16)
+        dy = torch.randn((*shape, cout), generator=gen, device=image.device,
+                         dtype=torch.bfloat16)
+        w = torch.randn((3, 3, 3, cin, cout), generator=gen,
+                        device=image.device) * 0.05
+        w_t = torch.flip(w, (0, 1, 2)).permute(0, 1, 2, 4, 3)
+        wl = w.to(torch.bfloat16).permute(4, 3, 2, 0, 1)
+        xn, dyn = x.permute(0, 4, 1, 2, 3), dy.permute(0, 4, 1, 2, 3)
+        ms = [cuda_ms(lambda: conv333_dw.conv333_dw(x, dy)),
+              cuda_ms(lambda: torch.nn.grad.conv3d_weight(
+                  xn, tuple(wl.shape), dyn, padding=1)),
+              cuda_ms(lambda: conv333.conv333(dy, w_t)),
+              cuda_ms(lambda: torch.nn.grad.conv3d_input(
+                  tuple(xn.shape), wl, dyn, padding=1))]
+        sums = [a + b for a, b in zip(sums, ms)]
+        log(f"  {name} train site {shape}x{cin}->{cout}: conv333_dw "
+            f"{ms[0]!r} ms, cuDNN wgrad {ms[1]!r}; conv333 dgrad {ms[2]!r} "
+            f"ms, cuDNN dgrad {ms[3]!r} on {card}")
+        del x, dy, w, w_t, wl, xn, dyn
+    log(f"  {name}, {len(sites)} train sites summed: conv333_dw {sums[0]!r} "
+        f"ms, cuDNN wgrad {sums[1]!r}; conv333 dgrad {sums[2]!r} ms, cuDNN "
+        f"dgrad {sums[3]!r} on {card}")
+
+
+def zoo_train(dev, card: str, name: str):
+    """Phase 16 (c): one full-width train step of `name` (batch 1,
+    384x384x64, bf16) through the kernels and plain: the first step's loss
+    bit-equal, every gradient within GRAD_TOL, the conv333 (dgrad) and
+    conv333_dw launches of the counted kernel step; ms/step and peak
+    memory of each path. Returns the counts."""
+    import numpy as np
+    import torch
+
+    from vs_seg_tpu_torch.core.config import Config
+    from vs_seg_tpu_torch.models import build_model
+    from vs_seg_tpu_torch.train import trainer as tr
+
+    cfg = Config(model=name, seed=SEED)
+    model = build_model(cfg, device=dev,
+                        generator=torch.Generator().manual_seed(SEED))
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    image, label = tr.to_device_batch(
+        train_crop(cfg, np.random.default_rng(SEED + 1)), dev,
+        tr.DTYPES[cfg.compute_dtype])
+    step_grads(model, cfg, image, label, True)        # warm-up
+    model.load_state_dict(init)
+    torch.cuda.synchronize()
+    reset_counts()
+    k_loss, k_grads, _ = step_grads(model, cfg, image, label, True)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    model.load_state_dict(init)
+    p_loss, p_grads, _ = step_grads(model, cfg, image, label, False)
+    model.load_state_dict(init)
+    sites = ZOO_TRAIN_SITES[name]
+    check_counts(counts, {"conv333_dw": sites, "conv333": sites,
+                          "conv333_gated": 0, "att_map": 0, "attgate": 0,
+                          "ru_block": 0, "ru_unit": 0, "l2_block": 0,
+                          "blend_scatter": 0, **NO_KD1}, f"{name} train step")
+    errs = grad_errors(model, k_grads, p_grads)
+    worst = sorted(errs.items(), key=lambda kv: -kv[1])[:4]
+    log(f"  {name} first-step loss: kernel path {k_loss!r}, plain path "
+        f"{p_loss!r}; worst relative gradient errors of {len(errs)} tensors "
+        f"(tol {GRAD_TOL!r}): {worst}")
+    if k_loss != p_loss:
+        raise AssertionError(f"{name}: first-step losses differ: {k_loss} vs "
+                             f"{p_loss}")
+    bad = {n: e for n, e in errs.items() if e > GRAD_TOL}
+    if bad:
+        # a tensor whose gradient is one sum over the whole activation (a
+        # PReLU slope) can cancel far below its terms, and then the two bf16
+        # paths' roundings differ by more than GRAD_TOL of it: such a
+        # gradient passes if the kernel path's is within GRAD_TOL of the
+        # same step's float32 plain-path gradient, or no further from it
+        # than twice the bf16 plain path's
+        f32 = float32_grads(cfg, init, image, label, dev)
+        k32 = grad_errors(model, k_grads, f32)
+        p32 = grad_errors(model, p_grads, f32)
+        def peak(g):
+            return float(g.abs().max())
+
+        log(f"  {name}: past GRAD_TOL against the bf16 plain path: "
+            + ", ".join(f"{n} {e!r} (kernel vs float32 {k32[n]!r}, plain vs "
+                        f"float32 {p32[n]!r}; max|grad| kernel "
+                        f"{peak(k_grads[n])!r}, plain {peak(p_grads[n])!r}, "
+                        f"float32 {peak(f32[n])!r})"
+                        for n, e in bad.items()))
+        bad = {n: e for n, e in bad.items()
+               if k32[n] > max(GRAD_TOL, 2 * p32[n])}
+        if bad:
+            raise AssertionError(f"{name}: gradients outside {GRAD_TOL} of "
+                                 f"the plain path and further from float32 "
+                                 f"than it: {bad}")
+    del k_grads, p_grads
+    none = lambda: None  # noqa: E731
+    time_steps(model, cfg, image, label,
+               [("plain", False, none), ("kernel", True, none),
+                ("kernel", True, none), ("plain", False, none)], card, name)
+    train_site_times(model, image, card, name)
+    return counts
+
+
+def remat_run(dev, card: str):
+    """Phase 16 (d): phase 6's flagship train step with and without
+    --remat, kernel path: the loss bit-equal and the generator's state
+    after the step equal, the largest gradient difference reported; ms/step
+    and peak memory both ways, in turns. Returns the counts of the counted
+    remat step."""
+    import numpy as np
+    import torch
+
+    from vs_seg_tpu_torch.core.config import Config
+    from vs_seg_tpu_torch.models import build_model
+    from vs_seg_tpu_torch.train import trainer as tr
+
+    cfg = Config(seed=SEED)
+    model = build_model(cfg, device=dev,
+                        generator=torch.Generator().manual_seed(SEED))
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    image, label = tr.to_device_batch(
+        train_crop(cfg, np.random.default_rng(SEED + 1)), dev,
+        tr.DTYPES[cfg.compute_dtype])
+    runs = {}
+    counts = None
+    for remat in (False, True):
+        model.remat = remat
+        model.load_state_dict(init)
+        if remat:
+            reset_counts()
+        runs[remat] = step_grads(model, cfg, image, label, True)
+        if remat:
+            torch.cuda.synchronize()
+            counts = read_counts()
+    model.remat = False
+    model.load_state_dict(init)
+    (l0, g0, r0), (l1, g1, r1) = runs[False], runs[True]
+    diff = max(float((g1[n] - g0[n]).abs().max()) for n in g0)
+    errs = grad_errors(model, g1, g0)
+    worst = sorted(errs.items(), key=lambda kv: -kv[1])[:4]
+    log(f"  flagship --remat: loss {l1!r} (without {l0!r}); largest gradient "
+        f"difference {diff!r}, worst relative {worst}")
+    if l0 != l1:
+        raise AssertionError(f"--remat changed the loss: {l1} vs {l0}")
+    if not torch.equal(r0, r1):
+        raise AssertionError("--remat left the dropout generator in another "
+                             "state")
+    bad = {n: e for n, e in errs.items() if e > GRAD_TOL}
+    if bad:
+        raise AssertionError(f"--remat gradients outside {GRAD_TOL}: {bad}")
+    # the recompute runs the level-0/1 blocks' train convs again: none are
+    # (3,3,3), so the train kernels' launches are the step's
+    check_counts(counts, {"conv333_dw": TRAIN_SITES, "conv333": TRAIN_SITES,
+                          "blend_scatter": 0, **NO_KD1}, "remat train step")
+    del g0, g1
+
+    def setter(on):
+        return lambda: setattr(model, "remat", on)
+
+    res = time_steps(model, cfg, image, label,
+                     [("without --remat", True, setter(False)),
+                      ("with --remat", True, setter(True)),
+                      ("with --remat", True, setter(True)),
+                      ("without --remat", True, setter(False))],
+                     card, "flagship")
+    model.remat = False
+    return counts, res
+
+
+def blend_options(dev, card: str):
+    """Phase 16 (e): blend_scatter with the constant importance map and
+    with the sigma_scale 0.25 Gaussian against its twin over the flagship
+    volume's 8 windows, bit for bit."""
+    import numpy as np
+    import torch
+
+    from vs_seg_tpu_torch.infer.sliding_window import (
+        _importance_map_device, dense_patch_starts)
+    from vs_seg_tpu_torch.ops import blend
+
+    roi = (ROI[2], ROI[0], ROI[1])
+    vol = (VOLUME[2], VOLUME[0], VOLUME[1])
+    starts = dense_patch_starts(vol, roi, 0.25)
+    mask = np.ones(len(starts), np.float32)
+    g = torch.Generator().manual_seed(SEED)
+    preds = torch.randn((len(starts), *roi, 2), generator=g).to(
+        dev, torch.bfloat16)
+    for mode, sigma in (("constant", 0.125), ("gaussian", 0.25)):
+        imp = _importance_map_device(roi, mode, sigma, dev)
+        accs = {}
+        for fn in (blend.blend_scatter, blend.blend_scatter_plain):
+            out = torch.zeros((*vol, 2), dtype=torch.float32, device=dev)
+            w = torch.zeros((*vol, 1), dtype=torch.float32, device=dev)
+            accs[fn] = fn(out, w, preds, starts, mask, imp)
+        (ko, kw), (po, pw) = accs.values()
+        tag = f"blend_scatter, {mode} map (sigma_scale {sigma})"
+        compare(tag + " out", ko, po, BLEND_TOL)
+        compare(tag + " w", kw, pw, BLEND_TOL)
+        ms = cuda_ms(lambda: blend.blend_scatter(
+            torch.zeros_like(ko), torch.zeros_like(kw), preds, starts, mask,
+            imp))
+        log(f"  {tag}: bit-equal to its twin; {ms!r} ms a call (events, "
+            f"accumulators zeroed in the call) on {card}")
+
+
+def zoo_run(dev, card: str):
+    """Phase 16: UNet2d5 and UNet on the phase-3 volume (default routes,
+    and UNet under dsconv too), one full-width train step of each, the
+    flagship's train step with and without --remat, and the blend's
+    constant map and sigma_scale. Returns the summed launch counts of
+    the counted runs."""
+    import numpy as np
+    import torch
+
+    from vs_seg_tpu_torch.core.config import Config, Routes
+    from vs_seg_tpu_torch.infer.sliding_window import stage_volume
+    from vs_seg_tpu_torch.models import build_model
+
+    volume = np.random.default_rng(SEED).normal(size=(*VOLUME, 1)).astype(
+        np.float32)
+    staged = stage_volume(volume, ROI, device=dev, overlap=0.25,
+                          sw_batch_size=SW_BATCH, quantize=True)
+    total = []
+    for name, routes in (("UNet2d5", [Routes()]),
+                         ("UNet", [Routes(), Routes(dsconv=True)])):
+        gen = torch.Generator().manual_seed(SEED)
+        model = build_model(Config(model=name), device=dev, generator=gen)
+        randomise_bn(model, gen)
+        for r in routes:
+            expect = dict(ZOO_EVAL[name], ds_conv=3 if r.dsconv else 0)
+            tag = f"{name} ({'dsconv' if r.dsconv else 'default routes'})"
+            counts, _ = volume_paths(model, staged, r, expect, card, tag)
+            total.append(counts)
+        del model
+        torch.cuda.empty_cache()
+    del staged
+    for name in ("UNet2d5", "UNet"):
+        total.append(zoo_train(dev, card, name))
+        torch.cuda.empty_cache()
+    counts, _ = remat_run(dev, card)
+    total.append(counts)
+    torch.cuda.empty_cache()
+    blend_options(dev, card)
+    return {k: sum(c[k] for c in total) for k in total[0]}
+
+
 def main() -> int:
     import torch
 
@@ -2814,8 +3244,12 @@ def main() -> int:
     phase("phase 15: the training CLI end to end at full width (host "
           "loader, --device_cache, --resume with --profile_steps 2)")
     tcli_counts = train_cli_run(dev, card)
+    phase("phase 16: UNet2d5 and UNet (inference and a train step), the "
+          "flagship with and without --remat, the blend's options")
+    zoo_counts = zoo_run(dev, card)
     counts = {k: infer_counts[k] + train_counts[k] + route_counts[k]
-              + cli_counts[k] + tcli_counts[k] for k in infer_counts}
+              + cli_counts[k] + tcli_counts[k] + zoo_counts[k]
+              for k in infer_counts}
     for k, r in rec.items():
         lib = "-" if r["library_ms"] is None else f"{r['library_ms']:.3f}"
         ms, by, moved, f16, f32 = r["bound"]

@@ -579,10 +579,3 @@ def test_routes_parse():
     assert Routes.parse("") == Routes()
     with pytest.raises(ValueError, match="unknown route"):
         Routes.parse("dsconv,warp")
-
-
-@pytest.mark.parametrize("name", ["UNet2d5", "UNet"])
-def test_unported_models_raise(name):
-    cfg = tconfig.Config(model=name)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(cfg, device="cpu")

@@ -3,9 +3,12 @@ the card, at small and ragged shapes that the flagship path does not reach
 (channel counts that are not multiples of 8 or 16, W not a multiple of 16,
 H not a multiple of 8, more than 64 output channels, odd sizes for the
 stride-2 ds_conv), ru_block at the flagship's four encoder sites, the
-inference CLI on a small synthetic dataset, and the device-resident
+inference CLI on a small synthetic dataset, the device-resident
 training cache (its loader makes no sync; its crops equal the host
-transforms' bit for bit).
+transforms' bit for bit), and the paths of UNet2d5 and UNet (ds_conv at
+UNet's strided units, Cin != Cout; the train kernels at 2 channels; each
+model's kernel path against its plain path), the flagship's train step
+with and without --remat, and the blend's constant map and sigma_scale.
 
 These tests need an NVIDIA GPU and nvcc: they carry the `gpu` marker and
 skip without CUDA. They import no JAX, so on the GPU machine they run
@@ -916,3 +919,134 @@ def test_device_crops_equal_host_crops_on_the_card(dev):
         assert torch.equal(img, ref_img) and torch.equal(lbl, ref_lbl)
         flips.add(flip)
     assert flips == {False, True}
+
+
+# ---- the rest of the model zoo, --remat, the blend's options -------------
+
+@pytest.mark.parametrize("cin,cout", [(32, 48), (48, 64), (64, 80)])
+def test_ds_conv_kernel_at_the_unet_strided_units(dev, cin, cout):
+    """UNet's strided down_2/3/4 unit0 under Routes(dsconv=True): ds_conv
+    with Cin != Cout, at a small window."""
+    g = _g()
+    x = _x(g, dev, 2, 8, 24, 40, cin)
+    args = (_w(g, dev, (3, 3, 3), cin, cout), _v(g, dev, cout, .5, 1.5),
+            _v(g, dev, cout, -.2, .2), _v(g, dev, 1, .1, .3))
+    n0 = dsconv.ds_conv.launches
+    got = dsconv.ds_conv(x, *args)
+    assert dsconv.ds_conv.launches == n0 + 1
+    _check(got, dsconv.ds_conv_plain(x, *args))
+
+
+def test_train_kernels_at_two_channels(dev):
+    """UNet's upres_0 unit0 (2 -> 2 channels): Conv333Train's conv333
+    dgrad and conv333_dw wgrad against plain autograd (TOL), conv333_dw
+    bit-equal over two runs and within DW_TOL of its twin."""
+    g = _g()
+    x = _x(g, dev, 1, 4, 24, 40, 2).requires_grad_()
+    w = _w(g, dev, (3, 3, 3), 2, 2).requires_grad_()
+    b = _v(g, dev, 2, -.2, .2).requires_grad_()
+    dy = _x(g, dev, 1, 4, 24, 40, 2)
+    n0 = conv333.conv333.launches, conv333_dw.conv333_dw.launches
+    got = torch.autograd.grad(train_conv.conv333_train(x, w, b), (x, w, b),
+                              dy)
+    assert (conv333.conv333.launches, conv333_dw.conv333_dw.launches) == (
+        n0[0] + 1, n0[1] + 1)
+    ref = torch.autograd.grad(
+        train_conv.conv333_train(x, w, b, use_kernels=False), (x, w, b), dy)
+    for gk, gp in zip(got, ref):
+        _check(gk, gp)
+    dw, db = conv333_dw.conv333_dw(x.detach(), dy)
+    dw2, db2 = conv333_dw.conv333_dw(x.detach(), dy)
+    assert torch.equal(dw, dw2) and torch.equal(db, db2)
+    pdw, pdb = conv333_dw.conv333_dw_plain(x.detach(), dy)
+    _check(dw, pdw, DW_TOL)
+    _check(db, pdb, DW_TOL)
+
+
+def _zoo_model(dev, name, **kw):
+    from vs_seg_tpu_torch.core.config import Config
+    from vs_seg_tpu_torch.models import build_model
+    return build_model(Config(model=name, **kw), device=dev,
+                       generator=torch.Generator().manual_seed(0))
+
+
+@pytest.mark.parametrize("name,ds,n_ru", [
+    ("UNet2d5", False, 4), ("UNet", False, 1), ("UNet", True, 1)])
+def test_alt_models_kernel_path_matches_plain(dev, name, ds, n_ru):
+    """UNet2d5 and UNet at full width over a 16x64x64 window: the kernel
+    path against the all-plain path (TOL of the largest logit), ru_block
+    at every two-subunit stride-1 encoder unit, ds_conv at UNet's three
+    strided (3,3,3) units under Routes(dsconv=True), no decoder block."""
+    from vs_seg_tpu_torch.core.config import Routes
+    model = _zoo_model(dev, name)
+    x = _x(_g(), dev, 2, 16, 64, 64, 1)
+    routes = Routes(dsconv=ds)
+    names = ("ru_block", "ds_conv", "l2_block")
+    fns = (rublock.ru_block, dsconv.ds_conv, l2block.l2_block)
+    n0 = [f.launches for f in fns]
+    with torch.no_grad():
+        got = model(x, routes=routes)
+        n1 = [f.launches for f in fns]
+        ref = model(x, use_kernels=False, routes=routes)
+    assert dict(zip(names, (b - a for a, b in zip(n0, n1)))) == {
+        "ru_block": n_ru, "ds_conv": 3 if ds else 0, "l2_block": 0}
+    assert got.shape == (2, 16, 64, 64, 2)
+    _check(got, ref, 3e-2)
+
+
+def test_remat_on_the_card(dev):
+    """The flagship's train step at full width with dropout 0.1 over a
+    16x64x64 crop, with and without --remat: the loss bit-equal, the
+    dropout generator's state after the step equal, every gradient within
+    TOL of its tensor's largest (cuDNN's backward may sum in another
+    order; the conv biases in front of a train-mode BatchNorm, whose
+    gradient is rounding noise, against the model's largest)."""
+    from vs_seg_tpu_torch.losses.dice import dice_spvpa_loss
+    from vs_seg_tpu_torch.nn.blocks import Convolution
+    model = _zoo_model(dev, "UNet2d5_spvPA")
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    x = _x(_g(), dev, 1, 16, 64, 64, 1)
+    y = (torch.rand((1, 16, 64, 64, 1), generator=_g()) > 0.8).float().to(
+        dev)
+    runs = []
+    for remat in (False, True):
+        model.remat = remat
+        model.load_state_dict(init)
+        model.zero_grad(set_to_none=True)
+        gen = torch.Generator(dev).manual_seed(3)
+        logits, atts = model(x, train=True, generator=gen)
+        loss = dice_spvpa_loss(logits, atts, y)
+        loss.backward()
+        runs.append((loss.detach(), {n: p.grad.float() for n, p in
+                                     model.named_parameters()},
+                     gen.get_state()))
+    (l0, g0, r0), (l1, g1, r1) = runs
+    assert torch.equal(l0, l1) and torch.equal(r0, r1)
+    noise = {f"{n}.conv.bias" for n, m in model.named_modules()
+             if isinstance(m, Convolution) and m.norm is not None}
+    gmax = max(float(g.abs().max()) for g in g0.values())
+    for n, ref in g0.items():
+        scale = gmax if n in noise else float(ref.abs().max())
+        assert float((g1[n] - ref).abs().max()) <= TOL * scale, n
+
+
+@pytest.mark.parametrize("mode,sigma_scale", [("constant", 0.125),
+                                              ("gaussian", 0.25)])
+def test_sliding_window_blend_options_on_the_card(dev, mode, sigma_scale):
+    """sliding_window_inference with mode "constant" and a Gaussian of
+    sigma_scale 0.25: the blend kernel bit-equal to its twin."""
+    from vs_seg_tpu_torch.infer.sliding_window import (
+        sliding_window_inference)
+    vol = np.random.default_rng(0).normal(size=(80, 72, 36, 1)).astype(
+        np.float32)
+
+    def predictor(wins):
+        return torch.cat([wins, -wins], -1).to(torch.bfloat16)
+
+    n0 = blend.blend_scatter.launches
+    outs = [sliding_window_inference(
+        vol, (64, 64, 32), predictor, device=dev, sw_batch_size=2,
+        mode=mode, sigma_scale=sigma_scale, use_kernels=k)
+        for k in (True, False)]
+    assert blend.blend_scatter.launches > n0
+    assert torch.equal(outs[0], outs[1])

@@ -103,6 +103,42 @@ def test_small_sliding_window_matches_jax(small, quantize, sw_batch):
     assert _rel(out.numpy(), ref) <= 1e-4
 
 
+@pytest.mark.parametrize("mode,sigma_scale", [("constant", 0.125),
+                                              ("gaussian", 0.25)])
+def test_small_sliding_window_blend_options_match_jax(small, mode,
+                                                      sigma_scale):
+    """mode="constant" (every window weighted 1) and a Gaussian of
+    sigma_scale 0.25 against JAX's sliding_window_inference; the device
+    map is cached per (roi, mode, sigma_scale)."""
+    jm, tm, variables = small
+    vol = np.random.default_rng(3).normal(size=(24, 20, 12, 1)
+                                          ).astype(np.float32)
+    roi = (16, 16, 8)
+    kw = dict(overlap=0.25, sw_batch_size=2, mode=mode,
+              sigma_scale=sigma_scale)
+    jpred = jmake_predictor(jm, variables["params"],
+                            variables["batch_stats"], dtype=jnp.float32)
+    ref = jsw.sliding_window_inference(vol, roi, jpred,
+                                       predictor_layout="dfirst", **kw)
+    out = tsw.sliding_window_inference(
+        vol, roi, make_predictor(tm, dtype=torch.float32), device="cpu",
+        **kw)
+    assert _rel(out.numpy(), ref) <= 1e-4
+    default = tsw.sliding_window_inference(
+        vol, roi, make_predictor(tm, dtype=torch.float32), device="cpu",
+        overlap=0.25, sw_batch_size=2)
+    assert not torch.equal(out, default)
+    imp = tsw._importance_map_device((8, 16, 16), mode, sigma_scale,
+                                     torch.device("cpu"))
+    np.testing.assert_array_equal(
+        imp.numpy(), np.asarray(jsw._importance_map_device(
+            (8, 16, 16), mode, sigma_scale)))
+    with pytest.raises(ValueError, match="blend mode"):
+        tsw.sliding_window_inference(
+            vol, roi, make_predictor(tm, dtype=torch.float32),
+            device="cpu", sw_batch_size=2, mode="linear")
+
+
 def test_flagship_channels_bf16_window_matches_jax():
     """Full flagship widths, one batch of 2 windows of 16x32x32 (DxHxW),
     uint8 staging as on the main path, bf16 compute on both sides."""

@@ -25,6 +25,7 @@ written are equal.
 """
 
 import dataclasses
+import logging
 import os
 import shutil
 import sys
@@ -32,11 +33,13 @@ import types
 from pathlib import Path
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import optax
 import pytest
 import torch
 from flax import serialization
+from jax.flatten_util import ravel_pytree
 
 import VS_train
 from tests.test_model import SMALL
@@ -188,6 +191,11 @@ def _parse(cli, argv):
 def _jparse(argv):
     from vs_seg_tpu.core.config import parse_cli
     return parse_cli(argv)
+
+
+def _flat(tree):
+    return {".".join(k.key for k in path): np.asarray(a) for path, a in
+            jax.tree_util.tree_flatten_with_path(tree)[0]}
 
 
 def _ckpt_scalars(path):
@@ -397,27 +405,149 @@ def test_train_cli_profile_steps_writes_a_trace(small_root, monkeypatch):
     assert len(traces) == 1 and traces[0].stat().st_size > 0
 
 
-def test_train_cli_refuses_a_legacy_jax_checkpoint(small_root, monkeypatch):
-    """A JAX checkpoint whose Adam moments are per-parameter trees (before
-    optax.flatten) raises under --resume, naming ROADMAP Queue 1 item 7f;
-    the moments are never silently reset."""
-    cfg = shrink(_jparse(["--debug", "--data_root",
-                          str(small_root / "data")]), 1)
+def _legacy_checkpoint(cfg, path, drop=None):
+    """A JAX checkpoint as vs_seg_tpu wrote it before optax.flatten: the
+    Adam moments are per-parameter trees. One update of that optimizer from
+    seeded gradients makes them nonzero (count 1). `drop`: a parameter whose
+    moment leaves are removed, which no conversion can take."""
     variables = jtrainer.init_model(jbuild_model(cfg), 0)
     legacy = optax.inject_hyperparams(lambda learning_rate: optax.chain(
         optax.add_decayed_weights(cfg.weight_decay),
         optax.scale_by_adam(b1=0.9, b2=0.999, eps=1e-8),
-        optax.scale(-1.0), optax.scale(learning_rate)))(learning_rate=1e-4)
-    opt_state = legacy.init(variables["params"])
-    jsave_checkpoint(os.path.join(cfg.model_path, "last_epoch_model.ckpt"), {
-        "params": variables["params"],
-        "batch_stats": variables["batch_stats"],
-        "opt_state": serialization.to_state_dict(opt_state),
+        optax.scale(-1.0), optax.scale(learning_rate)))(learning_rate=3e-4)
+    params = variables["params"]
+    rng = np.random.default_rng(11)
+    grads = jax.tree_util.tree_map(
+        lambda a: rng.normal(size=a.shape).astype(np.float32), params)
+    opt_state = legacy.init(params)
+    _, opt_state = legacy.update(grads, opt_state, params)
+    raw_opt = serialization.to_state_dict(opt_state)
+    if drop is not None:
+        for key in ("mu", "nu"):
+            del raw_opt["inner_state"]["1"][key][drop]
+    jsave_checkpoint(path, {
+        "params": params, "batch_stats": variables["batch_stats"],
+        "opt_state": raw_opt,
         "rng": jax.random.key_data(jax.random.key(0, impl="rbg")),
-        "epoch": 0, "best_metric": -1.0, "best_metric_epoch": -1})
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7f"):
-        _small_main(monkeypatch, small_root, ["--device", "cpu",
-                                              "--resume"])
+        "epoch": 3, "best_metric": 0.25, "best_metric_epoch": 2})
+
+
+def _step_batch():
+    rng = np.random.default_rng(12)
+    x = rng.normal(size=(1, 8, 32, 32, 1)).astype(np.float32)
+    y = (rng.random((1, 8, 32, 32, 1)) > 0.8).astype(np.float32)
+    return x, y
+
+
+def test_train_cli_refuses_a_legacy_jax_checkpoint(small_root, monkeypatch,
+                                                   tmp_path, caplog):
+    """A legacy JAX checkpoint (per-parameter Adam moment trees) is
+    migrated, as JAX's Trainer.restore_state migrates it, with its warning:
+    each parameter's exp_avg / exp_avg_sq equal the moments JAX restores,
+    the count and learning rate carry over, and one step after the resume
+    matches JAX's (loss 1e-5 relative, the new moments within 1e-4 (mu)
+    and 2e-4 (nu) of their largest). The training CLI resumes from it
+    under --resume."""
+    cfg = shrink(_jparse(["--debug", "--data_root", str(tmp_path),
+                          "--compute_dtype", "float32"]), 1)
+    path = str(tmp_path / "legacy.ckpt")
+    _legacy_checkpoint(cfg, path)
+    jt = jtrainer.Trainer(cfg, jbuild_model(cfg))
+    jstate = jt.restore_state(path)
+    tcfg = _small_cfg(tmp_path)
+    model = build_model(tcfg, device="cpu")
+    tr = ttrainer.Trainer(tcfg, model, "cpu", logger=logging.getLogger("l"))
+    with caplog.at_level("INFO"):
+        state = tr.restore_state(path)
+    assert "legacy (unflattened) opt_state" in caplog.text
+    assert "conversion failed" not in caplog.text
+    assert (state["epoch"], state["best_metric"],
+            state["best_metric_epoch"]) == (3, 0.25, 2)
+
+    def moments(opt_state):
+        adam = serialization.to_state_dict(opt_state)["inner_state"]["1"]
+        unravel = ravel_pytree(jstate["params"])[1]
+        return int(adam["count"]), {k: _flat(unravel(adam[k]))
+                                    for k in ("mu", "nu")}
+
+    count, ref = moments(jstate["opt_state"])
+    assert count == 1
+    opt = state["optimizer"]
+    for name, p in model.named_parameters():
+        st = opt.state[p]
+        assert float(st["step"]) == 1.0
+        np.testing.assert_array_equal(st["exp_avg"].numpy(), ref["mu"][name])
+        np.testing.assert_array_equal(st["exp_avg_sq"].numpy(),
+                                      ref["nu"][name])
+    assert opt.param_groups[0]["lr"] == pytest.approx(3e-4)
+
+    # one step on each side from the migrated state
+    x, y = _step_batch()
+    jstep = jtrainer.make_train_step(jt.model, jt.optimizer,
+                                     supervised_attention=True,
+                                     hardness=True)
+    *_, jopt, _, jl = jstep(jstate["params"], jstate["batch_stats"],
+                            jstate["opt_state"],
+                            jtrainer.wrap_rng_data(jstate["rng"]),
+                            jnp.asarray(x), jnp.asarray(y))
+    tstep = ttrainer.make_train_step(model, opt, supervised_attention=True,
+                                     hardness=True)
+    tl = tstep(torch.from_numpy(x), torch.from_numpy(y), state["generator"])
+    assert abs(float(tl) - float(jl)) <= 1e-5 * abs(float(jl))
+    count, ref = moments(jopt)
+    assert count == 2
+    for key, slot, tol in (("mu", "exp_avg", 1e-4),
+                           ("nu", "exp_avg_sq", 2e-4)):
+        scale = max(np.abs(v).max() for v in ref[key].values())
+        for name, p in model.named_parameters():
+            diff = np.abs(opt.state[p][slot].numpy() - ref[key][name]).max()
+            assert diff <= tol * scale, (key, name, diff, scale)
+
+    # the CLI: --resume reads it from the model folder
+    ccfg = shrink(_jparse(["--debug", "--data_root",
+                           str(small_root / "data")]), 1)
+    _legacy_checkpoint(ccfg, os.path.join(ccfg.model_path,
+                                          "last_epoch_model.ckpt"))
+    cfg_epochs = 4          # the checkpoint is at epoch 3: one more epoch
+    st, losses, _ = _small_main(monkeypatch, small_root,
+                                ["--device", "cpu", "--resume"],
+                                epochs=cfg_epochs)
+    assert st["epoch"] == cfg_epochs and len(losses) == 1
+    assert np.isfinite(losses).all()
+
+
+def test_legacy_jax_checkpoint_that_cannot_convert_resets_adam(
+        tmp_path, caplog):
+    """Where the legacy moments do not fit the model (a parameter's leaves
+    missing), both packages warn that the conversion failed and start the
+    optimizer afresh on the checkpoint's weights."""
+    cfg = shrink(_jparse(["--debug", "--data_root", str(tmp_path)]), 1)
+    path = str(tmp_path / "legacy.ckpt")
+    _legacy_checkpoint(cfg, path, drop="bottom")
+    with caplog.at_level("WARNING"):
+        jstate = jtrainer.Trainer(cfg, jbuild_model(cfg)).restore_state(path)
+    assert caplog.text.count("conversion failed") == 1
+    adam = serialization.to_state_dict(jstate["opt_state"])["inner_state"]
+    assert int(adam["1"]["count"]) == 0
+    caplog.clear()
+    tcfg = _small_cfg(tmp_path)
+    model = build_model(tcfg, device="cpu")
+    tr = ttrainer.Trainer(tcfg, model, "cpu", logger=logging.getLogger("l"))
+    with caplog.at_level("WARNING"):
+        state = tr.restore_state(path)
+    assert "legacy (unflattened) opt_state" in caplog.text
+    assert "legacy opt_state conversion failed" in caplog.text
+    assert "Adam moments reset" in caplog.text
+    opt = state["optimizer"]
+    assert not opt.state and opt.param_groups[0]["lr"] == pytest.approx(
+        tcfg.initial_learning_rate)
+    assert {id(p) for p in opt.param_groups[0]["params"]} == {
+        id(p) for p in model.parameters()}
+    assert state["epoch"] == 3
+    raw = jax_ckpt.load_jax_checkpoint(path)
+    np.testing.assert_array_equal(
+        model.state_dict()["bottom.unit0.conv.kernel"].numpy(),
+        raw["params"]["bottom"]["unit0"]["conv"]["kernel"])
 
 
 def test_train_cli_resumes_a_jax_checkpoint_with_a_seeded_generator(

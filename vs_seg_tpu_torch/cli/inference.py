@@ -35,8 +35,8 @@ def main(argv=None, make_figures: bool = True):
     """Run the CLI on `argv` (sys.argv when None); returns (dice_scores,
     compute seconds per volume) from run_inference."""
     parser = argparse.ArgumentParser(
-        description="Segment the test split of a dataset with a trained "
-                    "UNet2d5_spvPA (PyTorch + CUDA)")
+        description="Segment the test split of a dataset with the trained "
+                    "configured model (UNet2d5_spvPA) (PyTorch + CUDA)")
     add_reference_cli_flags(parser)
     cfg = config_from_args(parser.parse_args(argv))
     device = resolve_device(cfg.device)

@@ -2,18 +2,21 @@
 same flags plus --device and --routes (core/config.py).
 
     python -m vs_seg_tpu_torch.cli.train --data_root ROOT --split CSV \\
-        [--device_cache] [--resume] [--profile_steps N] \\
+        [--device_cache] [--resume] [--remat] [--profile_steps N] \\
         [--device cuda:0 | --device cpu]
 
 Flow (VS_train.py:38-119): flags -> results folders -> log -> parameter
 dump -> split CSV -> transforms -> transform-check figure -> cached
 datasets -> loaders (host: DataLoader with prefetch; --device_cache:
 DeviceLoader over the training and validation sets cached on the device)
--> model -> TensorBoard writer (skipped without tensorboardX) -> Trainer ->
+-> model (cfg.model, UNet2d5_spvPA unless the configuration names
+UNet2d5 or UNet; --remat rematerialises its levels 0-1 in the backward)
+-> TensorBoard writer (skipped without tensorboardX) -> Trainer ->
 --resume from <model>/last_epoch_model.ckpt (the port's checkpoint or a
-JAX one) -> fit -> loss and Dice curves. Training runs through the
-hand-written kernels. The device defaults to cuda; a missing card is an
-error, never a move to the CPU. Multi-host training is not ported.
+JAX one, a legacy one included) -> fit -> loss and Dice curves. Training
+runs through the hand-written kernels. The device defaults to cuda; a
+missing card is an error, never a move to the CPU. Multi-host training is
+not ported.
 """
 
 from __future__ import annotations
@@ -43,8 +46,8 @@ def main(argv=None, make_figures: bool = True):
     """Run the CLI on `argv` (sys.argv when None); returns (state, epoch
     losses, validation Dice values) of Trainer.fit."""
     parser = argparse.ArgumentParser(
-        description="Train UNet2d5_spvPA on the training split of a dataset "
-                    "(PyTorch + CUDA)")
+        description="Train the configured model (UNet2d5_spvPA) on the "
+                    "training split of a dataset (PyTorch + CUDA)")
     add_reference_cli_flags(parser)
     cfg = config_from_args(parser.parse_args(argv))
     device = resolve_device(cfg.device)

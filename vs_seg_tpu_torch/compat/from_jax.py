@@ -9,7 +9,8 @@ state_dict entry at its dotted path. The conversion is strict, as
 torch_import.py's _TrackingDict check of full consumption is: every leaf must
 land on a model entry, and every model entry must be given, or it raises.
 `load_jax_train_state` carries a whole JAX training state (with the Adam
-moments) into a model and its torch optimizer.
+moments, flattened or, from a legacy checkpoint, per-parameter trees) into
+a model and its torch optimizer.
 """
 
 from __future__ import annotations
@@ -78,8 +79,52 @@ def _param_order(model: nn.Module):
                   key=lambda kv: tuple(kv[0].split(".")))
 
 
+def flat_adam_moments(adam: Mapping, named: Dict[str, torch.Tensor]):
+    """({name: mu}, {name: nu}) from the Adam state of vs_seg_tpu's
+    optax.flatten optimizer: one `mu` and one `nu` vector each, in
+    ravel_pytree order (`named`'s order), sliced per parameter."""
+    mu = np.asarray(adam["mu"], np.float32).reshape(-1)
+    nu = np.asarray(adam["nu"], np.float32).reshape(-1)
+    total = sum(p.numel() for p in named.values())
+    if mu.size != total or nu.size != total:
+        raise ValueError(f"Adam moments hold {mu.size}/{nu.size} values, the "
+                         f"model has {total} parameters")
+    out = ({}, {})
+    off = 0
+    for name, p in named.items():
+        k = p.numel()
+        for d, v in zip(out, (mu, nu)):
+            d[name] = v[off:off + k].reshape(tuple(p.shape))
+        off += k
+    return out
+
+
+def legacy_adam_moments(adam: Mapping, named: Dict[str, torch.Tensor]):
+    """({name: mu}, {name: nu}) from a legacy Adam state (vs_seg_tpu before
+    optax.flatten): `mu` and `nu` are trees shaped like the params, so each
+    leaf's dotted path names its parameter. Raises KeyError for a leaf
+    missing or left over and ValueError for a shape that differs."""
+    out = []
+    for key in ("mu", "nu"):
+        flat: Dict[str, np.ndarray] = {}
+        _flatten(adam[key], "", flat)
+        if set(flat) != set(named):
+            raise KeyError(
+                f"legacy Adam {key} does not match the model: missing "
+                f"{sorted(set(named) - set(flat))[:8]}, left over "
+                f"{sorted(set(flat) - set(named))[:8]}")
+        for name, p in named.items():
+            if flat[name].shape != tuple(p.shape):
+                raise ValueError(f"legacy Adam {key}[{name}] has shape "
+                                 f"{flat[name].shape}, the parameter "
+                                 f"{tuple(p.shape)}")
+        out.append({k: np.asarray(v, np.float32) for k, v in flat.items()})
+    return tuple(out)
+
+
 def load_jax_train_state(model: nn.Module, optimizer: torch.optim.Optimizer,
-                         state: Mapping) -> Dict[str, float]:
+                         state: Mapping, moments=flat_adam_moments
+                         ) -> Dict[str, float]:
     """Carry a JAX training state into `model` and its torch.optim.Adam
     `optimizer`, in place.
 
@@ -88,37 +133,30 @@ def load_jax_train_state(model: nn.Module, optimizer: torch.optim.Optimizer,
     gives (the form vs_seg_tpu checkpoints store) of the optimizer that
     vs_seg_tpu/train/trainer.py:make_optimizer builds: inject_hyperparams
     over optax.flatten, so the Adam moments are single `mu`/`nu` vectors in
-    ravel_pytree order. They are sliced into per-parameter exp_avg /
-    exp_avg_sq; `step` is the Adam count and the learning rate the injected
-    hyperparameter. Returns the scalars of the state that are not tensors
-    (epoch, best_metric, best_metric_epoch) where present."""
+    ravel_pytree order (`flat_adam_moments`); `moments=legacy_adam_moments`
+    reads a legacy state's per-parameter trees instead. They become each
+    parameter's exp_avg / exp_avg_sq; `step` is the Adam count and the
+    learning rate the injected hyperparameter. The optimizer's state is set
+    only once every moment was read. Returns the scalars of the state that
+    are not tensors (epoch, best_metric, best_metric_epoch) where
+    present."""
     load_jax_variables(model, {"params": state["params"],
                                "batch_stats": state.get("batch_stats", {})})
     opt = state["opt_state"]
     adam = opt["inner_state"]["1"]
-    mu = np.asarray(adam["mu"], np.float32).reshape(-1)
-    nu = np.asarray(adam["nu"], np.float32).reshape(-1)
-    named = _param_order(model)
-    total = sum(p.numel() for _, p in named)
-    if mu.size != total or nu.size != total:
-        raise ValueError(f"Adam moments hold {mu.size}/{nu.size} values, the "
-                         f"model has {total} parameters")
+    named = dict(_param_order(model))
     owned = {id(p) for g in optimizer.param_groups for p in g["params"]}
-    if owned != {id(p) for _, p in named}:
+    if owned != {id(p) for p in named.values()}:
         raise ValueError("the optimizer does not hold exactly the model's "
                          "parameters")
+    mu, nu = moments(adam, named)
     step = float(np.asarray(adam["count"]))
-    off = 0
-    for _, p in named:
-        k = p.numel()
+    lr = float(np.asarray(opt["hyperparams"]["learning_rate"]))
+    for name, p in named.items():
         optimizer.state[p] = {
             "step": torch.tensor(step, dtype=torch.float32),
-            "exp_avg": torch.from_numpy(mu[off:off + k].copy()).reshape(
-                p.shape).to(p.device),
-            "exp_avg_sq": torch.from_numpy(nu[off:off + k].copy()).reshape(
-                p.shape).to(p.device)}
-        off += k
-    lr = float(np.asarray(opt["hyperparams"]["learning_rate"]))
+            "exp_avg": torch.from_numpy(mu[name].copy()).to(p.device),
+            "exp_avg_sq": torch.from_numpy(nu[name].copy()).to(p.device)}
     for group in optimizer.param_groups:
         group["lr"] = lr
     return {k: float(np.asarray(state[k])) for k in

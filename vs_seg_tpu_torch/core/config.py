@@ -119,6 +119,7 @@ class Config:
     # None disables bucketing. Window placement ignores it, so results are
     # bit-identical with and without.
     sw_bucket: Optional[Shape3] = (64, 64, 16)
+    remat: bool = False   # rematerialise levels 0-1 in the backward
     resume: bool = False
     device_cache: bool = False  # training set on the device, crop/flip there
     profile_steps: int = 0      # torch.profiler trace of N steady steps
@@ -156,22 +157,31 @@ class Config:
             self.sliding_window_inferer_roi_size = (128, 128, 32)
 
     def model_kwargs(self) -> dict:
-        """UNet2d5_spvPA constructor arguments of this configuration."""
-        return dict(in_channels=self.in_channels,
-                    out_channels=self.out_channels,
-                    channels=tuple(self.channels), strides=self.strides,
-                    kernel_sizes=self.kernel_sizes,
-                    sample_kernel_sizes=self.sample_kernel_sizes,
-                    num_res_units=self.num_res_units, dropout=self.dropout,
-                    attention_module=self.attention)
+        """Constructor arguments of cfg.model, those that
+        vs_seg_tpu/models/__init__.py:build_model gives each model, plus
+        the port's in_channels: UNet2d5 takes no attention_module and no
+        remat, UNet no kernel sizes (its per-dimension stride tuples pass
+        through unchanged)."""
+        kw = dict(in_channels=self.in_channels,
+                  out_channels=self.out_channels,
+                  channels=tuple(self.channels),
+                  strides=tuple(tuple(s) if isinstance(s, (tuple, list))
+                                else s for s in self.strides),
+                  num_res_units=self.num_res_units, dropout=self.dropout)
+        if self.model == "UNet":
+            return kw
+        kw.update(kernel_sizes=tuple(self.kernel_sizes),
+                  sample_kernel_sizes=tuple(self.sample_kernel_sizes))
+        if self.model == "UNet2d5_spvPA":
+            kw.update(attention_module=self.attention, remat=self.remat)
+        return kw
 
 
 # Flags of the JAX CLI whose feature the port lacks, with the ROADMAP item
-# ("What remains") that ports it.
+# ("What remains") that ports it: the two multi-GPU inference modes.
 UNPORTED_FLAGS = {
     "sharded_inference": "item 5, multi-GPU (Queue 1 item 8)",
     "spatial_inference": "item 5, multi-GPU (Queue 1 item 8)",
-    "remat": "item 4, the rest of training (remat)",
 }
 
 
@@ -219,7 +229,7 @@ def add_reference_cli_flags(parser: argparse.ArgumentParser
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--remat", action="store_true",
                         help="rematerialize activations in the backward "
-                             "pass (not ported)")
+                             "pass")
     parser.add_argument("--resume", action="store_true",
                         help="resume full training state from "
                              "last_epoch_model.ckpt")
@@ -280,6 +290,7 @@ def config_from_args(args: argparse.Namespace) -> Config:
         sw_batch_size=args.sw_batch_size,
         sw_bucket=_parse_bucket(args.sw_bucket),
         seed=args.seed,
+        remat=args.remat,
         resume=args.resume,
         device_cache=args.device_cache,
         profile_steps=args.profile_steps,

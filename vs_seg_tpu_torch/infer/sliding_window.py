@@ -1,12 +1,13 @@
-"""Sliding-window inference with Gaussian blending, mirroring
+"""Sliding-window inference with importance-weighted blending, mirroring
 vs_seg_tpu/infer/sliding_window.py (MONAI 0.4 sliding_window_inference,
-mode="gaussian"):
+mode "gaussian" by default or "constant"):
   - pad each dim to >= roi (symmetric, constant 0);
   - window starts: scan_interval = int(roi*(1-overlap)) (roi if dim==roi),
     scan_num = ceil(dim/interval), start_i = i*interval clamped so the
     window fits (duplicates kept);
-  - Gaussian importance map: sigma = 0.125*roi, truncated at 4 sigma,
-    normalised to max 1, zeros replaced by the min nonzero value;
+  - Gaussian importance map: sigma = sigma_scale*roi (0.125 by default),
+    truncated at 4 sigma, normalised to max 1, zeros replaced by the min
+    nonzero value; the constant map is all ones;
   - out = sum(pred * imp) / sum(imp), padding cropped.
 
 The loop per volume: gather a batch of windows -> predictor -> blend the
@@ -15,7 +16,7 @@ batch into f32 accumulators (ops/blend.py: the hand-written kernel on CUDA)
 
 The port runs the JAX package's main-path configuration: the predictor
 takes the model's D-first (N, D, H, W, C) windows (JAX predictor_layout=
-"dfirst") and the blend is Gaussian. `stage_volume` has the JAX package's
+"dfirst"). `stage_volume` has the JAX package's
 shape bucketing (window placement stays on the unbucketed extent, so results
 are bit-identical) and transfer dtypes (float32, a bf16/f16 cast rounded on
 the host, or uint8 quantization).
@@ -58,13 +59,20 @@ def gaussian_importance_map(roi_size: Sequence[int],
 
 
 @lru_cache(maxsize=8)
-def _importance_map_device(roi_size: Tuple[int, ...],
+def _importance_map_device(roi_size: Tuple[int, ...], mode: str,
+                           sigma_scale: float,
                            device: torch.device) -> torch.Tensor:
-    """The importance map on `device`, cached across volumes: computing it
-    on the host (float64, ~10^7 voxels for the flagship ROI) for every
-    volume would leave the device idle meanwhile. Callers must not modify
-    the returned tensor."""
-    return torch.from_numpy(gaussian_importance_map(roi_size)).to(device)
+    """The importance map of `mode` on `device`, cached across volumes:
+    computing it on the host (float64, ~10^7 voxels for the flagship ROI)
+    for every volume would leave the device idle meanwhile. Callers must
+    not modify the returned tensor."""
+    if mode == "gaussian":
+        imp = gaussian_importance_map(roi_size, sigma_scale)
+    elif mode == "constant":
+        imp = np.ones(roi_size, np.float32)
+    else:
+        raise ValueError(f"unsupported blend mode {mode}")
+    return torch.from_numpy(imp).to(device)
 
 
 def _scan_interval(image_size, roi_size, overlap: float) -> Tuple[int, ...]:
@@ -215,15 +223,18 @@ def dequantize(vol_u8: torch.Tensor, scale, offset,
 def sliding_window_inference(volume, roi_size: Sequence[int],
                              predictor: Callable, *, device=None,
                              overlap: float = 0.25, sw_batch_size: int = 4,
+                             mode: str = "gaussian",
+                             sigma_scale: float = 0.125,
                              quantize: bool = False,
                              use_kernels: bool = True) -> torch.Tensor:
     """Run `predictor` over overlapping ROIs of a whole volume and blend.
 
     volume: (H, W, D, C) host array (then `device` is required), or a
     StagedVolume; roi_size in (H, W, D). predictor: (N, D, H, W, C) windows
-    -> (N, D, H, W, out). use_kernels=False blends with the plain twin of
-    the blend kernel. Returns (H, W, D, out) f32 blended logits on the
-    volume's device."""
+    -> (N, D, H, W, out). mode: the importance map, "gaussian" (sigma =
+    sigma_scale * roi) or "constant". use_kernels=False blends with the
+    plain twin of the blend kernel. Returns (H, W, D, out) f32 blended
+    logits on the volume's device."""
     if isinstance(volume, StagedVolume):
         staged = volume
     else:
@@ -235,7 +246,7 @@ def sliding_window_inference(volume, roi_size: Sequence[int],
     dev = vol.device
     if staged.dequant is not None:
         vol = dequantize(vol, *staged.dequant)
-    imp = _importance_map_device(tuple(roi), dev)
+    imp = _importance_map_device(tuple(roi), mode, float(sigma_scale), dev)
     n_pad = staged.starts_padded.shape[0]
     if n_pad % sw_batch_size:
         raise ValueError(

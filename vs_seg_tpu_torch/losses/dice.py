@@ -1,10 +1,11 @@
-"""Dice loss and the composite supervised-attention loss: the counterpart of
-vs_seg_tpu/losses/dice.py (`one_hot`, `dice_loss`, `dice_spvpa_loss`).
+"""The Dice loss family and the composite supervised-attention loss: the
+counterpart of vs_seg_tpu/losses/dice.py (`one_hot`, `dice_loss`,
+`masked_dice_loss`, `generalized_dice_loss`,
+`generalized_wasserstein_dice_loss`, `dice_spvpa_loss`).
 
 Layout: predictions (B, *spatial, C); targets (B, *spatial, 1) label indices
 or (B, *spatial, C) one-hot. The hardness weight carries gradients, as in the
-JAX package and the reference (it is NOT detached). The masked, generalised
-and Wasserstein Dice losses are not ported yet.
+JAX package and the reference (it is NOT detached).
 """
 
 from __future__ import annotations
@@ -75,6 +76,75 @@ def dice_loss(pred: torch.Tensor, target: torch.Tensor, *,
         denominator = 2.0 * (denominator - intersection)
     f = 1.0 - (2.0 * intersection + smooth) / (denominator + smooth)
     return _reduce(f, reduction)
+
+
+def masked_dice_loss(pred: torch.Tensor, target: torch.Tensor,
+                     mask: Optional[torch.Tensor] = None, **kwargs
+                     ) -> torch.Tensor:
+    """dice_loss over a binary region mask: prediction and target are
+    multiplied by `mask` first (None: the whole volume)."""
+    if mask is not None:
+        pred = pred * mask
+        target = target * mask
+    return dice_loss(pred, target, **kwargs)
+
+
+def generalized_dice_loss(pred: torch.Tensor, target: torch.Tensor, *,
+                          include_background: bool = True,
+                          to_onehot_y: bool = False, sigmoid: bool = False,
+                          softmax: bool = False, w_type: str = "square",
+                          reduction: str = "mean", smooth: float = 1e-5
+                          ) -> torch.Tensor:
+    """Generalised Dice (Sudre et al. 2017). Class weights 1/V ("simple"),
+    1/V^2 ("square") or 1 (any other w_type) of each class's target volume
+    V; the infinite weight of an empty class becomes the largest finite
+    weight of its sample."""
+    pred, target = _prepare(pred, target, sigmoid=sigmoid, softmax=softmax,
+                            to_onehot_y=to_onehot_y,
+                            include_background=include_background)
+    axes = tuple(range(1, pred.dim() - 1))
+    intersection = torch.sum(target * pred, dim=axes)
+    ground_o = torch.sum(target, dim=axes)
+    pred_o = torch.sum(pred, dim=axes)
+    denominator = ground_o + pred_o
+    if w_type == "simple":
+        w = 1.0 / ground_o
+    elif w_type == "square":
+        w = 1.0 / (ground_o * ground_o)
+    else:
+        w = torch.ones_like(ground_o)
+    isinf = torch.isinf(w)
+    finite_max = torch.where(isinf, torch.zeros_like(w), w).amax(
+        -1, keepdim=True)
+    w = torch.where(isinf, finite_max, w)
+    f = 1.0 - (2.0 * torch.sum(intersection * w, -1) + smooth) / (
+        torch.sum(denominator * w, -1) + smooth)
+    return _reduce(f, reduction)
+
+
+def generalized_wasserstein_dice_loss(pred: torch.Tensor,
+                                      target: torch.Tensor, dist_matrix,
+                                      smooth: float = 1e-5) -> torch.Tensor:
+    """Generalised Wasserstein Dice (Fidon et al. 2017) with GDL-style
+    weights: `dist_matrix` (C, C) normalised by its maximum, each voxel's
+    Wasserstein distance sum_c M[y, c] p_c on the softmax p, and class
+    weights alpha = 1 / (volume + 1). pred (B, *S, C) logits, target
+    (B, *S, 1) label indices; the mean over the batch."""
+    m = torch.as_tensor(dist_matrix, dtype=torch.float32,
+                        device=pred.device)
+    m = m / m.max()
+    num_classes = m.shape[0]
+    b = pred.shape[0]
+    flat_pred = pred.reshape(b, -1, pred.shape[-1])           # (B, V, C)
+    flat_target = target.reshape(b, -1).long()                # (B, V)
+    probs = torch.softmax(flat_pred, dim=-1)
+    wass = torch.sum(m[flat_target] * probs, dim=-1)          # (B, V)
+    volumes = F.one_hot(flat_target, num_classes).float().sum(1)  # (B, C)
+    alpha_map = torch.gather(1.0 / (volumes + 1.0), 1, flat_target)
+    true_pos = torch.sum(alpha_map * (1.0 - wass), dim=1)
+    denom = torch.sum(alpha_map * (2.0 - wass), dim=1)
+    wass_dice = (2.0 * true_pos + smooth) / (denom + smooth)
+    return torch.mean(1.0 - wass_dice)
 
 
 def _maxpool3d_squeezed(x: torch.Tensor, window: Sequence[int]

@@ -13,15 +13,18 @@ supervision, mirroring vs_seg_tpu/models/unet2d5_spvpa.py.
 
 forward(x, use_kernels=True, train=False, generator=None, routes=Routes())
 takes (N, D, H, W, C) and returns (logits (N, D, H, W, out), att_maps), the
-maps coarsest first, each (N, d, h, w, 1). The constructor's `device` is a
-required keyword (no CPU default). Train or eval is the explicit `train`
-argument, as in the JAX package; torch's module-level train()/eval() state
-is not read. At train, BatchNorm uses batch statistics (and updates the running
-ones), Dropout draws from `generator` (a torch.Generator on x's device,
-required when dropout > 0), no l2block/rublock/headfold route is taken, and
-every (3,3,3) stride-1 conv runs the hand-written backward of
-ops/train_conv.py (25 conv sites in the flagship, pair halves counted
-separately).
+maps coarsest first, each (N, d, h, w, 1); with attention_module=False the
+maps are empty. The constructor's `device` is a required keyword (no CPU
+default). With `remat`, the train forward rematerialises down_i,
+downsample_i, upsample_i and up_i at levels 0-1 in the backward
+(`remat_block`), the blocks vs_seg_tpu's nn.remat covers. Train or eval
+is the explicit `train` argument, as in the JAX package; torch's
+module-level train()/eval() state is not read. At train, BatchNorm uses
+batch statistics (and updates the running ones), Dropout draws from
+`generator` (a torch.Generator on x's device, required when dropout > 0),
+no l2block/rublock/headfold route is taken, and every (3,3,3) stride-1
+conv runs the hand-written backward of ops/train_conv.py (25 conv sites in
+the flagship, pair halves counted separately).
 
 Eval dispatch to the hand-written kernels (ops/): the two-subunit (3,3,3)
 encoder units go to ops/rublock.py from ResidualUnit; every (3,3,3) decoder
@@ -50,6 +53,7 @@ from typing import Optional, Sequence
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from vs_seg_tpu_torch.core.config import Routes
 from vs_seg_tpu_torch.nn.blocks import (
@@ -57,6 +61,49 @@ from vs_seg_tpu_torch.nn.blocks import (
 )
 from vs_seg_tpu_torch.nn.layers import _triple
 from vs_seg_tpu_torch.ops import block2d, l2block, tail2d
+
+
+# the top levels whose blocks --remat rematerialises: they hold the large
+# activations (vs_seg_tpu/models/unet2d5_spvpa.py:remat_levels)
+REMAT_LEVELS = 2
+
+
+def remat_block(module: nn.Module, x, generator: Optional[torch.Generator],
+                **kwargs):
+    """module(x, generator=generator, **kwargs) under torch.utils.checkpoint
+    (non-reentrant): its activations are recomputed in the backward.
+
+    The recompute must replay the forward exactly, and two of its effects
+    are not the autograd graph's: the dropout masks, drawn from the explicit
+    `generator` (checkpoint restores only the global RNG), and the
+    BatchNorm running statistics, updated in place at train. So the
+    generator's state is taken before the forward; the recompute runs from
+    that state and then puts back the state the generator held before it,
+    and it puts back the module's buffers as they were before it. The masks
+    are the forward's, and the generator and the statistics end the step as
+    they would without remat."""
+    start = None if generator is None else generator.get_state()
+    recompute = False
+
+    def run(v):
+        if not recompute:
+            return module(v, generator=generator, **kwargs)
+        now = None if generator is None else generator.get_state()
+        buffers = [b.clone() for b in module.buffers()]
+        if generator is not None:
+            generator.set_state(start)
+        try:
+            return module(v, generator=generator, **kwargs)
+        finally:
+            if generator is not None:
+                generator.set_state(now)
+            with torch.no_grad():
+                for b, saved in zip(module.buffers(), buffers):
+                    b.copy_(saved)
+
+    out = checkpoint(run, x, use_reentrant=False, preserve_rng_state=False)
+    recompute = True     # the forward has run: any later call recomputes
+    return out
 
 
 class UNet2d5_spvPA(nn.Module):
@@ -70,8 +117,9 @@ class UNet2d5_spvPA(nn.Module):
                  sample_kernel_sizes=((3, 3, 1), (3, 3, 1), (3, 3, 3),
                                       (3, 3, 3), (3, 3, 3)),
                  num_res_units: int = 2, dropout: Optional[float] = 0.1,
-                 attention_module: bool = True, dtype=torch.bfloat16, *,
-                 device, generator: Optional[torch.Generator] = None):
+                 attention_module: bool = True, dtype=torch.bfloat16,
+                 remat: bool = False, *, device,
+                 generator: Optional[torch.Generator] = None):
         super().__init__()
         if not (len(channels) == len(kernel_sizes) == len(strides) + 1
                 == len(sample_kernel_sizes) + 1):
@@ -85,6 +133,7 @@ class UNet2d5_spvPA(nn.Module):
         self.kernel_sizes = tuple(_triple(k) for k in kernel_sizes)
         self.attention_module = attention_module
         self.dtype = dtype
+        self.remat = remat
         n = len(strides)
         self.n_levels = n
         common = dict(norm="batch", dropout=dropout, dtype=dtype,
@@ -123,20 +172,25 @@ class UNet2d5_spvPA(nn.Module):
                 routes: Routes = Routes()):
         n = self.n_levels
         kw = dict(use_kernels=use_kernels, train=train, routes=routes)
+
+        def block(name: str, i: int, v, **kwargs):
+            m = getattr(self, f"{name}_{i}")
+            if self.remat and train and i < REMAT_LEVELS:
+                return remat_block(m, v, generator, **kwargs)
+            return m(v, generator=generator, **kwargs)
+
         skips = []
         for i in range(n):
-            x = getattr(self, f"down_{i}")(x, generator=generator, **kw)
+            x = block("down", i, x, **kw)
             skips.append(x)
-            x = getattr(self, f"downsample_{i}")(x, generator=generator,
-                                                 **kw)
+            x = block("downsample", i, x, **kw)
         att_maps = []
         if self.attention_module:
             att, x = self.bottom_att(x, gate=True, **kw)
             att_maps.append(att)
         x = self.bottom(x, generator=generator, **kw)
         for i in reversed(range(n)):
-            x = getattr(self, f"upsample_{i}")(
-                x, use_kernels=use_kernels, train=train, generator=generator)
+            x = block("upsample", i, x, use_kernels=use_kernels, train=train)
             pair = (skips[i], x.to(skips[i].dtype))
             outc = self.out_channels if i == 0 else self.channels[i]
             route = None if train else self._block_route(pair, i, outc,
@@ -148,7 +202,7 @@ class UNet2d5_spvPA(nn.Module):
             if self.attention_module:
                 att, pair = getattr(self, f"upatt_{i}")(pair, gate=True, **kw)
                 att_maps.append(att)
-            x = getattr(self, f"up_{i}")(pair, generator=generator, **kw)
+            x = block("up", i, pair, **kw)
         return x, tuple(att_maps)
 
     def _block_route(self, pair, i: int, outc: int, routes: Routes):

@@ -6,7 +6,8 @@ device).
     BatchNorm running statistics are buffers and take no decay;
   - one train step = train-mode forward (batch-stat BatchNorm, dropout from
     the explicit generator, the (3,3,3) convs' hand-written backward),
-    dice_spvpa_loss, backward, Adam step;
+    dice_spvpa_loss, backward, Adam step; a model that returns the logits
+    alone (UNet2d5, UNet) has no attention maps to supervise;
   - validation every `val_interval` epochs with the eval forward (the eval
     kernels), loss and hard Dice; best and last checkpoints;
   - the learning rate divided by `lr_divisor` every `epochs_with_const_lr`
@@ -21,8 +22,8 @@ that many steady steps of the first epoch into <results>/profile/.
 The state is a dict: {"model", "optimizer", "generator", "epoch",
 "best_metric", "best_metric_epoch"}; the model and optimizer hold the
 tensors. `restore_state` reads the port's checkpoints and the JAX
-package's. Multi-GPU and legacy optimizer-state migration are not ported
-yet.
+package's, a legacy one (per-parameter Adam moment trees) included.
+Multi-GPU training is not ported yet.
 """
 
 from __future__ import annotations
@@ -37,7 +38,9 @@ import torch
 from torch import nn
 
 from vs_seg_tpu_torch.compat import jax_ckpt
-from vs_seg_tpu_torch.compat.from_jax import load_jax_train_state
+from vs_seg_tpu_torch.compat.from_jax import (legacy_adam_moments,
+                                               load_jax_train_state,
+                                               load_jax_variables)
 from vs_seg_tpu_torch.core.device import DTYPES, resolve_device
 from vs_seg_tpu_torch.core.observability import make_image_grid, start_trace
 from vs_seg_tpu_torch.eval.metrics import center_of_mass_slice, dice_score
@@ -55,8 +58,15 @@ def make_optimizer(params: Iterable[torch.Tensor], learning_rate: float,
                             eps=1e-8, weight_decay=weight_decay)
 
 
+def _split(output):
+    """(logits, attention maps) of a model's output; a model that returns
+    the logits alone has no maps (vs_seg_tpu's `output if isinstance(output,
+    tuple) else (output, ())`)."""
+    return output if isinstance(output, tuple) else (output, ())
+
+
 def _loss(output, label, supervised_attention: bool, hardness: bool):
-    logits, atts = output
+    logits, atts = _split(output)
     return dice_spvpa_loss(logits, atts, label,
                            supervised_attention=supervised_attention,
                            hardness_weighting=hardness)
@@ -91,7 +101,7 @@ def make_eval_step(model: nn.Module, *, supervised_attention: bool,
         with torch.no_grad():
             output = model(image, use_kernels=use_kernels, train=False)
             loss = _loss(output, label, supervised_attention, hardness)
-            return loss, dice_score(output[0].float(), label)
+            return loss, dice_score(_split(output)[0].float(), label)
 
     return step
 
@@ -301,18 +311,43 @@ class Trainer:
 
     def _restore_jax(self, path: str) -> Dict[str, Any]:
         """A vs_seg_tpu training checkpoint: parameters, BatchNorm
-        statistics and the flattened Adam state through
-        load_jax_train_state. JAX's rbg dropout key cannot seed a
-        torch.Generator, so the generator is seeded from cfg.seed."""
+        statistics and the Adam state through load_jax_train_state. JAX's
+        rbg dropout key cannot seed a torch.Generator, so the generator is
+        seeded from cfg.seed.
+
+        A legacy checkpoint, written before vs_seg_tpu flattened its
+        optimizer, holds per-parameter `mu`/`nu` trees: they are converted
+        as vs_seg_tpu/train/trainer.py:restore_state converts them, with a
+        warning; where that fails (ValueError, KeyError, TypeError) a
+        second warning says so and the optimizer starts afresh on the
+        checkpoint's weights, as there."""
         raw = jax_ckpt.load_jax_checkpoint(path)
         adam = raw["opt_state"].get("inner_state", {}).get("1", {})
-        if isinstance(adam.get("mu"), dict):
-            raise NotImplementedError(
-                f"{path} holds a legacy JAX optimizer state (per-parameter "
-                "Adam moment trees); migrating it is not ported to "
-                "vs_seg_tpu_torch yet (ROADMAP, Queue 1 item 7f)")
         state = self.init_state()
-        scalars = load_jax_train_state(self.model, state["optimizer"], raw)
+        if isinstance(adam.get("mu"), dict):
+            self.logger.warning(
+                "checkpoint %s has a legacy (unflattened) opt_state; "
+                "converting Adam moments to the flattened layout", path)
+            try:
+                scalars = load_jax_train_state(
+                    self.model, state["optimizer"], raw,
+                    moments=legacy_adam_moments)
+            except (ValueError, KeyError, TypeError) as e:
+                self.logger.warning(
+                    "legacy opt_state conversion failed (%s); "
+                    "re-initializing the optimizer state - Adam moments "
+                    "reset", e)
+                # the optimizer is still fresh (load_jax_train_state sets
+                # no state before every moment was read); the weights load
+                # on their own
+                load_jax_variables(self.model, {
+                    "params": raw["params"],
+                    "batch_stats": raw.get("batch_stats", {})})
+                scalars = {k: float(np.asarray(raw[k])) for k in
+                           ("epoch", "best_metric", "best_metric_epoch")}
+        else:
+            scalars = load_jax_train_state(self.model, state["optimizer"],
+                                           raw)
         self.logger.info(
             "resumed from the JAX checkpoint %s; its dropout key does not "
             "carry over, the dropout generator is seeded from seed = %d",

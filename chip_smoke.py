@@ -147,6 +147,27 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
      generator state equal, the largest gradient difference, ms/step and
      peak memory both ways); blend_scatter with the constant importance
      map and with sigma_scale 0.25 bit-equal to its twin.
+ 17. Multi-shard inference (parallel/, infer/sharded.py, infer/spatial.py)
+     with phase 3's weights and volume on meshes that repeat cuda:0, N
+     shards on the one card (the shard machinery, not a multi-GPU
+     speed-up): (a) window-sharded at 2 and 4 shards, default routes,
+     against phase 3's default logits in the bf16 band and (logged)
+     against the single-device path at the shards' own batch, and the
+     plain float32 path at 2 and 4 shards against the single-device plain
+     float32 path within SHARD_F32_TOL; (b) H-sharded at 2 and 4 shards, 8 windows
+     at sw_batch 1, in the same band, with ru_block and l2_block counted
+     on halo-extended blocks and, at 4 shards, ru_block at down_2 and
+     l2_block at up_2 on one extended block against their plain twins by
+     phase 2's rule; (c) cli.inference with --sharded_inference and with
+     --spatial_inference (and phase 10's --routes dsconv) on phase 10's
+     cases on the card's one-device mesh, labelmaps equal to phase 10's
+     flagless run's; (d) ms/volume of (a) and
+     (b) at 1, 2 and 4 shards (and of the single-device path at sw_batch
+     1, (b)'s batch), the summed barrier waits and the host seconds in
+     the reduce, all_gather and the halo exchanges, the device ms of one
+     reduce of the accumulators and one all_gather, and one volume of (b)
+     and of the single-device path under torch.profiler: wall ms against
+     summed device ms (the host's share) and the heaviest kernels.
 
 The kernels are built in parallel, one nvcc per source. Every kernel record
 carries its time, its plain twin's, the time of one library call computing
@@ -156,7 +177,7 @@ rate and its operations over the peak rate for their type (H100 SXM, dense:
 989 TFLOP/s bf16 tensor cores, 67 TFLOP/s f32, 3.35 TB/s). The last stdout
 line is {"ok": true, "device": {...}}; the line before it is the per-kernel
 JSON record, whose launch counts add up every main path (phases 3, 6, 8,
-10, 15 and 16).
+10, 15, 16 and 17).
 """
 
 from __future__ import annotations
@@ -213,6 +234,11 @@ EVAL_L2 = {"l2_block": 3, "att_map": 3, "conv333_gated": 3, "attgate": 0}
 PEAK_BF16 = 989e12       # FLOP/s, tensor cores
 PEAK_F32 = 67e12         # FLOP/s, CUDA cores
 HBM_RATE = 3.35e12       # bytes/s
+SHARDS = (1, 2, 4)       # phase 17's meshes: (cuda:0,) * n
+# phase 17, plain float32 at 2 and 4 shards vs 1: the same windows and
+# convs, the blend's sums in another order (its shards' accumulators, then
+# their reduce)
+SHARD_F32_TOL = 1e-5
 
 REPO = Path(__file__).resolve().parent
 
@@ -3173,6 +3199,286 @@ def zoo_run(dev, card: str):
     return {k: sum(c[k] for c in total) for k in total[0]}
 
 
+def shard_expect(forwards: int, blends: int, **extra) -> dict:
+    """Launch counts of `forwards` default-route forwards and `blends`
+    blend launches."""
+    return {**{k: n * forwards for k, n in {**EVAL_RU, **EVAL_L2}.items()},
+            "conv333": EVAL_CONV333 * forwards, "blend_scatter": blends,
+            "conv333_dw": 0, **NO_KD1, **extra}
+
+
+def multi_shard_run(dev, card: str, model, default_logits, cli_root: Path):
+    """Phase 17: window-sharded and H-sharded inference on meshes that
+    repeat `dev`, and the CLI's two flags on the one-device mesh. Returns
+    the summed launch counts of the counted runs."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from vs_seg_tpu_torch.cli import inference
+    from vs_seg_tpu_torch.data import nifti
+    from vs_seg_tpu_torch.infer.engine import make_predictor
+    from vs_seg_tpu_torch.infer.sharded import \
+        sliding_window_inference_sharded
+    from vs_seg_tpu_torch.infer.sliding_window import (
+        sliding_window_inference, stage_volume)
+    from vs_seg_tpu_torch.infer.spatial import (make_spatial_predictor,
+                                                pick_gather_level)
+    from vs_seg_tpu_torch.models import UNet2d5_spvPA
+    from vs_seg_tpu_torch.ops import halo, l2block, rublock
+    from vs_seg_tpu_torch.parallel import collectives
+    from vs_seg_tpu_torch.parallel.mesh import make_mesh
+
+    volume = np.random.default_rng(SEED).normal(size=(*VOLUME, 1)).astype(
+        np.float32)
+    staged = stage_volume(volume, ROI, device=dev, overlap=0.25,
+                          sw_batch_size=SW_BATCH, quantize=True)
+    n_win = int(staged.mask.sum())
+    default_logits = default_logits.to(dev)
+    total = []
+
+    def band(tag, got):
+        if tuple(got.shape) != (*VOLUME, 2) or not torch.isfinite(got).all():
+            raise AssertionError(f"{tag}: logits {tuple(got.shape)}, or not "
+                                 "finite")
+        compare(f"{tag} vs phase 3's default logits", got, default_logits,
+                LOGIT_TOL)
+        agree = float((got.argmax(-1) == default_logits.argmax(-1)).float()
+                      .mean())
+        log(f"  {tag}: argmax agreement with phase 3 {agree!r} (min "
+            f"{ARGMAX_MIN})")
+        if agree < ARGMAX_MIN:
+            raise AssertionError(f"{tag}: argmax agreement {agree}")
+
+    def timed(run, tag, expect):
+        """Warm-up, then two timed runs, the first counted; (logits, ms
+        list, collectives' host seconds of the timed runs)."""
+        run()
+        times = []
+        collectives.reset_stats()
+        for i in range(2):
+            if i == 0:
+                reset_counts()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = run()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+            if i == 0:
+                counts = read_counts()
+                check_counts(counts, expect, tag)
+                total.append(counts)
+        stats = dict(collectives.STATS)
+        log(f"{tag}: {sum(times) / 2:.1f} ms/volume {times}; collectives "
+            f"over the 2 timed runs, host s summed over the shards: "
+            f"barrier waits {stats['barrier_s']!r}, reduce "
+            f"{stats['reduce_s']!r} ({stats['reduce']} calls), all_gather "
+            f"{stats['all_gather_s']!r} ({stats['all_gather']}), halo "
+            f"exchanges {stats['exchange_s']!r} ({stats['exchange']}); "
+            f"N shards share one card: the shard machinery's cost, not a "
+            f"multi-GPU speed-up; on {card}")
+        return out, times, stats
+
+    # (a) window-sharded, the per-shard batch as run_inference sizes it
+    pred = make_predictor(model, torch.bfloat16)
+    for n in SHARDS:
+        mesh = make_mesh([dev] * n)
+        per = max(1, min(SW_BATCH, -(-n_win // n)))
+        out, _, _ = timed(
+            lambda: sliding_window_inference_sharded(
+                staged, ROI, pred, mesh, sw_batch_size=per),
+            f"sharded inference, {n} shard(s) of {per} window(s)",
+            shard_expect(n * -(-n_win // (n * per)), n))
+        band(f"sharded, {n} shard(s)", out)
+        if n > 1:
+            # the same forwards at the shards' batch on one device: what
+            # is left is the blend's order (the batch's numerics are out)
+            same = sliding_window_inference(staged, ROI, pred,
+                                            sw_batch_size=per)
+            err = float((out - same).abs().max() / same.abs().max())
+            log(f"  sharded, {n} shards vs the single-device path at "
+                f"sw_batch {per}: max|d| / max|ref| {err!r}")
+            del same
+        del out
+    f32 = UNet2d5_spvPA(dtype=torch.float32, device=dev)
+    f32.load_state_dict(model.state_dict())
+    plain = make_predictor(f32, torch.float32, use_kernels=False)
+    with torch.no_grad():
+        ref = sliding_window_inference(staged, ROI, plain,
+                                       sw_batch_size=SW_BATCH,
+                                       use_kernels=False)
+        for n in SHARDS[1:]:
+            got = sliding_window_inference_sharded(
+                staged, ROI, plain, make_mesh([dev] * n),
+                sw_batch_size=SW_BATCH // n, use_kernels=False)
+            compare(f"sharded, {n} shards, plain float32 path vs the "
+                    f"single-device plain float32 path", got, ref,
+                    SHARD_F32_TOL)
+            del got
+    del f32, plain, ref
+    torch.cuda.empty_cache()
+
+    # (b) H-sharded, 8 windows at sw_batch 1
+    staged1 = stage_volume(volume, ROI, device=dev, overlap=0.25,
+                           sw_batch_size=1, quantize=True)
+    caught = {}
+    real = {"ru_block": rublock.ru_block, "l2_block": l2block.l2_block}
+
+    def catch(name, cout_at):
+        def fn(*a, **kw):
+            c = int(kw["w0"].shape[-1])
+            if (c == cout_at and name not in caught
+                    and collectives.in_spmd()
+                    and collectives.axis_index() == 1):
+                caught[name] = (a, kw)
+            return real[name](*a, **kw)
+        # the wrapper stands in for the counted function in the module
+        # (ru_block and l2_block count themselves by their module name),
+        # so it carries the counter that _counters reads meanwhile
+        fn.launches = 0
+        return fn
+
+    def profiled(run, tag):
+        """One volume of run() under torch.profiler (after timed()'s
+        warm-up): wall ms, the device kernels' summed ms (an upper bound
+        of the card's busy share) and the heaviest kernels."""
+        from torch.profiler import ProfilerActivity, profile
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t) * 1e3
+        ev = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+        dev_ms = sum(e.self_device_time_total for e in ev) / 1e3
+        log(f"  {tag}, one volume under torch.profiler: {wall!r} ms wall, "
+            f"{dev_ms!r} ms summed device time (busy share <= "
+            f"{dev_ms / wall:.3f}) on {card}")
+        for e in sorted(ev, key=lambda e: -e.self_device_time_total)[:4]:
+            log(f"    {e.self_device_time_total / 1e3:9.2f} ms "
+                f"{e.count:6d}x {e.key[:90]}")
+
+    # the single-device path at the same batch of 1, beside the shards
+    def single1():
+        return sliding_window_inference(staged1, ROI, pred, sw_batch_size=1)
+    timed(single1, "single-device inference at sw_batch 1",
+          shard_expect(n_win, n_win))
+    profiled(single1, "single-device inference at sw_batch 1")
+    for n in SHARDS:
+        mesh = make_mesh([dev] * n)
+        gather = pick_gather_level(model, ROI[0], n)
+        spred = make_spatial_predictor(model, mesh, torch.bfloat16)
+        before = dict(halo.BLOCK_CALLS)
+        if n == 4:       # catch an extended block of shard 1 at down_2/up_2
+            rublock.ru_block = catch("ru_block", 48)
+            l2block.l2_block = catch("l2_block", 48)
+        try:
+            out, _, _ = timed(
+                lambda: sliding_window_inference(staged1, ROI, spred,
+                                                 sw_batch_size=1),
+                f"spatial inference, {n} shard(s), gather level {gather}",
+                shard_expect(n * n_win, n_win))
+        finally:
+            rublock.ru_block, l2block.l2_block = real["ru_block"], \
+                real["l2_block"]
+        ext = {k: halo.BLOCK_CALLS[k] - before[k] for k in before}
+        log(f"  fused blocks on halo-extended blocks over the warm-up and "
+            f"2 timed runs: {ext}")
+        profiled(lambda: sliding_window_inference(staged1, ROI, spred,
+                                                  sw_batch_size=1),
+                 f"spatial inference, {n} shard(s)")
+        if n > 1:
+            band(f"spatial, {n} shards", out)
+            # down_2/3/4 and up_2/3/4 sharded; the bottom whole
+            want = 3 * 3 * n * n_win
+            if ext != {"ru_block": want, "l2_block": want}:
+                raise AssertionError(f"spatial, {n} shards: {ext} fused "
+                                     f"blocks on extended blocks, expected "
+                                     f"{want} each")
+        del out
+    with torch.inference_mode():
+        for name, plain_fn, tag in (
+                ("ru_block", rublock.ru_block_plain, "down_2"),
+                ("l2_block", l2block.l2_block_plain, "up_2")):
+            if name not in caught:
+                raise AssertionError(f"no extended {name} block was caught")
+            a, kw = caught[name]
+            got, ref = real[name](*a, **kw), plain_fn(*a, **kw)
+            if name == "l2_block":
+                got, ref = got[0], ref[0]
+            compare(f"{name} {tag} on shard 1's extended block "
+                    f"{tuple(a[0].shape)} vs its plain twin", got, ref,
+                    KERNEL_TOL)
+    del caught
+
+    # (d) device time of the collectives' own work, one card: the reduce of
+    # the accumulator pair and the all_gather at the gather level, the
+    # shards' copies and adds replayed in one thread
+    out_acc = torch.rand((*staged.vol_dev.shape[:3], 2), device=dev)
+    w_acc = torch.rand((*staged.vol_dev.shape[:3], 1), device=dev)
+    for n in SHARDS[1:]:
+        def reduce_work():
+            for t in (out_acc, w_acc):
+                acc = t.clone()
+                for _ in range(n - 1):
+                    acc.add_(t)
+        blk = torch.rand((1, ROI[2] >> 3, (ROI[0] >> 5) // n, ROI[1] >> 5,
+                          80), device=dev).to(torch.bfloat16)
+
+        def gather_work():
+            for _ in range(n):
+                torch.cat([blk] * n, dim=2)
+        log(f"  {n} shards: reduce of the accumulators "
+            f"{cuda_ms(reduce_work)!r}"
+            f" ms, all_gather before the bottom {cuda_ms(gather_work)!r} ms"
+            f" (device, CUDA events, all shards' copies and adds) on {card}")
+    del out_acc, w_acc, staged, staged1
+
+    # (c) the CLI's flags on the one-device mesh, each against phase 10's
+    # flagless run of the same CLI, weights, cases and routes
+    mesh = make_mesh(device=dev)
+    log(f"  make_mesh() on this machine: {mesh}")
+    split = str(cli_root / "split_synthetic.csv")
+    results = cli_root / "results"
+    ckpt = results / "kernels" / "model" / "best_metric_model.ckpt"
+
+    def labelmaps(name):
+        out_dir = results / name / "inferred_segmentations_nifti"
+        return {p.relative_to(out_dir): nifti.load(str(p)).data
+                for p in sorted(out_dir.rglob("*.nii.gz"))}
+
+    flagless = labelmaps("kernels")
+    for flag in ("--sharded_inference", "--spatial_inference"):
+        name = "p17" + flag.replace("-", "_")
+        (results / name / "model").mkdir(parents=True, exist_ok=True)
+        shutil.copy(ckpt, results / name / "model" / ckpt.name)
+        argv = ["--data_root", str(cli_root), "--split", split,
+                "--results_folder_name", name, "--device", str(dev),
+                "--routes", "dsconv", "--sw_batch_size", str(SW_BATCH), flag]
+        reset_counts()
+        t = time.perf_counter()
+        dice, secs = inference.main(argv, make_figures=False)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        check_counts(counts, shard_expect(CLI_CASES, CLI_CASES,
+                                          ds_conv=3 * CLI_CASES),
+                     f"CLI {flag}")
+        total.append(counts)
+        got = labelmaps(name)
+        if len(flagless) != CLI_CASES or got.keys() != flagless.keys() or \
+                not all(np.array_equal(got[k], v)
+                        for k, v in flagless.items()):
+            raise AssertionError(f"CLI {flag}: labelmaps differ from the "
+                                 "flagless run's (phase 10)")
+        log(f"  CLI {flag} (--routes dsconv): labelmaps of its "
+            f"{CLI_CASES} cases equal to phase 10's flagless run; Dice "
+            f"{dice.tolist()}, compute s/volume {secs!r}, "
+            f"{time.perf_counter() - t:.1f} s wall on {card}")
+    return {k: sum(c[k] for c in total) for k in total[0]}
+
+
 def main() -> int:
     import torch
 
@@ -3224,14 +3530,14 @@ def main() -> int:
     phase("phase 8: flagship whole-volume inference under route "
           "configurations A, B and C")
     route_counts = routes_run(dev, gen, card, model, staged, default_logits)
-    del staged, default_logits
+    del staged
+    default_logits = default_logits.cpu()    # held for phase 17
     phase("phase 9: ds_conv vs its plain twin at the flagship's downsample "
           "sites")
     rec.update(dsconv_checks(dev, gen, card))
     phase("phase 10: the inference CLI end to end (NIFTI in, Dice + NIFTI "
           "out) under --routes dsconv, and the plain path")
     cli_counts = cli_run(dev, card, model)
-    del model
     phase("phase 11: conv333 at each of its sites (one 8-window forward, "
           "configuration A's kd = 1 sites, the train dgrad)")
     conv333_sweep(dev, card)
@@ -3247,9 +3553,14 @@ def main() -> int:
     phase("phase 16: UNet2d5 and UNet (inference and a train step), the "
           "flagship with and without --remat, the blend's options")
     zoo_counts = zoo_run(dev, card)
+    phase("phase 17: window-sharded and H-sharded inference on meshes "
+          "that repeat cuda:0, and the CLI's two flags")
+    shard_counts = multi_shard_run(dev, card, model, default_logits,
+                                   REPO / "build" / "chip_smoke_cli")
+    del model, default_logits
     counts = {k: infer_counts[k] + train_counts[k] + route_counts[k]
               + cli_counts[k] + tcli_counts[k] + zoo_counts[k]
-              for k in infer_counts}
+              + shard_counts[k] for k in infer_counts}
     for k, r in rec.items():
         lib = "-" if r["library_ms"] is None else f"{r['library_ms']:.3f}"
         ms, by, moved, f16, f32 = r["bound"]

@@ -543,10 +543,38 @@ def test_cli_defaults_to_the_card(cli, monkeypatch):
                        make_figures=False)
 
 
-@pytest.mark.parametrize("flag", list(tconfig.UNPORTED_FLAGS))
-def test_unported_flags_raise(flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tconfig.parse_cli(["--device", "cpu", f"--{flag}"])
+@pytest.mark.parametrize("flag", ["sharded_inference", "spatial_inference"])
+def test_multi_device_flags_select_their_path(roots, jax_run, monkeypatch,
+                                              flag):
+    """Each flag parses into Config, builds the mesh (two CPU shards here)
+    and takes its engine path: the window-sharded loop or the spatial
+    predictor; Dice as JAX's at the tiny config within 1e-5."""
+    from vs_seg_tpu_torch.infer import engine
+
+    parsed = tconfig.parse_cli(["--device", "cpu", f"--{flag}"])
+    assert getattr(parsed, flag) and parsed.device == "cpu"
+    other = ({"sharded_inference", "spatial_inference"} - {flag}).pop()
+    assert not getattr(parsed, other)
+    jcfg, variables, jdice = jax_run
+    _, troot = roots
+    cfg = _tiny(tconfig.Config, troot, f"port_{flag}", **{flag: True})
+    model = build_model(cfg, device="cpu")
+    load_jax_variables(model, variables)
+    calls = []
+    monkeypatch.setattr(engine, "make_mesh",
+                        lambda device: (torch.device(device),) * 2)
+    for name in ("sliding_window_inference_sharded",
+                 "make_spatial_predictor"):
+        fn = getattr(engine, name)
+        monkeypatch.setattr(engine, name, lambda *a, _fn=fn, _n=name, **k: (
+            calls.append(_n), _fn(*a, **k))[1])
+    dice, _ = run_inference(cfg, model, _test_loader(tdataset, ttransforms,
+                                                     cfg),
+                            device="cpu", make_figures=False, export=False)
+    want = ("sliding_window_inference_sharded" if flag == "sharded_inference"
+            else "make_spatial_predictor")
+    assert set(calls) == {want}, calls
+    np.testing.assert_allclose(dice, jdice, atol=1e-5)
 
 
 def test_cli_flags_match_jax():

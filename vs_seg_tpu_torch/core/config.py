@@ -7,8 +7,7 @@ imports jax.)
 Two flags are the port's own, standing for what the JAX package selects
 through its environment: `--device` (default cuda: the CLI runs on the card
 unless asked for the CPU) and `--routes`, a comma list of `Routes` field
-names. The flags whose feature is not ported yet raise NotImplementedError
-naming their ROADMAP item; none is ignored.
+names. Every flag of the JAX CLI is ported; none is ignored.
 
 `Routes` selects the opt-in kernel routes of the eval forward.
 """
@@ -124,6 +123,8 @@ class Config:
     device_cache: bool = False  # training set on the device, crop/flip there
     profile_steps: int = 0      # torch.profiler trace of N steady steps
     quantize_transfer: bool = False   # uint8 volume staging
+    sharded_inference: bool = False   # a volume's windows over the mesh
+    spatial_inference: bool = False   # ONE window's H over the mesh
     # --- the port's own: what JAX selects through its environment ---
     device: str = "cuda"
     routes: Routes = Routes()
@@ -177,14 +178,6 @@ class Config:
         return kw
 
 
-# Flags of the JAX CLI whose feature the port lacks, with the ROADMAP item
-# ("What remains") that ports it: the two multi-GPU inference modes.
-UNPORTED_FLAGS = {
-    "sharded_inference": "item 5, multi-GPU (Queue 1 item 8)",
-    "spatial_inference": "item 5, multi-GPU (Queue 1 item 8)",
-}
-
-
 def add_reference_cli_flags(parser: argparse.ArgumentParser
                             ) -> argparse.ArgumentParser:
     """The flags of vs_seg_tpu/core/config.py:add_reference_cli_flags, same
@@ -234,11 +227,12 @@ def add_reference_cli_flags(parser: argparse.ArgumentParser
                         help="resume full training state from "
                              "last_epoch_model.ckpt")
     parser.add_argument("--sharded_inference", action="store_true",
-                        help="shard each volume's windows across devices "
-                             "(not ported)")
+                        help="shard each volume's sliding windows across "
+                             "all visible devices of --device's type")
     parser.add_argument("--spatial_inference", action="store_true",
-                        help="shard each window's H across devices (not "
-                             "ported)")
+                        help="shard each window's H across all visible "
+                             "devices of --device's type, with conv halo "
+                             "exchange (UNet2d5 family)")
     parser.add_argument("--device_cache", action="store_true",
                         help="cache the training set on the device and "
                              "crop and flip there")
@@ -268,13 +262,7 @@ def _parse_bucket(s) -> Optional[Shape3]:
 
 
 def config_from_args(args: argparse.Namespace) -> Config:
-    """Config of parsed flags; raises NotImplementedError for a flag whose
-    feature is not ported."""
-    for flag, item in UNPORTED_FLAGS.items():
-        if getattr(args, flag, False):
-            raise NotImplementedError(
-                f"--{flag} is not ported to vs_seg_tpu_torch yet (ROADMAP, "
-                f"What remains {item})")
+    """Config of parsed flags."""
     return Config(
         debug=args.debug,
         split_csv=args.split,
@@ -295,6 +283,8 @@ def config_from_args(args: argparse.Namespace) -> Config:
         device_cache=args.device_cache,
         profile_steps=args.profile_steps,
         quantize_transfer=args.quantize_transfer,
+        sharded_inference=args.sharded_inference,
+        spatial_inference=args.spatial_inference,
         device=args.device,
         routes=Routes.parse(args.routes),
     )

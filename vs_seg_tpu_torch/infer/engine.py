@@ -6,6 +6,12 @@ label -> uint8 argmax on the device -> volumetry -> NIFTI export of the
 argmax labelmap through the label's original affine and spatial shape ->
 the centre-of-mass-slice 3-panel PNG. Afterwards: the Dice histogram and the
 mean +- std log line.
+
+With a mesh of more than one shard (parallel/mesh.py; cfg.sharded_inference
+or cfg.spatial_inference builds make_mesh()) each volume runs over all of
+its shards: under spatial_inference one window's H is split over them
+(infer/spatial.py, sw_batch 1), otherwise the windows are
+(infer/sharded.py). A one-device mesh takes the single-device path.
 """
 
 from __future__ import annotations
@@ -26,8 +32,12 @@ from vs_seg_tpu_torch.core.device import DTYPES, resolve_device
 from vs_seg_tpu_torch.data import nifti
 from vs_seg_tpu_torch.eval import figures
 from vs_seg_tpu_torch.eval.metrics import dice_score, segmentation_volume_ml
-from vs_seg_tpu_torch.infer.sliding_window import (sliding_window_inference,
+from vs_seg_tpu_torch.infer.sharded import sliding_window_inference_sharded
+from vs_seg_tpu_torch.infer.sliding_window import (count_windows,
+                                                   sliding_window_inference,
                                                    stage_volume)
+from vs_seg_tpu_torch.infer.spatial import make_spatial_predictor
+from vs_seg_tpu_torch.parallel.mesh import make_mesh, replicate
 
 def make_predictor(model: nn.Module, dtype=torch.bfloat16,
                    use_kernels: bool = True,
@@ -51,14 +61,18 @@ def make_predictor(model: nn.Module, dtype=torch.bfloat16,
 def run_inference(cfg, model: nn.Module, test_loader, *, device,
                   logger: Optional[logging.Logger] = None,
                   export: Optional[bool] = None, make_figures: bool = True,
-                  use_kernels: bool = True):
+                  use_kernels: bool = True, mesh=None):
     """Returns (dice_scores, compute seconds per volume).
 
     The predictor runs in cfg.infer_dtype under cfg.routes; use_kernels=False
     runs every kernel site with its plain PyTorch twin (make_predictor).
     Host prep and upload of case i+1 (one staging thread) overlap the
     compute of case i. A volume's time runs from its staged upload to its
-    synchronised blended logits."""
+    synchronised blended logits. `mesh` (a tuple of devices, or built by
+    make_mesh(device=cfg.device) under either flag) of more than one shard
+    runs spatial inference under cfg.spatial_inference, else window
+    sharding with a per-shard batch of min(sw_batch_size, ceil(windows /
+    shards))."""
     logger = logger or logging.getLogger()
     logger.info("Running inference...")
     device = resolve_device(device)
@@ -70,16 +84,41 @@ def run_inference(cfg, model: nn.Module, test_loader, *, device,
     transfer_dtype = None if quantize or dtype == torch.float32 else dtype
     roi = cfg.sliding_window_inferer_roi_size
 
+    if mesh is None and (cfg.sharded_inference or cfg.spatial_inference):
+        mesh = make_mesh(device=device)
+    n_shards = 1 if mesh is None else len(mesh)
+    spatial = n_shards > 1 and cfg.spatial_inference
+    sharded = n_shards > 1 and not spatial
+    if spatial:
+        logger.info("spatially sharded inference (H over %d shards)",
+                    n_shards)
+        predictor = make_spatial_predictor(model, mesh, dtype,
+                                           use_kernels=use_kernels)
+    if sharded:
+        logger.info("sharded window inference over %d shards", n_shards)
+        predictors = [make_predictor(m, dtype, use_kernels=use_kernels,
+                                     routes=cfg.routes)
+                      for m in replicate(model, mesh)]
+    sw_batch = 1 if spatial else cfg.sw_batch_size
+
     def stage(data):
         image = np.transpose(data["image"][0], (1, 2, 3, 0))  # (H, W, D, C)
         label = np.transpose(data["label"][0], (1, 2, 3, 0))
+        per_shard = sw_batch
+        if sharded:
+            # the per-shard batch sized to this volume's windows: a fixed
+            # sw_batch_size per shard would fill most shards with masked
+            # padding windows
+            n_win = count_windows(image.shape[:3], roi, cfg.sw_overlap)
+            per_shard = max(1, min(sw_batch, -(-n_win // n_shards)))
         staged = stage_volume(image, roi, device=device,
                               overlap=cfg.sw_overlap,
-                              sw_batch_size=cfg.sw_batch_size,
+                              sw_batch_size=(n_shards * per_shard if sharded
+                                             else per_shard),
                               bucket=cfg.sw_bucket,
                               transfer_dtype=transfer_dtype,
                               quantize=quantize)
-        return image, label, staged, data
+        return image, label, staged, data, per_shard
 
     pool = ThreadPoolExecutor(1)
     try:
@@ -99,14 +138,20 @@ def run_inference(cfg, model: nn.Module, test_loader, *, device,
             if data_next is not None:
                 futures.append(pool.submit(stage, data_next))
             logger.info("starting image %d", i)
-            image, label, staged, data = futures.popleft().result()
+            image, label, staged, data, per_shard = futures.popleft().result()
 
             t0 = time.perf_counter()
-            outputs = sliding_window_inference(
-                staged, roi, predictor, overlap=cfg.sw_overlap,
-                sw_batch_size=cfg.sw_batch_size, use_kernels=use_kernels)
+            if sharded:
+                outputs = sliding_window_inference_sharded(
+                    staged, roi, predictors, mesh, overlap=cfg.sw_overlap,
+                    sw_batch_size=per_shard, use_kernels=use_kernels)
+            else:
+                outputs = sliding_window_inference(
+                    staged, roi, predictor, overlap=cfg.sw_overlap,
+                    sw_batch_size=per_shard, use_kernels=use_kernels)
             if device.type == "cuda":
-                torch.cuda.synchronize(device)
+                for dev in set(mesh or (device,)):
+                    torch.cuda.synchronize(dev)
             times.append(time.perf_counter() - t0)
 
             label_dev = torch.from_numpy(np.ascontiguousarray(label)).to(

@@ -241,12 +241,7 @@ def sliding_window_inference(volume, roi_size: Sequence[int],
         staged = stage_volume(volume, roi_size, device=device,
                               overlap=overlap, sw_batch_size=sw_batch_size,
                               quantize=quantize)
-    roi = staged.roi_size
-    vol = staged.vol_dev
-    dev = vol.device
-    if staged.dequant is not None:
-        vol = dequantize(vol, *staged.dequant)
-    imp = _importance_map_device(tuple(roi), mode, float(sigma_scale), dev)
+    vol, imp = volume_on(staged, staged.vol_dev.device, mode, sigma_scale)
     n_pad = staged.starts_padded.shape[0]
     if n_pad % sw_batch_size:
         raise ValueError(
@@ -254,20 +249,51 @@ def sliding_window_inference(volume, roi_size: Sequence[int],
             f"sw_batch_size=...)) is not divisible by the inference "
             f"sw_batch_size={sw_batch_size}")
     fn = blend.blend_scatter if use_kernels else blend.blend_scatter_plain
+    out_acc, w_acc = blend_windows(vol, staged.roi_size, staged.starts_padded,
+                                   staged.mask, predictor, fn, imp,
+                                   sw_batch_size)
+    return finish_blend(out_acc, w_acc, staged.crops)
+
+
+def volume_on(staged: StagedVolume, device, mode: str,
+              sigma_scale: float):
+    """(vol, imp): the staged volume on `device` (dequantized when it was
+    quantized) and the importance map of `mode` there."""
+    vol = staged.vol_dev.to(device)
+    if staged.dequant is not None:
+        vol = dequantize(vol, *staged.dequant)
+    return vol, _importance_map_device(tuple(staged.roi_size), mode,
+                                       float(sigma_scale), vol.device)
+
+
+def blend_windows(vol: torch.Tensor, roi: Sequence[int], starts: np.ndarray,
+                  mask: np.ndarray, predictor: Callable, fn: Callable,
+                  imp: torch.Tensor, sw_batch_size: int):
+    """(out_acc, w_acc): the f32 sums over the windows at `starts` (whose
+    count divides by sw_batch_size) of predictor(window) * imp and of imp,
+    each window weighted by its `mask` entry, accumulated by `fn` (the
+    blend kernel's wrapper or its plain twin) over the padded (D, H, W)
+    volume `vol`, one batch of windows at a time."""
     out_acc = w_acc = None
-    for b in range(n_pad // sw_batch_size):
-        sl = slice(b * sw_batch_size, (b + 1) * sw_batch_size)
-        starts = staged.starts_padded[sl]
+    for lo in range(0, starts.shape[0], sw_batch_size):
+        bs = starts[lo:lo + sw_batch_size]
         wins = torch.stack([
             vol[s0:s0 + roi[0], s1:s1 + roi[1], s2:s2 + roi[2]]
-            for s0, s1, s2 in starts.tolist()])
+            for s0, s1, s2 in bs.tolist()])
         preds = predictor(wins)
         if out_acc is None:
             out_acc = torch.zeros((*vol.shape[:3], preds.shape[-1]),
-                                  dtype=torch.float32, device=dev)
+                                  dtype=torch.float32, device=vol.device)
             w_acc = torch.zeros((*vol.shape[:3], 1), dtype=torch.float32,
-                                device=dev)
-        fn(out_acc, w_acc, preds.contiguous(), starts, staged.mask[sl], imp)
+                                device=vol.device)
+        fn(out_acc, w_acc, preds.contiguous(), bs,
+           mask[lo:lo + sw_batch_size], imp)
+    return out_acc, w_acc
+
+
+def finish_blend(out_acc: torch.Tensor, w_acc: torch.Tensor,
+                 crops) -> torch.Tensor:
+    """out_acc / w_acc cropped to the volume, (D, H, W, O) -> (H, W, D, O)."""
     blended = out_acc / w_acc
-    (a0, a1), (b0, b1), (c0, c1) = staged.crops
-    return blended[a0:a1, b0:b1, c0:c1, :].permute(1, 2, 0, 3)  # (H,W,D,O)
+    (a0, a1), (b0, b1), (c0, c1) = crops
+    return blended[a0:a1, b0:b1, c0:c1, :].permute(1, 2, 0, 3)

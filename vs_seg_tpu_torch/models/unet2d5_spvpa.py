@@ -42,7 +42,10 @@ the upatt_i sites no block route took (AttentionBlock1), and dsconv the
 (3,3,3) stride-(2,2,2) downsample_i (Convolution -> ops/dsconv.py; the
 flagship's downsample_2/3/4). As in the JAX package,
 the port routes on semantics alone: the TPU kernels' tiling preconditions
-are not copied. With use_kernels=False every routed site runs its kernels'
+are not copied. Under nn/layers.py:spatial_sharding (H split over several
+shards, infer/spatial.py) the (3,3,1) block routes are off and l2block runs
+on halo-extended blocks (vs_seg_tpu's _l2_spatial_halo: a chain of three
+convs in H, so a halo of 3 rows) and keeps the local rows. With use_kernels=False every routed site runs its kernels'
 plain PyTorch twins instead; on CPU tensors both choices run the plain
 twins. At train the routes are ignored.
 """
@@ -59,10 +62,13 @@ from vs_seg_tpu_torch.core.config import Routes
 from vs_seg_tpu_torch.nn.blocks import (
     AttentionBlock1, Convolution, ResidualUnit, folded_conv_affine,
 )
-from vs_seg_tpu_torch.nn.layers import _triple
-from vs_seg_tpu_torch.ops import block2d, l2block, tail2d
+from vs_seg_tpu_torch.nn.layers import _triple, block_halo, spatial_shards
+from vs_seg_tpu_torch.ops import block2d, halo, l2block, tail2d
 
 
+# the conv chain depth in H of l2_block (att conv1, conv2, unit0; the 1x1
+# residual adds none): the halo that keeps its local rows exact
+L2_CHAIN = 3
 # the top levels whose blocks --remat rematerialises: they hold the large
 # activations (vs_seg_tpu/models/unet2d5_spvpa.py:remat_levels)
 REMAT_LEVELS = 2
@@ -131,6 +137,7 @@ class UNet2d5_spvPA(nn.Module):
         self.out_channels = out_channels
         self.channels = tuple(int(c) for c in channels)
         self.kernel_sizes = tuple(_triple(k) for k in kernel_sizes)
+        self.strides = tuple(_triple(s) for s in strides)
         self.attention_module = attention_module
         self.dtype = dtype
         self.remat = remat
@@ -217,8 +224,8 @@ class UNet2d5_spvPA(nn.Module):
         k = self.kernel_sizes[i]
         if k == (3, 3, 3):
             return ("l2block" if i > 0 and outc == int(xa.shape[-1])
-                    else None)
-        if k != (3, 3, 1):
+                    and block_halo(xa.shape[2], L2_CHAIN) >= 0 else None)
+        if k != (3, 3, 1) or spatial_shards():
             return None
         if routes.tail2d(i):
             return "tail"
@@ -247,6 +254,16 @@ class UNet2d5_spvPA(nn.Module):
         kw.update(w1=att_m.conv1.conv.kernel, b1=att_m.conv1.conv.bias)
         if route == "l2block":
             fn = l2block.l2_block if use_kernels else l2block.l2_block_plain
+            hl = pair[0].shape[2]
+            h = block_halo(hl, L2_CHAIN)
+            if h:
+                # both halves extended by h neighbour rows a side, the
+                # kernels unchanged, the local rows of out and att kept
+                (xa, start), (xb, _) = (halo.halo_block_input(v, h)
+                                        for v in pair)
+                halo.count_block("l2_block")
+                return tuple(t.narrow(2, start, hl).contiguous()
+                             for t in fn(xa, xb, **kw))
         else:
             fn = (block2d.l2_block2d if use_kernels
                   else block2d.l2_block2d_plain)

@@ -26,6 +26,12 @@ takes the rublock, headfold or fused-gate route, as in the JAX package; the
 (3,3,3) stride-1 convs inside run the hand-written backward
 (nn/layers.py:Conv3d). Every constructor takes `device` as a required
 keyword (no CPU default).
+
+Under nn/layers.py:spatial_sharding (H split over the shards of run_spmd)
+the opt-in routes are off, as JAX gates each of them off there (dsconv,
+rublock2d, att_fuse), and the (3,3,3) units of more than one shard run
+ru_block on the halo-extended block of ops/halo.py:halo_block_input,
+keeping the local rows (vs_seg_tpu/nn/blocks.py:_ru_spatial_halo).
 """
 
 from __future__ import annotations
@@ -38,11 +44,15 @@ from torch import nn
 
 from vs_seg_tpu_torch.core.config import Routes
 from vs_seg_tpu_torch.nn.layers import (
-    BatchNorm, Conv3d, ConvTranspose3d, Dropout, PReLU, _triple, conv3d,
-    same_padding,
+    BatchNorm, Conv3d, ConvTranspose3d, Dropout, PReLU, _triple, block_halo,
+    conv3d, same_padding, spatial_shards,
 )
 from vs_seg_tpu_torch.ops import att as fused_att
-from vs_seg_tpu_torch.ops import block2d, dsconv, rublock
+from vs_seg_tpu_torch.ops import block2d, dsconv, halo, rublock
+
+# the conv chain depth in H of ru_block (unit0 then unit1, each 3 rows; the
+# 1x1 residual adds none): the halo that keeps its local rows exact
+RU_CHAIN = 2
 
 
 def folded_conv_affine(unit: "Convolution"):
@@ -84,6 +94,7 @@ class Convolution(nn.Module):
         shape gate is not copied)."""
         conv = self.conv
         return (routes.dsconv and not train and not self.conv_only
+                and not spatial_shards()
                 and isinstance(conv, Conv3d)
                 and not isinstance(x, (tuple, list))
                 and conv.kernel_size == (3, 3, 3)
@@ -172,17 +183,23 @@ class ResidualUnit(nn.Module):
                 and self.strides == (1, 1, 1)
                 and self.in_features != self.features)
 
-    def _rublock(self, pair: bool, routes: Routes = Routes()) -> bool:
+    def _rublock(self, pair: bool, routes: Routes = Routes(),
+                 x_h: int = 0) -> bool:
         """The eval sites a fused block takes: every two-subunit stride-1
         PReLU+BN unit on one input whose channels change, (3,3,3) always
         (ops/rublock.py), (3,3,1) under routes.rublock2d
-        (ops/block2d.py:ru_block2d)."""
-        return (not pair and self.subunits == 2 and not self.last_conv_only
+        (ops/block2d.py:ru_block2d). Under spatial_sharding the (3,3,1)
+        route is off, and a (3,3,3) unit of several shards needs a local
+        block of at least RU_CHAIN rows for its halo."""
+        if not (not pair and self.subunits == 2 and not self.last_conv_only
                 and self.strides == (1, 1, 1)
-                and (self.kernel_size == (3, 3, 3)
-                     or (self.kernel_size == (3, 3, 1) and routes.rublock2d))
                 and self.act_name == "prelu" and self.norm_name == "batch"
-                and self.in_features != self.features)
+                and self.in_features != self.features):
+            return False
+        if self.kernel_size == (3, 3, 1):
+            return routes.rublock2d and not spatial_shards()
+        return (self.kernel_size == (3, 3, 3)
+                and block_halo(x_h, RU_CHAIN) >= 0)
 
     def forward(self, x, use_kernels: bool = True, train: bool = False,
                 generator: Optional[torch.Generator] = None,
@@ -190,7 +207,8 @@ class ResidualUnit(nn.Module):
         pair = isinstance(x, (tuple, list))
         if not train and self._headfold():
             return self._headfold_apply(x)
-        if not train and self._rublock(pair, routes):
+        if not train and self._rublock(pair, routes,
+                                       0 if pair else x.shape[2]):
             if self.kernel_size == (3, 3, 3):
                 fn = (rublock.ru_block if use_kernels
                       else rublock.ru_block_plain)
@@ -199,11 +217,18 @@ class ResidualUnit(nn.Module):
                       else block2d.ru_block2d_plain)
             s0, h0 = folded_conv_affine(self.unit0)
             s1, h1 = folded_conv_affine(self.unit1)
-            return fn(x.to(self.dtype), w0=self.unit0.conv.kernel,
-                      bn0_scale=s0, bn0_shift=h0, alpha0=self.unit0.act.alpha,
-                      w1=self.unit1.conv.kernel, bn1_scale=s1, bn1_shift=h1,
-                      alpha1=self.unit1.act.alpha, wr=self.residual.kernel,
-                      br=self.residual.bias)
+            kw = dict(w0=self.unit0.conv.kernel, bn0_scale=s0, bn0_shift=h0,
+                      alpha0=self.unit0.act.alpha, w1=self.unit1.conv.kernel,
+                      bn1_scale=s1, bn1_shift=h1, alpha1=self.unit1.act.alpha,
+                      wr=self.residual.kernel, br=self.residual.bias)
+            h = block_halo(x.shape[2], RU_CHAIN)
+            if h == 0:
+                return fn(x.to(self.dtype), **kw)
+            # the local block extended by h neighbour rows a side, the
+            # kernel unchanged, the local rows kept
+            x_ext, start = halo.halo_block_input(x.to(self.dtype), h)
+            halo.count_block("ru_block")
+            return fn(x_ext, **kw).narrow(2, start, x.shape[2]).contiguous()
         cx = x
         for su in range(self.subunits):
             cx = getattr(self, f"unit{su}")(cx, use_kernels, train, generator,
@@ -251,7 +276,7 @@ class AttentionBlock1(nn.Module):
                 train: bool = False, routes: Routes = Routes()):
         a1 = self.conv1(x, use_kernels, train)
         if (gate and not train and routes.att_fuse
-                and isinstance(x, (tuple, list))):
+                and not spatial_shards() and isinstance(x, (tuple, list))):
             # conv2 + sigmoid + gate in one pass (vs_seg_tpu/nn/blocks.py
             # :472-483) on the decoder's pair, each half as wide as a1; the
             # compact map is what the JAX caller keeps. A single input is

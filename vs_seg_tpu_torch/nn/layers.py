@@ -28,10 +28,19 @@ torch's default init (U(-1/sqrt(fan_in), 1/sqrt(fan_in)) for kernel and
 bias), then moved to `device`. Compute happens in each module's `dtype`.
 Every module takes `device` as a required keyword, checked by
 core/device.py:resolve_device: there is no CPU default.
+
+Under `spatial_sharding` (inside a shard of parallel/collectives.py:
+run_spmd; thread-local, as each shard is a thread) activations are the
+shard's LOCAL block of H rows, and conv3d and conv_transpose3d exchange
+their H halo with the neighbour shards (ops/halo.py) instead of
+zero-padding H, as vs_seg_tpu/nn/layers.py's convs do under its
+spatial_sharding context. The result equals the dense conv's rows of the
+shard.
 """
 
 from __future__ import annotations
 
+import threading
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -41,11 +50,48 @@ from torch import nn
 
 from vs_seg_tpu_torch.core.device import resolve_device
 from vs_seg_tpu_torch.ops import train_conv
+from vs_seg_tpu_torch.ops.halo import exchange_halo
+from vs_seg_tpu_torch.parallel import collectives
 
 Shape3 = Tuple[int, int, int]
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.1
+
+_SPATIAL = threading.local()
+
+
+class spatial_sharding:
+    """Within a shard of run_spmd: H of every activation is the shard's
+    local block, split over all the shards in rank order, and the convs
+    exchange halos (the counterpart of vs_seg_tpu's spatial_sharding)."""
+
+    def __enter__(self):
+        self._prev = spatial_shards()
+        _SPATIAL.n = collectives.axis_size()
+        return self
+
+    def __exit__(self, *exc):
+        _SPATIAL.n = self._prev
+        return False
+
+
+def spatial_shards() -> int:
+    """The number of shards H is split over in this thread's
+    spatial_sharding context, 0 outside one."""
+    return getattr(_SPATIAL, "n", 0)
+
+
+def block_halo(local_h: int, chain: int) -> int:
+    """The H halo a fused block whose conv chain is `chain` convs deep in H
+    runs with on a block of `local_h` rows: 0 outside a context of several
+    shards (the block is whole), else `chain` (the port's kernels take any
+    extended height; JAX's Mosaic layout limits are not ported), or -1
+    where the block is too short to lend one (a halo comes from one
+    neighbour; the unfused convs then run)."""
+    if spatial_shards() <= 1:
+        return 0
+    return chain if chain <= local_h else -1
 
 
 def _triple(v) -> Shape3:
@@ -81,8 +127,17 @@ def conv3d(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
     """Convolution of (N, D, H, W, Cin) `x` with (kh, kw, kd, Cin, Cout) `w`.
 
     `strides` and symmetric `padding` are in reference (H, W, D) order. The
-    conv runs in x.dtype; w and b are cast to it."""
+    conv runs in x.dtype; w and b are cast to it. Under spatial_sharding,
+    x is the local H block: output row o reads input rows o*sh - ph ..
+    o*sh - ph + kh - 1, so the block borrows ph rows below and
+    max(kh - ph - sh, 0) above and is not padded in H (the local block must
+    divide by sh)."""
     wt = w.to(x.dtype).permute(4, 3, 2, 0, 1)
+    padding = tuple(int(p) for p in padding)
+    if spatial_shards():
+        kh, sh, ph = int(w.shape[0]), int(strides[0]), padding[0]
+        x = exchange_halo(x, (ph, max(kh - ph - sh, 0)))
+        padding = (0,) + padding[1:]
     y = F.conv3d(_ncdhw(x), wt, None if b is None else b.to(x.dtype),
                  stride=_dhw(strides), padding=_dhw(padding))
     return _ndhwc(y)
@@ -95,13 +150,39 @@ def conv_transpose3d(x: torch.Tensor, w: torch.Tensor,
 
     The JAX package runs it as an input-dilated conv with the spatially
     flipped kernel; F.conv_transpose3d takes the unflipped kernel as
-    (Cin, Cout, kd, kh, kw), which is the same operator."""
+    (Cin, Cout, kd, kh, kw), which is the same operator.
+
+    Under spatial_sharding x is the local H block of hl rows, global rows
+    [a, a + hl). The unpadded transpose conv scatters input row i to full
+    rows i*sh .. i*sh + kh - 1, and output row o is full row o + ph; so the
+    shard's output rows [a*sh, (a + hl)*sh) read input rows a - (kh - 1 -
+    ph) // sh .. a + hl - 1 + ceil(ph / sh). The block borrows those halo
+    rows, runs unpadded in H, and keeps hl*sh rows from full row ph +
+    lo*sh."""
     wt = w.to(x.dtype).permute(3, 4, 2, 0, 1)
-    y = F.conv_transpose3d(_ncdhw(x), wt,
-                           None if b is None else b.to(x.dtype),
-                           stride=_dhw(strides), padding=_dhw(padding),
-                           output_padding=_dhw(output_padding))
-    return _ndhwc(y)
+    padding = tuple(int(p) for p in padding)
+    output_padding = tuple(int(p) for p in output_padding)
+    if not spatial_shards():
+        y = F.conv_transpose3d(_ncdhw(x), wt,
+                               None if b is None else b.to(x.dtype),
+                               stride=_dhw(strides), padding=_dhw(padding),
+                               output_padding=_dhw(output_padding))
+        return _ndhwc(y)
+    kh, sh, ph = int(w.shape[0]), int(strides[0]), padding[0]
+    hl = x.shape[2]
+    lo = (kh - 1 - ph) // sh
+    xe = exchange_halo(x, (lo, -(-ph // sh)))
+    b = None if b is None else b.to(x.dtype)
+    y = _ndhwc(F.conv_transpose3d(
+        _ncdhw(xe), wt, b, stride=_dhw(strides),
+        padding=_dhw((0,) + padding[1:]),
+        output_padding=_dhw((0,) + output_padding[1:])))
+    c0 = ph + lo * sh
+    short = c0 + hl * sh - y.shape[2]
+    if short > 0:       # kh < sh: rows no input reaches hold the bias
+        tail = y.new_zeros((*y.shape[:2], short, *y.shape[3:]))
+        y = torch.cat([y, tail if b is None else tail + b], dim=2)
+    return y.narrow(2, c0, hl * sh).contiguous()
 
 
 def fold_affine(w: torch.Tensor, b: Optional[torch.Tensor], affine=None):
@@ -161,7 +242,8 @@ class Conv3d(nn.Module):
     def forward(self, x, affine=None, train: bool = False,
                 use_kernels: bool = True):
         w, b = fold_affine(self.kernel, self.bias, affine)
-        if train and affine is None and self.train_route():
+        if (train and affine is None and self.train_route()
+                and not spatial_shards()):
             def conv(v, wv, bv, strides, padding):
                 return train_conv.conv333_train(v, wv, bv, use_kernels)
         else:

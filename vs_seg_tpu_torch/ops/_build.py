@@ -11,6 +11,11 @@ hash of its sources and flags, so a changed source rebuilds and an unchanged
 one is reused. It is loaded with ctypes; every C launcher returns the value
 of cudaGetLastError() after its launch, and the Python wrappers raise on a
 non-zero value. Importing this module builds nothing; a failed build raises.
+
+The wrappers may be called from several threads at once (the shards of
+parallel/collectives.py:run_spmd): `load` builds and loads under one lock,
+`bind` sets a launcher's argument types under it, and `count` adds to the
+launch counters under another, so that no count is lost.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
 _LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
 # Seconds spent in nvcc by this process, per library (reported by
 # chip_smoke.py as the kernels' build time).
@@ -109,3 +115,24 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
         errstr.restype = ctypes.c_char_p
         raise RuntimeError(f"{what}: CUDA launch failed: cudaError {err} "
                            f"({errstr(err).decode()})")
+
+
+def bind(lib: ctypes.CDLL, name: str, argtypes, restype=ctypes.c_int):
+    """lib's function `name` with its argument and result types set; set
+    once, under the lock, so that no thread calls it half declared."""
+    with _LOCK:
+        fn = getattr(lib, name)
+        if fn.argtypes is None:
+            fn.restype = restype
+            fn.argtypes = argtypes
+    return fn
+
+
+def count(fn, attr: str = "launches", key=None, n: int = 1) -> None:
+    """Add n to the counter `fn.<attr>` (or to `fn.<attr>[key]`, a dict's
+    entry) under the counters' lock."""
+    with _COUNT_LOCK:
+        if key is None:
+            setattr(fn, attr, getattr(fn, attr) + n)
+        else:
+            getattr(fn, attr)[key] += n

@@ -101,11 +101,9 @@ def pack_w2(w2: torch.Tensor, b2: torch.Tensor, ca: int) -> torch.Tensor:
 
 def _attgate_lib():
     lib = _build.load("attgate")
-    fn = lib.attgate_launch
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
-                       + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
+    _build.bind(lib, "attgate_launch",
+                [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
+                + [ctypes.c_void_p])
     return lib
 
 
@@ -194,7 +192,7 @@ def fused_attention_gate(a1: torch.Tensor, xs: Sequence[torch.Tensor],
                          f"{a1.device}")
     out = launch_attgate(a1, xs, w2, b2, att_out == "compact",
                          "fused_attention_gate")
-    fused_attention_gate.launches += 1
+    _build.count(fused_attention_gate)
     return out
 
 

@@ -109,15 +109,13 @@ def _plan(out_shape, roi, starts: bytes, aligned: bool) -> Plan:
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Set blend_launch's argument types on a library built from
     csrc/blend.cu (or a source with its C interface)."""
-    fn = lib.blend_launch
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
-                       + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 16
-                       + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        if lib.blend_wmax() != WMAX:
-            raise RuntimeError(f"blend: the library takes {lib.blend_wmax()}"
-                               f" windows a launch, the wrapper {WMAX}")
+    if lib.blend_launch.argtypes is None and lib.blend_wmax() != WMAX:
+        raise RuntimeError(f"blend: the library takes {lib.blend_wmax()}"
+                           f" windows a launch, the wrapper {WMAX}")
+    _build.bind(lib, "blend_launch",
+                [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
+                + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 16
+                + [ctypes.c_void_p])
     return lib
 
 
@@ -155,8 +153,8 @@ def launch(lib: ctypes.CDLL, out_acc: torch.Tensor, w_acc: torch.Tensor,
             c.hi - c.lo, D, H, W, o, rd, rh, rw, *c.box_lo, *c.box, c.dstep,
             dev.index, stream)
         _build.check(lib, err, "blend_scatter")
-        blend_scatter.launches += 1
-        blend_scatter.instances[p.instance] += 1
+        _build.count(blend_scatter)
+        _build.count(blend_scatter, "instances", p.instance)
     return p
 
 

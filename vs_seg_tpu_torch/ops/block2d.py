@@ -224,10 +224,7 @@ _ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] + [ctypes.c_void_p] * 3
 
 def _lib():
     lib = _build.load("rublock2d")
-    fn = lib.rublock2d_launch
-    if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES
-        fn.restype = ctypes.c_int
+    _build.bind(lib, "rublock2d_launch", _ARGTYPES)
     return lib
 
 
@@ -275,7 +272,7 @@ def ru_block2d(x: torch.Tensor, *, th: Optional[int] = None,
         n_, d, h, w, cin, cout, p.th, p.stages, idx,
         torch._C._cuda_getCurrentRawStream(idx))
     _build.check(lib, err, "ru_block2d")
-    ru_block2d.launches += 1
+    _build.count(ru_block2d)
     return out
 
 
@@ -449,10 +446,7 @@ _log = logging.getLogger(__name__)
 
 def _l2_lib():
     lib = _build.load("l2block2d")
-    fn = lib.l2block2d_launch
-    if fn.argtypes is None:
-        fn.argtypes = _L2_ARGTYPES
-        fn.restype = ctypes.c_int
+    _build.bind(lib, "l2block2d_launch", _L2_ARGTYPES)
     return lib
 
 
@@ -488,7 +482,7 @@ def l2_block2d(xa: torch.Tensor, xb: torch.Tensor, *,
     if not l2_fusable(c, cout):
         _log.debug("l2_block2d %s x %d -> %d: conv333 + attgate chain",
                    tuple(xa.shape[:4]), c, cout)
-        l2_block2d.chain_calls += 1
+        _build.count(l2_block2d, "chain_calls")
         return l2_chain(conv333, attgate, xa, xb, **params)
     if xa.numel() == 0:
         raise ValueError(f"l2_block2d: empty input {tuple(xa.shape)}")
@@ -511,7 +505,7 @@ def l2_block2d(xa: torch.Tensor, xb: torch.Tensor, *,
         n_, d, h, w, c, cout, p.th, p.stages, idx,
         torch._C._cuda_getCurrentRawStream(idx))
     _build.check(lib, err, "l2_block2d")
-    l2_block2d.launches += 1
+    _build.count(l2_block2d)
     return out, att
 
 

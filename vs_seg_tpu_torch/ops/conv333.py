@@ -246,10 +246,7 @@ _ARGTYPES = ([ctypes.c_void_p, ctypes.c_int] * 4
 
 def _lib():
     lib = _build.load("conv333")
-    fn = lib.conv333_launch
-    if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES
-        fn.restype = ctypes.c_int
+    _build.bind(lib, "conv333_launch", _ARGTYPES)
     return lib
 
 
@@ -336,10 +333,7 @@ def conv333(x, w: torch.Tensor, scale: Optional[torch.Tensor] = None,
     memo = {}
     launch(out, _tma_ready(xs, memo), wm, n_t, cop, int(w.shape[2]), scale,
            shift, alpha, _tma_ready(rs, memo), wrp, rbias, gate=gate)
-    if gate is None:
-        conv333.launches += 1
-    else:
-        conv333.gated_launches += 1
+    _build.count(conv333, "launches" if gate is None else "gated_launches")
     return out
 
 

@@ -125,10 +125,7 @@ _ARGTYPES = ([ctypes.c_void_p, ctypes.c_int] * 2 + [ctypes.c_void_p] * 4
 
 def _lib():
     lib = _build.load("conv333_dw")
-    fn = lib.conv333_dw_launch
-    if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES
-        fn.restype = ctypes.c_int
+    _build.bind(lib, "conv333_dw_launch", _ARGTYPES)
     return lib
 
 
@@ -183,7 +180,7 @@ def conv333_dw(x: torch.Tensor, dy: torch.Tensor):
         _ptr(db), *shape, cin, cout, p.cs, p.nslab, p.ntile, p.nnt,
         p.nsplit, p.grid, index, ctypes.c_void_p(stream))
     _build.check(lib, err, "conv333_dw")
-    conv333_dw.launches += 1
+    _build.count(conv333_dw)
     return dw, db
 
 

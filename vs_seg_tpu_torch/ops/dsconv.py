@@ -32,6 +32,7 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
+from vs_seg_tpu_torch.ops import _build
 from vs_seg_tpu_torch.ops.conv333 import (KC, _check_act, _epi, _ntile,
                                           _tma_ready, launch, packed_weights)
 
@@ -163,7 +164,7 @@ def ds_conv(x: torch.Tensor, w: torch.Tensor,
     launch(out, (x,), wm, p.n_t, p.cop, 3, _epi(scale, cout, dev),
            _epi(shift, cout, dev), _epi(alpha, cout, dev, one=True),
            stride=2, th=p.th, what="ds_conv")
-    ds_conv.launches += 1
+    _build.count(ds_conv)
     return out
 
 

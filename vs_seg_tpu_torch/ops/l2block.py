@@ -36,6 +36,7 @@ from __future__ import annotations
 
 import torch
 
+from vs_seg_tpu_torch.ops import _build
 from vs_seg_tpu_torch.ops.att import (att_plain, fused_attention_gate_plain,
                                       launch_att_map, launch_attgate)
 from vs_seg_tpu_torch.ops.conv333 import conv333, conv333_plain
@@ -62,7 +63,7 @@ def attgate(a1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
     if a1.device.type != "cuda":
         raise ValueError(f"attgate: unsupported device {a1.device}")
     att, (ga, gb) = launch_attgate(a1, (xa, xb), w2, b2, True, "attgate")
-    attgate.launches += 1
+    _build.count(attgate)
     return att, ga, gb
 
 
@@ -85,7 +86,7 @@ def att_map(a1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor):
     if a1.device.type != "cuda":
         raise ValueError(f"att_map: unsupported device {a1.device}")
     out = launch_att_map(a1, w2, b2, "att_map")
-    att_map.launches += 1
+    _build.count(att_map)
     return out
 
 
@@ -144,7 +145,7 @@ def l2_block(xa: torch.Tensor, xb: torch.Tensor, **params):
     if xa.device.type != "cuda":
         raise ValueError(f"l2_block: unsupported device {xa.device}")
     out = l2_gated(conv333, att_map, xa, xb, **params)
-    l2_block.launches += 1
+    _build.count(l2_block)
     return out
 
 

@@ -126,17 +126,14 @@ def plain(case: str, *ins: torch.Tensor) -> torch.Tensor:
 
 def _lib():
     lib = _build.load("mosaic_probe")
-    if lib.mp_group_sum.argtypes is None:
-        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        for name, args in (("mp_group_sum", [p, p] + [i] * 5 + [p]),
-                           ("mp_matmul", [p] * 3 + [i] * 3 + [ll] * 2
-                            + [i] * 2 + [p]),
-                           ("mp_repeat", [p, p] + [i] * 4 + [p]),
-                           ("mp_roll", [p, p] + [i] * 4 + [p]),
-                           ("mp_narrow", [p] * 3 + [i] * 3 + [p])):
-            fn = getattr(lib, name)
-            fn.argtypes = args
-            fn.restype = ctypes.c_int
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    for name, args in (("mp_group_sum", [p, p] + [i] * 5 + [p]),
+                       ("mp_matmul", [p] * 3 + [i] * 3 + [ll] * 2
+                        + [i] * 2 + [p]),
+                       ("mp_repeat", [p, p] + [i] * 4 + [p]),
+                       ("mp_roll", [p, p] + [i] * 4 + [p]),
+                       ("mp_narrow", [p] * 3 + [i] * 3 + [p])):
+        _build.bind(lib, name, args)
     return lib
 
 
@@ -201,7 +198,7 @@ def probe(case: str, *ins: torch.Tensor,
         err = lib.mp_narrow(_ptr(x), _ptr(ins[1]), _ptr(out), x.shape[0],
                             x.shape[1], di, stream)
     _build.check(lib, err, f"mosaic_probe {case} ({scheme})")
-    probe.launches += 1
+    _build.count(probe)
     return out
 
 

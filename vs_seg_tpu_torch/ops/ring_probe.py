@@ -32,11 +32,9 @@ def ring_probe_plain(x: torch.Tensor) -> torch.Tensor:
 
 def _lib():
     lib = _build.load("ring_probe")
-    fn = lib.ring_probe_launch
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+    _build.bind(lib, "ring_probe_launch",
+                [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                 ctypes.c_int, ctypes.c_void_p])
     return lib
 
 
@@ -59,7 +57,7 @@ def ring_probe(x: torch.Tensor) -> torch.Tensor:
         dev.index if dev.index is not None else torch.cuda.current_device(),
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     _build.check(lib, err, "ring_probe")
-    ring_probe.launches += 1
+    _build.count(ring_probe)
     return out
 
 

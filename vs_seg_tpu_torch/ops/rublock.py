@@ -182,11 +182,7 @@ _GRIDS = {}
 
 def _fn():
     lib = _lib()
-    fn = lib.ru_unit_launch
-    if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES
-        fn.restype = ctypes.c_int
-    return lib, fn
+    return lib, _build.bind(lib, "ru_unit_launch", _ARGTYPES)
 
 
 def _index(dev: torch.device) -> int:
@@ -278,7 +274,7 @@ def ru_unit(x: torch.Tensor, *, p0: Optional[int] = None,
     out = torch.empty_like(u0)
     cnt = torch.zeros(n * d, dtype=torch.int32, device=x.device)
     launch_unit(x, u0, out, cnt, p, **params)
-    ru_unit.launches += 1
+    _build.count(ru_unit)
     return out
 
 
@@ -300,7 +296,7 @@ def ru_block(x: torch.Tensor, **params) -> torch.Tensor:
         out = ru_unit(x, **params)
     else:
         out = ru_chain(conv333, x, **params)
-    ru_block.launches += 1
+    _build.count(ru_block)
     return out
 
 

@@ -173,10 +173,7 @@ _ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int]
 
 def _lib():
     lib = _build.load("tail2d")
-    fn = lib.tail2d_launch
-    if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES
-        fn.restype = ctypes.c_int
+    _build.bind(lib, "tail2d_launch", _ARGTYPES)
     return lib
 
 
@@ -216,7 +213,7 @@ def tail_block(a1: torch.Tensor, xa: torch.Tensor, xb: torch.Tensor, *,
                          f"match a1 of {ca} and pair halves of {ch} and "
                          f"{int(xb.shape[-1])} channels")
     if not tail_fusable(ca, ch, cout):
-        tail_block.chain_calls += 1
+        _build.count(tail_block, "chain_calls")
         return gate_conv0(conv333, attgate, a1, xa, xb, **params)
     _check_act((a1, xa, xb), "tail_block", a1.shape[:4])
     if any(v.data_ptr() % 16 for v in (a1, xa, xb)):
@@ -243,7 +240,7 @@ def tail_block(a1: torch.Tensor, xa: torch.Tensor, xb: torch.Tensor, *,
         n_, d, h, w, ca, ch, cout, p.th, idx,
         torch._C._cuda_getCurrentRawStream(idx))
     _build.check(lib, err, "tail_block")
-    tail_block.launches += 1
+    _build.count(tail_block)
     return out, att
 
 

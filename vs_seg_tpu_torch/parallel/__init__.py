@@ -1,0 +1,2 @@
+"""Several shards in one process: the device mesh (mesh.py) and the
+collectives between the shards' threads (collectives.py)."""

@@ -168,6 +168,22 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
      reduce of the accumulators and one all_gather, and one volume of (b)
      and of the single-device path under torch.profiler: wall ms against
      summed device ms (the host's share) and the heaviest kernels.
+ 18. Data-parallel training (parallel/distributed.py) on DP_RANKS ranks
+     that share cuda:0 over gloo (the multi-rank code on the one card, not
+     a speed-up): (a) the flagship at full width (384x384x64, bf16,
+     dropout 0), global batch DP_BATCH, each rank a spawned process
+     (distributed.launch) running its row through the kernels under
+     DistributedDataParallel with BatchNorm on global statistics: the
+     first step's loss within DP_LOSS_TOL of one process's batch-DP_BATCH
+     step on the card, every all-reduced gradient within GRAD_TOL of that
+     step's, parameters, BatchNorm buffers and gradients bit-identical
+     across the ranks, conv333 and conv333_dw counted at TRAIN_SITES each
+     per rank; (c) ms/step at one process and at DP_RANKS ranks, peak
+     memory, and the bytes a step all-reduces (DDP's gradients, BatchNorm's
+     statistics); (b) the training CLI under torchrun on DP_CLI_CASES of
+     phase 15's training cases and its validation case:
+     2 ranks on cuda:0 (gloo), rank 0's log, checkpoints and figures, then
+     --resume, then 1 rank on `--device cuda` (NCCL).
 
 The kernels are built in parallel, one nvcc per source. Every kernel record
 carries its time, its plain twin's, the time of one library call computing
@@ -177,13 +193,16 @@ rate and its operations over the peak rate for their type (H100 SXM, dense:
 989 TFLOP/s bf16 tensor cores, 67 TFLOP/s f32, 3.35 TB/s). The last stdout
 line is {"ok": true, "device": {...}}; the line before it is the per-kernel
 JSON record, whose launch counts add up every main path (phases 3, 6, 8,
-10, 15, 16 and 17).
+10, 15, 16, 17 and 18).
 """
 
 from __future__ import annotations
 
 import json
 import logging
+import os
+import re
+import signal
 import subprocess
 import sys
 import time
@@ -3479,6 +3498,306 @@ def multi_shard_run(dev, card: str, model, default_logits, cli_root: Path):
     return {k: sum(c[k] for c in total) for k in total[0]}
 
 
+DP_RANKS = 2             # phase 18's ranks, all on cuda:0 over gloo
+DP_BATCH = 2             # phase 18's global batch
+DP_STEPS = 3             # phase 18 (c): timed steps per rank and count
+DP_LOSS_TOL = 1e-3       # first-step loss, ranks vs one process, relative
+DP_TIMEOUT_S = 600.0     # a launch of the ranks, and a torchrun run
+DP_CLI_CASES = 2         # phase 15's training cases the torchrun runs take
+
+
+def dp_config():
+    """Phase 18's configuration: the flagship at full width (384x384x64
+    crops, bf16), dropout 0 so the ranks and one process draw no masks,
+    global batch DP_BATCH."""
+    from vs_seg_tpu_torch.core.config import Config
+    return Config(seed=SEED, dropout=0.0, train_batch_size=DP_BATCH)
+
+
+def dp_batch(cfg, dev):
+    """Phase 18's seeded batch of DP_BATCH crops on `dev`."""
+    import numpy as np
+
+    from vs_seg_tpu_torch.train import trainer as tr
+    return tr.to_device_batch(train_crop(cfg, np.random.default_rng(SEED + 2)),
+                              dev, tr.DTYPES[cfg.compute_dtype])
+
+
+def dp_rank():
+    """Phase 18 (a) and (c), one rank of DP_RANKS pinned to cuda:0 (gloo):
+    the flagship's first data-parallel step on its row of the batch, with
+    the launch counters reset just before and read just after, the bytes
+    BatchNorm all-reduces in it, then DP_STEPS timed steps. Runs in a
+    process of its own (distributed.launch); returns CPU tensors."""
+    import torch
+    import torch.distributed as dist
+
+    from vs_seg_tpu_torch.models import build_model
+    from vs_seg_tpu_torch.ops import _build
+    from vs_seg_tpu_torch.parallel import distributed
+    from vs_seg_tpu_torch.train import trainer as tr
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ranks = distributed.initialize("cuda:0", timeout_s=DP_TIMEOUT_S)
+    for name in ("conv333", "conv333_dw", "attgate"):
+        _build.load(name)
+    dev = ranks.device
+    cfg = dp_config()
+    model = build_model(cfg, device=dev,
+                        generator=torch.Generator().manual_seed(SEED))
+    image, label = dp_batch(cfg, dev)
+    rows, replicated = ranks.rows(len(image))
+    image, label = image[rows].contiguous(), label[rows].contiguous()
+    trainer = tr.Trainer(cfg, model, dev, ranks=ranks)
+    state = trainer.init_state()
+    step = trainer.make_step(state)
+    gen = distributed.rank_generator(dev, SEED, 0, ranks.rank)
+    bn_bytes = [0]
+    real_all_reduce = dist.all_reduce
+
+    def counting(t, *args, **kwargs):
+        bn_bytes[0] += t.numel() * t.element_size()
+        return real_all_reduce(t, *args, **kwargs)
+
+    dist.barrier()
+    torch.cuda.synchronize()
+    reset_counts()
+    dist.all_reduce = counting      # DDP's reduction is not a Python call
+    try:
+        loss = step(image, label, gen, replicated)
+        torch.cuda.synchronize()
+    finally:
+        dist.all_reduce = real_all_reduce
+    counts = read_counts()
+    out = {"rank": ranks.rank, "backend": ranks.backend, "rows": len(image),
+           "replicated": replicated, "counts": counts,
+           "local_loss": float(loss),
+           "loss": float(distributed.mean_over_ranks(loss)),
+           "grads": {n: p.grad.float().cpu()
+                     for n, p in model.named_parameters()},
+           "state": {k: v.cpu() for k, v in model.state_dict().items()},
+           "bn_bytes": bn_bytes[0],
+           "grad_bytes": sum(p.numel() * p.element_size()
+                             for p in model.parameters())}
+    dist.barrier()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    for _ in range(DP_STEPS):
+        loss = step(image, label, gen, replicated)
+    torch.cuda.synchronize()
+    out["ms"] = (time.perf_counter() - t) * 1e3 / DP_STEPS
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    out["finite"] = bool(torch.isfinite(loss))
+    return out
+
+
+DP_CLI_ENTRY = """import dataclasses
+import sys
+
+sys.path.insert(0, {repo!r})
+from vs_seg_tpu_torch.cli import train as cli
+
+epochs = int(sys.argv[1])
+real = cli.config_from_args
+cli.config_from_args = lambda a: dataclasses.replace(
+    real(a), num_epochs=epochs, val_interval=1)
+cli.main(sys.argv[2:])
+"""
+
+
+def dp_cli_run(card: str):
+    """Phase 18 (b): the training CLI under torchrun on the first
+    DP_CLI_CASES training cases of phase 15 and its validation case (each
+    rank caches every case of its run, so fewer cases shorten each run):
+    2 ranks pinned to cuda:0 (gloo), that run resumed, then 1 rank on
+    `--device cuda` (NCCL). The reference CLI has no epochs flag, so
+    torchrun starts a two-line entry that wraps cli.train's
+    config_from_args (num_epochs, val_interval 1) and calls its main."""
+    import importlib.util
+
+    import numpy as np
+    import torch
+
+    root = REPO / "build" / "chip_smoke_train_cli"
+    work = REPO / "build" / "chip_smoke_dp"
+    work.mkdir(parents=True, exist_ok=True)
+    rows = (root / "split_synthetic.csv").read_text().splitlines()
+    train = [r for r in rows if r.endswith(",training")][:DP_CLI_CASES]
+    split = work / "split_dp.csv"
+    split.write_text("\n".join(
+        train + [r for r in rows if r.endswith(",validation")]) + "\n")
+    entry = work / "cli_entry.py"
+    entry.write_text(DP_CLI_ENTRY.format(repo=str(REPO)))
+    figs = importlib.util.find_spec("matplotlib") is not None
+
+    def run(nproc, device, name, epochs, *extra):
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc_per_node", str(nproc), str(entry), str(epochs),
+               "--data_root", str(root), "--split", str(split),
+               "--results_folder_name", name, "--device", device,
+               "--train_batch_size", str(DP_BATCH), "--seed", str(SEED),
+               *extra]
+        t = time.perf_counter()
+        # a session of its own, so that a timeout ends torchrun's ranks too
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True, cwd=work,
+                                start_new_session=True)
+        try:
+            out, err = proc.communicate(timeout=DP_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            out, err = proc.communicate()
+        wall = time.perf_counter() - t
+        if proc.returncode != 0:
+            raise AssertionError(
+                f"torchrun --nproc_per_node {nproc} cli.train --device "
+                f"{device} {' '.join(extra)}: exit {proc.returncode} after "
+                f"{wall:.1f} s\n{out[-3000:]}\n{err[-6000:]}")
+        folder = root / "results" / name
+        text = (folder / "logs" / "training_log.txt").read_text()
+        losses = [float(v) for v in
+                  re.findall(r"average loss: (\S+)", text)]
+        ckpt = torch.load(folder / "model" / "last_epoch_model.ckpt",
+                          map_location="cpu", weights_only=True)
+        log(f"  torchrun --nproc_per_node {nproc} -m vs_seg_tpu_torch.cli."
+            f"train --device {device} {' '.join(extra)} (to epoch {epochs}, "
+            f"{DP_CLI_CASES // DP_BATCH} step(s) an epoch, batch "
+            f"{DP_BATCH}): exit 0 in {wall:.1f} s; log epoch losses "
+            f"{losses}; last checkpoint at epoch {ckpt['epoch']} on {card}")
+        if (len(losses) != 1 or not np.isfinite(losses).all()
+                or ckpt["epoch"] != epochs):
+            raise AssertionError(f"{name}: epoch losses {losses}, last "
+                                 f"checkpoint at epoch {ckpt['epoch']}")
+        return folder, text
+
+    backend = "data parallel: {} ranks on 1 node(s), {} backend"
+    folder, text = run(DP_RANKS, "cuda:0", "dp", 1)
+    need = ["logs/training_log.txt", "model/last_epoch_model.ckpt",
+            "model/best_metric_model.ckpt"]
+    if figs:
+        need += ["figures/check_validation_image_and_label.png",
+                 "figures/epoch_average_loss_and_val_mean_dice.png"]
+    missing = [n for n in need if not (folder / n).is_file()]
+    if missing or text.count(backend.format(DP_RANKS, "gloo")) != 1:
+        raise AssertionError(f"torchrun cli.train: missing {missing} or "
+                             "not one gloo line in rank 0's log")
+    _, text = run(DP_RANKS, "cuda:0", "dp", 2, "--resume")
+    if "Resuming full training state" not in text:
+        raise AssertionError("torchrun cli.train --resume did not resume")
+    _, text = run(1, "cuda", "dp_nccl", 1)
+    if text.count(backend.format(1, "nccl")) != 1:
+        raise AssertionError("torchrun --nproc_per_node 1 --device cuda: no "
+                             "nccl line in the log")
+
+
+def dp_run(dev, card: str):
+    """Phase 18: data-parallel training on DP_RANKS ranks that share cuda:0
+    (gloo: the multi-rank code on the one card, not a speed-up): (a) the
+    flagship's first step at full width on global batch DP_BATCH against
+    one process's batch-DP_BATCH step on the card, (c) ms/step at 1 and
+    DP_RANKS ranks and the bytes a step all-reduces, (b) the training CLI
+    under torchrun. Returns the launch counts of the ranks' counted
+    steps, summed."""
+    import torch
+
+    from vs_seg_tpu_torch.models import build_model
+    from vs_seg_tpu_torch.parallel import distributed
+    from vs_seg_tpu_torch.train import trainer as tr
+
+    torch.cuda.empty_cache()
+    cfg = dp_config()
+    model = build_model(cfg, device=dev,
+                        generator=torch.Generator().manual_seed(SEED))
+    trainer = tr.Trainer(cfg, model, dev)
+    state = trainer.init_state()
+    step = trainer.make_step(state)
+    image, label = dp_batch(cfg, dev)
+    gen = torch.Generator(dev).manual_seed(SEED)
+    torch.cuda.synchronize()
+    reset_counts()
+    loss = step(image, label, gen)
+    torch.cuda.synchronize()
+    one_counts = read_counts()
+    one_loss = float(loss)
+    ref_grads = {n: p.grad.float().cpu() for n, p in model.named_parameters()}
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    for _ in range(DP_STEPS):
+        loss = step(image, label, gen)
+    torch.cuda.synchronize()
+    one_ms = (time.perf_counter() - t) * 1e3 / DP_STEPS
+    one_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if not torch.isfinite(loss):
+        raise AssertionError("non-finite one-process loss")
+    check_counts(one_counts, {"conv333_dw": TRAIN_SITES,
+                              "conv333": TRAIN_SITES, "blend_scatter": 0,
+                              **NO_KD1}, f"one-process batch-{DP_BATCH} step")
+    del model, trainer, state, step, image, label, loss
+    torch.cuda.empty_cache()
+
+    t = time.perf_counter()
+    res = distributed.launch(dp_rank, DP_RANKS, timeout_s=DP_TIMEOUT_S)
+    log(f"  {DP_RANKS} ranks (spawned, {res[0]['backend']} on cuda:0, "
+        f"{res[0]['rows']} row(s) each) done in "
+        f"{time.perf_counter() - t:.1f} s")
+    for r in res:
+        check_counts(r["counts"], {"conv333_dw": TRAIN_SITES,
+                                   "conv333": TRAIN_SITES,
+                                   "blend_scatter": 0, **NO_KD1},
+                     f"rank {r['rank']}'s DP step")
+        if r["replicated"] or r["rows"] != DP_BATCH // DP_RANKS:
+            raise AssertionError(f"rank {r['rank']}: {r['rows']} rows, "
+                                 f"replicated {r['replicated']}")
+        if not r["finite"]:
+            raise AssertionError(f"rank {r['rank']}: non-finite loss")
+    dp_loss = res[0]["loss"]
+    log(f"  first-step loss: {DP_RANKS} ranks {dp_loss!r} (local "
+        f"{[r['local_loss'] for r in res]}), one process {one_loss!r} "
+        f"(tol {DP_LOSS_TOL!r} relative)")
+    if abs(dp_loss - one_loss) > DP_LOSS_TOL * abs(one_loss):
+        raise AssertionError(f"DP loss {dp_loss} vs one process {one_loss}")
+    names = build_model(cfg, device="cpu")
+    errs = grad_errors(names, res[0]["grads"], ref_grads)
+    gmax = max(float(g.abs().max()) for g in ref_grads.values())
+    # A PReLU slope's gradient is one bf16 sum over its whole activation
+    # (~1e8 terms at down_0). Split over the ranks, each rank's partial is
+    # rounded to bf16 before the all-reduce adds them, and where the
+    # partials cancel, that rounding is large against the total: like
+    # phase 6's noise biases, a slope is held against the model's largest.
+    for n, g in ref_grads.items():
+        if n.endswith(".act.alpha"):
+            errs[n] = float((res[0]["grads"][n] - g).abs().max()) / gmax
+    worst = sorted(errs.items(), key=lambda kv: -kv[1])[:4]
+    log(f"  all-reduced gradients vs one process, worst relative of "
+        f"{len(errs)} (tol {GRAD_TOL!r}; the PReLU slopes against the "
+        f"model's largest gradient, {gmax!r}): {worst}")
+    bad = {n: e for n, e in errs.items() if e > GRAD_TOL}
+    if bad:
+        raise AssertionError(f"DP gradients outside {GRAD_TOL}: {bad}")
+    for r in res[1:]:
+        for key in ("grads", "state"):
+            diff = [k for k, v in res[0][key].items()
+                    if not torch.equal(r[key][k], v)]
+            if diff:
+                raise AssertionError(f"rank {r['rank']}'s {key} differ from "
+                                     f"rank 0's: {diff[:6]}")
+    log(f"  parameters, BatchNorm buffers and gradients bit-identical on "
+        f"the {DP_RANKS} ranks after the step")
+    r0 = res[0]
+    log(f"  (c) ms/step, {DP_STEPS} steps: one process (batch {DP_BATCH}) "
+        f"{one_ms:.1f} ms, peak {one_peak:.2f} GiB; {DP_RANKS} ranks sharing "
+        f"cuda:0 (batch {DP_BATCH // DP_RANKS} each) "
+        f"{[round(r['ms'], 1) for r in res]} ms, peak "
+        f"{[round(r['peak_gib'], 2) for r in res]} GiB; all-reduced per "
+        f"step and rank: gradients {r0['grad_bytes']} B (DDP), BatchNorm "
+        f"statistics {r0['bn_bytes']} B (forward and backward) on {card}")
+    counts = {k: sum(r["counts"][k] for r in res) for k in one_counts}
+    del res
+    dp_cli_run(card)
+    return counts
+
 def main() -> int:
     import torch
 
@@ -3558,9 +3877,13 @@ def main() -> int:
     shard_counts = multi_shard_run(dev, card, model, default_logits,
                                    REPO / "build" / "chip_smoke_cli")
     del model, default_logits
+    phase("phase 18: data-parallel training, 2 ranks sharing cuda:0 "
+          "(gloo): the DP step vs one process, ms/step, the CLI under "
+          "torchrun")
+    dp_counts = dp_run(dev, card)
     counts = {k: infer_counts[k] + train_counts[k] + route_counts[k]
               + cli_counts[k] + tcli_counts[k] + zoo_counts[k]
-              + shard_counts[k] for k in infer_counts}
+              + shard_counts[k] + dp_counts[k] for k in infer_counts}
     for k, r in rec.items():
         lib = "-" if r["library_ms"] is None else f"{r['library_ms']:.3f}"
         ms, by, moved, f16, f32 = r["bound"]

@@ -45,3 +45,5 @@ def synthetic_root(tmp_path_factory):
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "gpu: needs an NVIDIA GPU and nvcc; skips without CUDA")
+    config.addinivalue_line(
+        "markers", "slow: long multi-process runs; tier-1 deselects them")

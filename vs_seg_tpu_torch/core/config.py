@@ -7,7 +7,11 @@ imports jax.)
 Two flags are the port's own, standing for what the JAX package selects
 through its environment: `--device` (default cuda: the CLI runs on the card
 unless asked for the CPU) and `--routes`, a comma list of `Routes` field
-names. Every flag of the JAX CLI is ported; none is ignored.
+names. Every flag of the JAX CLI is ported; none is ignored. Data-parallel
+training adds none: torchrun's environment (or, with `--device cuda`, the
+number of visible GPUs) sets the ranks, and `--device` their devices
+(parallel/distributed.py); `train_batch_size` is then one node's batch,
+split over its ranks.
 
 `Routes` selects the opt-in kernel routes of the eval forward.
 """

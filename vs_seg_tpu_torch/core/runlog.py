@@ -3,6 +3,8 @@ vs_seg_tpu/core/runlog.py (the reference artifact tree):
   <results>/logs/    text logs
   <results>/model/   checkpoints
   <results>/figures/ PNG artifacts
+In a data-parallel run rank 0 alone makes the folders, the log file and the
+parameter dump (cli/train.py).
 """
 
 from __future__ import annotations

@@ -10,7 +10,8 @@ the port's copy of vs_seg_tpu/data/dataset.py.
   collate         monai list_data_collate
   DataLoader      per-epoch shuffle and random-transform draws from
                   `np.random.Generator`s seeded by (seed, epoch); optional
-                  prefetch on worker threads
+                  prefetch on worker threads; under data parallelism only
+                  the rank's rows of each batch
 """
 
 from __future__ import annotations
@@ -112,16 +113,23 @@ class DataLoader:
     fresh shuffle order and fresh random-transform draws.
 
     prefetch=N overlaps host transform work for the next N batches with
-    whatever the caller does between batches."""
+    whatever the caller does between batches.
+
+    With `ranks` (parallel/distributed.py:Ranks) every rank draws the epoch
+    plan of the whole batch, order and per-sample seeds, from the same
+    generator, and materialises only its rows of each batch
+    (Ranks.rows); each batch then carries "replicated", whether every rank
+    holds the whole batch."""
 
     def __init__(self, dataset: CacheDataset, batch_size: int = 1,
                  shuffle: bool = False, seed: Optional[int] = None,
-                 prefetch: Optional[int] = None):
+                 prefetch: Optional[int] = None, ranks=None):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.seed = 0 if seed is None else seed
         self.prefetch = prefetch
+        self.ranks = ranks
         self._epoch = 0
 
     def __len__(self) -> int:
@@ -129,34 +137,44 @@ class DataLoader:
         return (n + self.batch_size - 1) // self.batch_size
 
     def _epoch_plan(self):
+        """[(indices, seeds, replicated)] of the epoch's batches
+        (replicated None without ranks)."""
         epoch = self._epoch
         self._epoch += 1
         root = np.random.default_rng([self.seed, epoch])
         order = (root.permutation(len(self.dataset)) if self.shuffle
                  else np.arange(len(self.dataset)))
         seeds = root.integers(0, 2 ** 63 - 1, size=len(order))
-        groups = [order[i:i + self.batch_size]
-                  for i in range(0, len(order), self.batch_size)]
-        seed_groups = [seeds[i:i + self.batch_size]
-                       for i in range(0, len(order), self.batch_size)]
-        return groups, seed_groups
+        plan = []
+        for i in range(0, len(order), self.batch_size):
+            idx = order[i:i + self.batch_size]
+            sd = seeds[i:i + self.batch_size]
+            if self.ranks is None:
+                plan.append((idx, sd, None))
+            else:
+                rows, replicated = self.ranks.rows(len(idx))
+                plan.append((idx[rows], sd[rows], replicated))
+        return plan
 
-    def _make_batch(self, indices, seeds) -> Dict[str, object]:
+    def _make_batch(self, indices, seeds, replicated) -> Dict[str, object]:
         samples = [self.dataset.get(int(i), np.random.default_rng(int(s)))
                    for i, s in zip(indices, seeds)]
-        return collate(samples)
+        batch = collate(samples)
+        if replicated is not None:
+            batch["replicated"] = replicated
+        return batch
 
     def __iter__(self):
-        groups, seed_groups = self._epoch_plan()
-        if not self.prefetch or self.prefetch <= 1 or len(groups) <= 1:
-            for idx, sd in zip(groups, seed_groups):
-                yield self._make_batch(idx, sd)
+        plan = self._epoch_plan()
+        if not self.prefetch or self.prefetch <= 1 or len(plan) <= 1:
+            for step in plan:
+                yield self._make_batch(*step)
             return
 
         pool = ThreadPoolExecutor(max_workers=self.prefetch)
         try:
             pending = deque()
-            it = iter(zip(groups, seed_groups))
+            it = iter(plan)
             for _ in range(self.prefetch):
                 nxt = next(it, None)
                 if nxt is None:

@@ -123,14 +123,20 @@ class DeviceLoader:
     device tuples. Every epoch takes a fresh shuffle order and fresh crop
     and flip draws from np.random.default_rng([seed, epoch]) (the order is
     JAX's, vs_seg_tpu/data/device_pipeline.py:125). The final partial batch
-    is yielded (torch DataLoader drop_last=False semantics)."""
+    is yielded (torch DataLoader drop_last=False semantics).
+
+    With `ranks` (parallel/distributed.py:Ranks) every rank draws the order
+    and the crop and flip draws of the whole batch, so the generator
+    advances alike on every rank, and crops only its rows (Ranks.rows):
+    it yields (image, label, replicated)."""
 
     def __init__(self, dataset: DeviceCachedDataset, batch_size: int = 1,
-                 shuffle: bool = False, seed: int = 0):
+                 shuffle: bool = False, seed: int = 0, ranks=None):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.seed = seed
+        self.ranks = ranks
         self._epoch = 0
 
     def __len__(self) -> int:
@@ -144,4 +150,10 @@ class DeviceLoader:
         order = rng.permutation(n) if self.shuffle else np.arange(n)
         for b in range(len(self)):
             idx = order[b * self.batch_size:(b + 1) * self.batch_size]
-            yield self.dataset.sample(idx, rng)
+            if self.ranks is None:
+                yield self.dataset.sample(idx, rng)
+                continue
+            starts, flips = self.dataset.draw(idx, rng)
+            rows, replicated = self.ranks.rows(len(idx))
+            yield (*self.dataset.crop(idx[rows], starts[rows], flips[rows]),
+                   replicated)

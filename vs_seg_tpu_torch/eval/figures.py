@@ -12,11 +12,17 @@ needs it; without it a figure call raises an ImportError that names it.
 
 from __future__ import annotations
 
+import importlib.util
 import os
 
 import numpy as np
 
 from vs_seg_tpu_torch.eval.metrics import center_of_mass_slice
+
+
+def available() -> bool:
+    """Whether matplotlib is installed."""
+    return importlib.util.find_spec("matplotlib") is not None
 
 
 def _pyplot():

@@ -6,7 +6,8 @@ Counterpart of vs_seg_tpu/nn/layers.py, with the same semantics:
     output = input * stride;
   - BatchNorm: torch BatchNorm3d semantics (eps 1e-5, momentum 0.1): at
     train, biased batch statistics in float32 normalise and the unbiased
-    variance updates the running var; at eval, folded into a per-channel
+    variance updates the running var (among data-parallel ranks, the
+    global batch's statistics); at eval, folded into a per-channel
     affine inv = scale * rsqrt(var + eps), shift = bias - mean*inv;
   - PReLU: one shared slope, init 0.25;
   - Dropout: inverted (x / keep) at train, identity at eval.
@@ -51,7 +52,7 @@ from torch import nn
 from vs_seg_tpu_torch.core.device import resolve_device
 from vs_seg_tpu_torch.ops import train_conv
 from vs_seg_tpu_torch.ops.halo import exchange_halo
-from vs_seg_tpu_torch.parallel import collectives
+from vs_seg_tpu_torch.parallel import collectives, distributed
 
 Shape3 = Tuple[int, int, int]
 
@@ -318,15 +319,34 @@ class BatchNorm(nn.Module):
         stats in float32 as E[x^2] - E[x]^2 (not F.batch_norm, whose variance
         algorithm and bf16 handling differ), running var updated with the
         unbiased n/(n-1) estimate, and for low-precision x one scale/shift
-        applied in x's dtype."""
+        applied in x's dtype.
+
+        Among several data-parallel ranks with a sharded batch
+        (parallel/distributed.py:batch_stats_group), the statistics are the
+        global batch's, as GSPMD computes them in JAX: the local sums of x
+        and x^2 and the local count in float32, summed over the ranks by one
+        differentiable all-reduce, and n in the unbiased factor is the
+        global count."""
         axes = tuple(range(x.dim() - 1))
         xf = x.float()
-        mean = xf.mean(axes)
-        var = (xf * xf).mean(axes) - mean * mean
-        n = float(np.prod([x.shape[a] for a in axes]))
+        group = distributed.batch_stats_group()
+        if group is None:
+            mean = xf.mean(axes)
+            var = (xf * xf).mean(axes) - mean * mean
+            n = float(np.prod([x.shape[a] for a in axes]))
+            factor = n / max(n - 1.0, 1.0)
+        else:
+            c = x.shape[-1]
+            local = torch.cat([xf.sum(axes), (xf * xf).sum(axes),
+                               xf.new_full((1,), xf.numel() // c)])
+            total = distributed.all_reduce_sum(local, group)
+            n = total[2 * c]
+            mean = total[:c] / n
+            var = total[c:2 * c] / n - mean * mean
+            factor = n / torch.clamp_min(n - 1.0, 1.0)
         with torch.no_grad():
             m = BN_MOMENTUM
-            unbiased = var * (n / max(n - 1.0, 1.0))
+            unbiased = var * factor
             self.mean.copy_((1 - m) * self.mean + m * mean)
             self.var.copy_((1 - m) * self.var + m * unbiased)
         inv = torch.rsqrt(var + BN_EPS) * self.scale

@@ -6,7 +6,10 @@ A checkpoint is the whole training state -- model state_dict (parameters and
 BatchNorm running statistics), Adam state, the dropout generator's state,
 epoch and best metric -- so a run can resume where it stopped. It is written
 with torch.save to `<path>.tmp` and renamed over `path`, so a crash never
-leaves a half-written checkpoint under the real name.
+leaves a half-written checkpoint under the real name. In a data-parallel run
+rank 0 alone writes (train/trainer.py:Trainer._save, as
+vs_seg_tpu/train/trainer.py:369 has process 0 write), and every rank reads
+the same file back on resume.
 """
 
 from __future__ import annotations

@@ -1,5 +1,5 @@
-"""Training loop: the counterpart of vs_seg_tpu/train/trainer.py (single
-device).
+"""Training loop: the counterpart of vs_seg_tpu/train/trainer.py, on one
+device or data-parallel over several ranks.
 
   - Adam with torch's coupled L2 weight decay (decay added to the gradient
     before the moments; betas 0.9/0.999, eps 1e-8), on every parameter; the
@@ -23,7 +23,23 @@ The state is a dict: {"model", "optimizer", "generator", "epoch",
 "best_metric", "best_metric_epoch"}; the model and optimizer hold the
 tensors. `restore_state` reads the port's checkpoints and the JAX
 package's, a legacy one (per-parameter Adam moment trees) included.
-Multi-GPU training is not ported yet.
+
+Data parallelism (`ranks`, parallel/distributed.py:Ranks; the counterpart
+of JAX's mesh-sharded step): each rank runs its rows of the batch (the
+loaders pick them) through the model wrapped in DistributedDataParallel
+(broadcast_buffers=False: BatchNorm's running statistics come out equal on
+every rank from its global statistics), which averages the gradient over
+the ranks. The mean is exact because dice_spvpa_loss is a mean of
+per-sample terms over equal local batches. Dropout draws on rank r from a
+generator of its own (distributed.rank_generator). A batch that every rank
+holds whole (replicated) runs the step one device would: local BatchNorm
+statistics, the generator of the state (the same on every rank), and rank
+0's gradients and statistics broadcast to every rank. The epoch loss is
+averaged over the ranks once an epoch; validation runs the whole set on
+every rank, with rank 0's metric taken by all, so every rank makes the
+same best-checkpoint decision. Only rank 0 writes checkpoints, TensorBoard
+scalars, the image grid and the profiler trace; restore_state reads the
+checkpoint on every rank.
 """
 
 from __future__ import annotations
@@ -45,6 +61,7 @@ from vs_seg_tpu_torch.core.device import DTYPES, resolve_device
 from vs_seg_tpu_torch.core.observability import make_image_grid, start_trace
 from vs_seg_tpu_torch.eval.metrics import center_of_mass_slice, dice_score
 from vs_seg_tpu_torch.losses.dice import dice_spvpa_loss
+from vs_seg_tpu_torch.parallel import distributed
 from vs_seg_tpu_torch.train.checkpoint import (checkpoint_kind,
                                                load_checkpoint,
                                                save_checkpoint)
@@ -74,10 +91,12 @@ def _loss(output, label, supervised_attention: bool, hardness: bool):
 
 def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer, *,
                     supervised_attention: bool, hardness: bool,
-                    use_kernels: bool = True) -> Callable:
+                    use_kernels: bool = True,
+                    after_backward: Optional[Callable[[], None]] = None
+                    ) -> Callable:
     """(image, label, generator) -> loss (a device scalar, not synced).
     Updates the model's parameters, BatchNorm statistics and the optimizer in
-    place."""
+    place; `after_backward` runs between the backward and the update."""
 
     def step(image, label, generator):
         label = label.float()            # may arrive uint8
@@ -86,6 +105,8 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer, *,
                        generator=generator)
         loss = _loss(output, label, supervised_attention, hardness)
         loss.backward()
+        if after_backward is not None:
+            after_backward()
         optimizer.step()
         return loss.detach()
 
@@ -130,18 +151,70 @@ class Trainer:
     val_loader). Loaders yield dicts of numpy (B, C, H, W, D) "image" and
     "label", or (image, label) device tuples in (B, D, H, W, C).
     `use_kernels=False` runs the all-plain path. `tb_writer` is a
-    tensorboardX SummaryWriter or None."""
+    tensorboardX SummaryWriter or None, used on rank 0 alone. `ranks`
+    (distributed.initialize's) trains data-parallel; the loaders then
+    yield this rank's rows."""
 
     def __init__(self, cfg, model: nn.Module, device,
                  logger: Optional[logging.Logger] = None,
-                 use_kernels: bool = True, tb_writer=None):
+                 use_kernels: bool = True, tb_writer=None,
+                 ranks: Optional[distributed.Ranks] = None):
         self.cfg = cfg
         self.model = model
         self.device = resolve_device(device)
         self.logger = logger or logging.getLogger()
         self.use_kernels = use_kernels
-        self.tb_writer = tb_writer
+        self.ranks = ranks
+        self.tb_writer = tb_writer if self.rank0 else None
+        self._ddp = None
         self._transfer_dtype = DTYPES[cfg.compute_dtype]
+
+    @property
+    def rank0(self) -> bool:
+        """Whether this process writes the run's files."""
+        return self.ranks is None or self.ranks.rank == 0
+
+    def _ddp_model(self) -> nn.Module:
+        """The model under DistributedDataParallel, made once (its
+        constructor broadcasts rank 0's parameters and buffers)."""
+        if self._ddp is None:
+            from torch.nn.parallel import DistributedDataParallel
+            ids = [self.device.index] if self.device.type == "cuda" else None
+            self._ddp = DistributedDataParallel(
+                self.model, device_ids=ids, broadcast_buffers=False)
+        return self._ddp
+
+    def make_step(self, state: Dict[str, Any]) -> Callable:
+        """(image, label, generator, replicated=False) -> loss: one train
+        step of this rank on its rows of the batch, on the model and
+        optimizer of `state`. Without ranks `replicated` is ignored; with
+        them a sharded batch goes through DistributedDataParallel, a
+        replicated one through the bare model with local BatchNorm
+        statistics and rank 0's gradients and statistics broadcast."""
+        model, optimizer = state["model"], state["optimizer"]
+        kw = dict(supervised_attention=self.cfg.attention,
+                  hardness=self.cfg.hardness, use_kernels=self.use_kernels)
+        if self.ranks is None:
+            single = make_train_step(model, optimizer, **kw)
+            return lambda image, label, generator, replicated=False: \
+                single(image, label, generator)
+        sharded = make_train_step(self._ddp_model(), optimizer, **kw)
+
+        def take_rank0s():
+            distributed.broadcast_from_rank0(
+                [p.grad for p in model.parameters() if p.grad is not None]
+                + [b for b in model.buffers() if b.is_floating_point()])
+
+        whole = make_train_step(model, optimizer, after_backward=take_rank0s,
+                                **kw)
+
+        def step(image, label, generator, replicated=False):
+            if not replicated:
+                return sharded(image, label, generator)
+            with distributed.replicated_batch():
+                return whole(image, label, generator)
+
+        return step
 
     def _optimizer(self):
         return make_optimizer(self.model.parameters(),
@@ -157,18 +230,23 @@ class Trainer:
                 "epoch": 0, "best_metric": -1.0, "best_metric_epoch": -1}
 
     def _device_batch(self, batch):
-        """A loader's batch -> (image in the compute dtype, label) on the
-        device; a device tuple is cast there and never leaves it."""
+        """A loader's batch -> (image in the compute dtype, label,
+        replicated) on the device; a device tuple is cast there and never
+        leaves it."""
         if isinstance(batch, tuple):
-            image, label = batch
-            return image.to(self._transfer_dtype), label
-        return to_device_batch(batch, self.device, self._transfer_dtype)
+            image, label = batch[:2]
+            return (image.to(self._transfer_dtype), label,
+                    len(batch) > 2 and bool(batch[2]))
+        return (*to_device_batch(batch, self.device, self._transfer_dtype),
+                bool(batch.get("replicated", False)))
 
     def _write_image_grid(self, train_loader) -> None:
         """The debug-mode TensorBoard grid of centre-of-mass slices
         (reference params/VSparams.py:417-426). It walks the loader once,
-        which advances a host loader's epoch, as JAX's does; a device
-        loader's crops stay on the device and give no grid."""
+        which advances a host loader's epoch, as JAX's does (every rank
+        walks it, so the ranks stay on one epoch; rank 0 draws the grid of
+        its rows); a device loader's crops stay on the device and give no
+        grid."""
         images = []
         for batch in train_loader:
             if not isinstance(batch, dict):
@@ -177,17 +255,15 @@ class Trainer:
                 s = center_of_mass_slice(np.squeeze(label[0]))
                 images.append(image[0, :, :, s])
                 images.append(label[0, :, :, s])
-        grid = make_image_grid(images)
-        self.tb_writer.add_image("images", grid[None], 0)
+        if self.tb_writer is not None:
+            grid = make_image_grid(images)
+            self.tb_writer.add_image("images", grid[None], 0)
 
     def fit(self, state: Dict[str, Any], train_loader, val_loader
             ) -> Tuple[Dict[str, Any], list, list]:
         cfg, logger = self.cfg, self.logger
         model, optimizer = state["model"], state["optimizer"]
-        gen = state["generator"]
-        train_step = make_train_step(
-            model, optimizer, supervised_attention=cfg.attention,
-            hardness=cfg.hardness, use_kernels=self.use_kernels)
+        train_step = self.make_step(state)
         eval_step = make_eval_step(
             model, supervised_attention=cfg.attention, hardness=cfg.hardness,
             use_kernels=self.use_kernels)
@@ -195,11 +271,12 @@ class Trainer:
         best_metric_epoch = int(state.get("best_metric_epoch", -1))
         start_epoch = int(state.get("epoch", 0))
         logger.info("Running the training loop...")
-        if cfg.debug and self.tb_writer is not None:
+        if cfg.debug and (self.tb_writer is not None
+                          or self.ranks is not None):
             self._write_image_grid(train_loader)
         # --profile_steps N: trace N steady steps of the first epoch (from
         # its second step) into <results>/profile/
-        profile_steps = cfg.profile_steps
+        profile_steps = cfg.profile_steps if self.rank0 else 0
         prof = None
         epoch_loss_values, metric_values = [], []
         start = time.perf_counter()
@@ -217,9 +294,13 @@ class Trainer:
                 cfg.lr_divisor ** (epoch // cfg.epochs_with_const_lr))
             for group in optimizer.param_groups:
                 group["lr"] = lr
+            rank_gen = None
+            if self.ranks is not None and self.ranks.world > 1:
+                rank_gen = distributed.rank_generator(
+                    self.device, cfg.seed, epoch, self.ranks.rank)
             step_losses = []
             for batch in train_loader:
-                image, label = self._device_batch(batch)
+                image, label, replicated = self._device_batch(batch)
                 if (profile_steps and epoch == start_epoch
                         and len(step_losses) == 1):
                     profile_dir = os.path.join(cfg.results_folder_path,
@@ -227,7 +308,9 @@ class Trainer:
                     logger.info("profiling %d steps -> %s", profile_steps,
                                 profile_dir)
                     prof = start_trace(profile_dir, self.device)
-                loss = train_step(image, label, gen)
+                gen = (state["generator"] if rank_gen is None or replicated
+                       else rank_gen)
+                loss = train_step(image, label, gen, replicated)
                 step_losses.append(loss)      # kept on the device: no sync
                 if prof is not None and len(step_losses) > profile_steps:
                     float(loss)     # sync: the trace holds the whole step
@@ -240,21 +323,28 @@ class Trainer:
                 float(step_losses[-1])
                 prof.stop()
                 prof, profile_steps = None, 0
-            epoch_loss = (float(torch.stack(step_losses).mean())
-                          if step_losses else 0.0)
+            epoch_loss = 0.0
+            if step_losses:
+                mean = torch.stack(step_losses).mean()
+                if self.ranks is not None:
+                    mean = distributed.mean_over_ranks(mean)
+                epoch_loss = float(mean)
             epoch_loss_values.append(epoch_loss)
             logger.info("epoch %d average loss: %.4f", epoch + 1, epoch_loss)
 
             if (epoch + 1) % cfg.val_interval == 0:
                 metric_sum, val_loss, n_val = 0.0, 0.0, 0
                 for val_batch in val_loader:
-                    image, label = self._device_batch(val_batch)
+                    image, label, _ = self._device_batch(val_batch)
                     loss, dice = eval_step(image, label)
                     metric_sum += float(dice)
                     val_loss += float(loss)
                     n_val += 1
                 metric = metric_sum / max(n_val, 1)
                 val_loss /= max(n_val, 1)
+                if self.ranks is not None:
+                    metric, val_loss = distributed.floats_from_rank0(
+                        (metric, val_loss), self.device)
                 metric_values.append(metric)
                 if self.tb_writer is not None:
                     self.tb_writer.add_scalars(
@@ -284,6 +374,8 @@ class Trainer:
 
     def _save(self, state, epoch: int, best_metric: float,
               best_metric_epoch: int, name: str) -> None:
+        if not self.rank0:
+            return
         save_checkpoint(os.path.join(self.cfg.model_path, name), {
             "model": state["model"].state_dict(),
             "optimizer": state["optimizer"].state_dict(),

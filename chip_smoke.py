@@ -184,6 +184,26 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
      phase 15's training cases and its validation case:
      2 ranks on cuda:0 (gloo), rank 0's log, checkpoints and figures, then
      --resume, then 1 rank on `--device cuda` (NCCL).
+ 19. The reference's pipeline from DICOM to labelmap: a synthetic TCIA
+     download (tests/tcia_download.py, with tests/test_preprocessing.py's
+     DICOM writers) of PIPE_CASES cases, each a T2 series of 80 slices at
+     448x448 and a T1 series of 120 slices at 512x512 (int16, their own
+     spacings, oblique-free), an RTSTRUCT, RTPLAN and RTDOSE each and the
+     pair's translation .tfm; `python -m vs_seg_tpu_torch.preprocessing`
+     restructure, then one `convert --register T2` per case at once into
+     <root>/data/input_data, with `bids` on PIPE_BIDS_CASES beside them;
+     `cli.train` for 1 epoch at full width (384x384x64, bf16) on 2 cases
+     plus 1 validation case; the trained weights written as a reference
+     .pth and put through `compat.convert_checkpoint`; `cli.inference` on
+     the 3 cases from both checkpoints. Checked: the converted T2 equals
+     the written pixels and the registered T1's tumour lies on the T2's;
+     the training CLI read its NIFTIs natively (the native counters above
+     0); launch counts (conv333_dw = 25 x steps; ru_block, l2_block and
+     blend per forward); the converted checkpoint bit-equal to the trained
+     weights; the labelmaps on the original affine and shape and equal
+     from both checkpoints; every NIFTI the pipeline wrote decoded by the
+     native reader bit-equal to the gzip and numpy twin, with the decode
+     MB/s of each; each stage's seconds.
 
 The kernels are built in parallel, one nvcc per source. Every kernel record
 carries its time, its plain twin's, the time of one library call computing
@@ -193,7 +213,7 @@ rate and its operations over the peak rate for their type (H100 SXM, dense:
 989 TFLOP/s bf16 tensor cores, 67 TFLOP/s f32, 3.35 TB/s). The last stdout
 line is {"ok": true, "device": {...}}; the line before it is the per-kernel
 JSON record, whose launch counts add up every main path (phases 3, 6, 8,
-10, 15, 16, 17 and 18).
+10, 15, 16, 17, 18 and 19).
 """
 
 from __future__ import annotations
@@ -205,6 +225,7 @@ import re
 import signal
 import subprocess
 import sys
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -3798,6 +3819,372 @@ def dp_run(dev, card: str):
     dp_cli_run(card)
     return counts
 
+PIPE_CASES = (1, 2, 3)   # phase 19: vs_gk_1/2 train, vs_gk_3 validates; all 3
+#                           are inferred
+# Cases through phase 19's `bids`: each writes some 430 MB of float32
+# NIFTIs (raw T1w and T2w, both registered ones) through gzip at level 9,
+# ~41 s of one core a case on the H100 machine's host, beside
+# the rest of the phase; all 3 would make it the phase's longest stage.
+PIPE_BIDS_CASES = (1, 2)
+PIPE_TIMEOUT_S = 600.0   # a preprocessing subprocess of phase 19
+# phase 19's series (tests/tcia_download.py:Grid: rows, cols, slices; in-plane
+# and slice mm; LPS origin): T2 448x448 at 0.5 mm, 80 slices of 1.5 mm; T1
+# 512x512 at 0.46875 mm, 120 slices of 1 mm
+PIPE_T2 = ((448, 448, 80), (0.5, 1.5), (-112.0, -112.0, -60.0))
+PIPE_T1 = ((512, 512, 120), (0.46875, 1.0), (-120.0, -120.0, -60.0))
+
+
+def reference_state_dict(model):
+    """`model`'s weights under the reference's state_dict names and layouts
+    (the .pth a reference training run saves): the inverse of
+    compat/torch_import.py:import_unet2d5_spvpa, by its mapping."""
+    from vs_seg_tpu_torch.compat.torch_import import unet2d5_spvpa_mapping
+
+    leaf = {"conv.kernel": "conv.weight", "conv.bias": "conv.bias",
+            "norm.scale": "norm.weight", "norm.bias": "norm.bias",
+            "norm.mean": "norm.running_mean", "norm.var": "norm.running_var",
+            "act.alpha": "act.weight", "kernel": "weight", "bias": "bias"}
+    sd = model.state_dict()
+    out = {}
+    for prefix, kind, name in unet2d5_spvpa_mapping(
+            len(model.channels) - 1, model.attention_module):
+        for key, t in sd.items():
+            if not key.startswith(name + "."):
+                continue
+            head, _, tail = key[len(name) + 1:].partition(".")
+            if head.startswith("unit"):              # ResidualUnit subunits
+                dst, tail = f"{prefix}.conv.{head}", tail
+            elif head in ("residual", "conv1", "conv2"):
+                dst = f"{prefix}.{head}"
+            else:
+                dst, tail = prefix, f"{head}.{tail}"
+            v = t.detach().float().cpu()
+            if tail.endswith("kernel"):              # (kh, kw, kd, in, out)
+                v = v.permute(*((3, 4, 0, 1, 2) if kind == "convolution_t"
+                                else (4, 3, 0, 1, 2)))
+            out[f"{dst}.{leaf[tail]}"] = v.contiguous()
+    if len(out) != len(sd):
+        raise AssertionError(f"{len(sd) - len(out)} of the model's keys "
+                             f"have no reference name")
+    return out
+
+
+def nifti_decode_check(paths, card: str):
+    """Every NIFTI in `paths` through the native reader and converter and
+    through their plain twins: bytes and float32 values equal; decode MB/s
+    of each path (inflated bytes, converted float32 bytes)."""
+    import struct
+
+    import numpy as np
+
+    from vs_seg_tpu_torch.native import decoder
+
+    clock = {k: 0.0 for k in ("read", "read_plain", "conv", "conv_plain")}
+    inflated = converted = 0
+    for p in paths:
+        p = str(p)
+        t = time.perf_counter()
+        raw = decoder.read_file_bytes(p)
+        clock["read"] += time.perf_counter() - t
+        t = time.perf_counter()
+        plain = decoder.read_file_bytes_plain(p)
+        clock["read_plain"] += time.perf_counter() - t
+        if raw is None or raw != plain:
+            raise AssertionError(f"{p}: native bytes differ from gzip's")
+        dims = struct.unpack_from("<8h", raw, 40)
+        count = int(np.prod(dims[1:1 + dims[0]]))
+        (code,) = struct.unpack_from("<h", raw, 70)
+        (vox,) = struct.unpack_from("<f", raw, 108)
+        slope, inter = struct.unpack_from("<2f", raw, 112)
+        payload = raw[int(vox):]
+        t = time.perf_counter()
+        got = decoder.convert_to_float32(payload, count, code, slope, inter)
+        clock["conv"] += time.perf_counter() - t
+        t = time.perf_counter()
+        ref = decoder.convert_to_float32_plain(payload, count, code, slope,
+                                               inter)
+        clock["conv_plain"] += time.perf_counter() - t
+        if got is None or not np.array_equal(got, ref):
+            raise AssertionError(f"{p}: native float32 differs from numpy's")
+        inflated += len(raw)
+        converted += 4 * count
+    mb = {"read": inflated, "read_plain": inflated, "conv": converted,
+          "conv_plain": converted}
+    rate = {k: mb[k] / 1e6 / clock[k] for k in clock}
+    log(f"  {len(paths)} NIFTIs ({inflated / 1e6:.1f} MB inflated): native "
+        f"bytes and float32 bit-equal to the gzip and numpy twins; read + "
+        f"inflate {rate['read']:.1f} MB/s native, {rate['read_plain']:.1f} "
+        f"MB/s twin; to float32 {rate['conv']:.1f} MB/s native, "
+        f"{rate['conv_plain']:.1f} MB/s twin (MB of float32 out); seconds "
+        f"{clock!r} on {card}")
+    return rate
+
+
+def pipeline_run(dev, card: str):
+    """Phase 19: the reference's pipeline from a synthetic TCIA DICOM
+    download to exported labelmaps, through the preprocessing CLI, the
+    training CLI, the checkpoint converter and the inference CLI."""
+    import dataclasses
+    import importlib.util
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from vs_seg_tpu_torch.cli import inference
+    from vs_seg_tpu_torch.cli import train as cli_train
+    from vs_seg_tpu_torch.compat import convert_checkpoint
+    from vs_seg_tpu_torch.core.config import parse_cli
+    from vs_seg_tpu_torch.data import nifti
+    from vs_seg_tpu_torch.models import build_model
+    from vs_seg_tpu_torch.native import decoder
+    from vs_seg_tpu_torch.ops import _build
+    from vs_seg_tpu_torch.train.checkpoint import (load_checkpoint,
+                                                   load_model_state)
+
+    # by path: a `tests` package installed on the machine would shadow the
+    # repo's tests/ folder, which is no package
+    spec = importlib.util.spec_from_file_location(
+        "tcia_download", REPO / "tests" / "tcia_download.py")
+    tcia = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tcia)
+    if not decoder.native_available():
+        raise AssertionError("the native NIFTI decoder did not build")
+    lib = _build.library_path("nifti_decode", decoder.SRC)
+    built = _build.BUILD_SECONDS.get("nifti_decode")
+    log(f"  native decoder {lib.relative_to(REPO)}: "
+        + (f"built by g++ in {built:.2f} s at its first use" if built
+           else "found built"))
+
+    t2, t1 = tcia.Grid(*PIPE_T2), tcia.Grid(*PIPE_T1)
+    root = REPO / "build" / "chip_smoke_pipeline"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    raw, cases, data = root / "raw", root / "cases", root / "data"
+    seconds = {}
+    wall0 = time.perf_counter()
+
+    def timed(stage, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        seconds[stage] = time.perf_counter() - t
+        return out
+
+    procs = {}
+
+    def cli(name, *args):
+        """Start `python -m vs_seg_tpu_torch.preprocessing ARGS`, its output
+        into <root>/<name>.log; a thread notes when it exits."""
+        with open(root / f"{name}.log", "w") as out:
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "vs_seg_tpu_torch.preprocessing",
+                 *args], cwd=REPO, stdout=out, stderr=subprocess.STDOUT)
+        end = []
+        waiter = threading.Thread(
+            target=lambda: end.append((proc.wait(), time.perf_counter())[1]),
+            daemon=True)
+        procs[name] = (proc, time.perf_counter(), waiter, end)
+        waiter.start()
+
+    def finish(name):
+        """Wait for `name` to exit 0; its own seconds."""
+        proc, t0, waiter, end = procs.pop(name)
+        try:
+            proc.wait(timeout=PIPE_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            raise AssertionError(f"{name}: no exit in {PIPE_TIMEOUT_S} s")
+        waiter.join()
+        if proc.returncode != 0:
+            raise AssertionError(f"{name}: exit {proc.returncode}\n"
+                                 + (root / f"{name}.log").read_text())
+        return end[0] - t0
+
+    def links(folder, ns):
+        folder.mkdir()
+        for n in ns:
+            for tag in ("t1", "t2"):
+                os.symlink(cases / f"vs_gk_{n}_{tag}",
+                           folder / f"vs_gk_{n}_{tag}")
+        return folder
+
+    pixels = timed("write the DICOM download", tcia.write_download, raw,
+                   PIPE_CASES, t2, t1)
+    log(f"  {len(PIPE_CASES)} cases of a T2 series {t2.shape} and a T1 "
+        f"series {t1.shape} (int16, RTSTRUCT, RTPLAN, RTDOSE each) written "
+        f"in {seconds['write the DICOM download']:.1f} s")
+    try:
+        cli("restructure", "restructure", "-i", str(raw), "-o", str(cases))
+        seconds["restructure"] = finish("restructure")
+        tcia.write_transforms(cases, PIPE_CASES)
+
+        # bids on PIPE_BIDS_CASES in the background; one `convert
+        # --register T2` per case, all at once, into <root>/data/input_data
+        cli("bids", "bids", "-i",
+            str(links(root / "bids_in", PIPE_BIDS_CASES)),
+            "-o", str(root / "bids"))
+        t = time.perf_counter()
+        for n in PIPE_CASES:
+            cli(f"convert_{n}", "convert", "-i",
+                str(links(root / f"convert_in_{n}", (n,))),
+                "-o", str(data / "input_data"), "--register", "T2")
+        for n in PIPE_CASES:
+            seconds[f"convert --register T2, vs_gk_{n}"] = finish(
+                f"convert_{n}")
+        seconds["convert, the cases at once"] = time.perf_counter() - t
+        for n in PIPE_CASES:
+            got = nifti.load(str(data / "input_data" / f"vs_gk_{n}"
+                                 / "vs_gk_t2_refT2.nii.gz"))
+            if not np.array_equal(got.data,
+                                  pixels[n]["t2"].astype(np.float32)):
+                raise AssertionError(f"vs_gk_{n}: the converted T2 is not "
+                                     f"the written pixels")
+            moved = nifti.load(str(data / "input_data" / f"vs_gk_{n}"
+                                   / "vs_gk_t1_refT2.nii.gz")).data
+            want = np.argwhere(pixels[n]["t2"] == 900).mean(0)
+            at = np.argwhere(moved > 800).mean(0)
+            if np.abs(at - want).max() > 1.0:
+                raise AssertionError(f"vs_gk_{n}: registered T1 tumour at "
+                                     f"{at}, the T2's at {want}")
+        log(f"  the converted T2 volumes equal the written pixels; each "
+            f"registered T1's tumour lies on its T2's (within a voxel)")
+
+        split = root / "split.csv"
+        split.write_text("vs_gk_1,training\nvs_gk_2,training\n"
+                         "vs_gk_3,validation\n"
+                         + "".join(f"vs_gk_{n},test\n" for n in PIPE_CASES))
+
+        def argv(name):
+            return ["--data_root", str(data), "--split", str(split),
+                    "--dataset", "T2", "--results_folder_name", name,
+                    "--device", str(dev), "--seed", str(SEED)]
+
+        figs = importlib.util.find_spec("matplotlib") is not None
+        real_cfg = cli_train.config_from_args
+        cli_train.config_from_args = (
+            lambda a: dataclasses.replace(real_cfg(a), num_epochs=1,
+                                          val_interval=1))
+        decoder.read_file_bytes.native_calls = 0
+        decoder.convert_to_float32.native_calls = 0
+        try:
+            torch.cuda.synchronize()
+            reset_counts()
+            t = time.perf_counter()
+            state, losses, dice = cli_train.main(argv("trained"),
+                                                 make_figures=figs)
+            torch.cuda.synchronize()
+            seconds["cli.train, 1 epoch"] = time.perf_counter() - t
+            train_counts = read_counts()
+        finally:
+            cli_train.config_from_args = real_cfg
+        steps = 2                           # 2 training cases, batch 1
+        if (len(losses) != 1 or len(dice) != 1 or state["epoch"] != 1
+                or not np.isfinite(list(losses) + list(dice)).all()):
+            raise AssertionError(f"pipeline training: losses {losses}, "
+                                 f"dice {dice}, epoch {state['epoch']}")
+        check_counts(train_counts, train_cli_counts(steps, 1),
+                     "pipeline training")
+        reads = decoder.read_file_bytes.native_calls
+        convs = decoder.convert_to_float32.native_calls
+        log(f"  training: loss {losses}, val dice {dice}; native NIFTI "
+            f"reads {reads}, conversions {convs}")
+        if reads == 0 or convs == 0:
+            raise AssertionError("the training CLI read no NIFTI natively")
+
+        # the trained weights as a reference .pth, converted by the CLI
+        cfg = parse_cli(argv("trained"))
+        trained = build_model(cfg, device=dev)
+        if load_model_state(cfg, trained) != "torch":
+            raise AssertionError("the trained checkpoint is not the port's")
+        conv_cfg = parse_cli(argv("converted"))
+        pth = root / "trained.pth"
+        dst = Path(conv_cfg.model_path) / "best_metric_model.ckpt"
+        t = time.perf_counter()
+        torch.save(reference_state_dict(trained), pth)
+        convert_checkpoint.main([str(pth), str(dst)])
+        seconds["reference .pth + convert_checkpoint"] = (
+            time.perf_counter() - t)
+        back = load_checkpoint(str(dst))
+        want = trained.state_dict()
+        if (back["epoch"] != -1 or sorted(back["model"]) != sorted(want)
+                or not all(torch.equal(back["model"][k], want[k].cpu())
+                           for k in want)):
+            raise AssertionError("the converted checkpoint differs from "
+                                 "the trained weights")
+        log("  the trained weights, written as a reference .pth and "
+            "converted, read back bit-equal")
+
+        counts = dict(train_counts)
+        runs = {}
+        for name in ("trained", "converted"):
+            torch.cuda.synchronize()
+            reset_counts()
+            t = time.perf_counter()
+            dsc, secs = inference.main(argv(name), make_figures=figs)
+            torch.cuda.synchronize()
+            seconds[f"cli.inference ({name})"] = time.perf_counter() - t
+            got = read_counts()
+            forwards = len(PIPE_CASES)      # one 8-window batch a volume
+            check_counts(got, {
+                **{k: n * forwards for k, n in {**EVAL_RU,
+                                                **EVAL_L2}.items()},
+                "conv333": EVAL_CONV333 * forwards,
+                "blend_scatter": forwards, "conv333_dw": 0, **NO_KD1},
+                f"pipeline inference ({name})")
+            counts = {k: counts[k] + got[k] for k in counts}
+            runs[name] = (parse_cli(argv(name)), dsc, secs)
+            log(f"  inference from the {name} checkpoint: Dice "
+                f"{dsc.tolist()}, compute s/volume {secs!r}")
+
+        exports = []
+        for n in PIPE_CASES:
+            label = data / "input_data" / f"vs_gk_{n}" / "vs_gk_seg_refT2.nii.gz"
+            ref = nifti.load(str(label))
+            outs = []
+            for name, (c, _, _) in runs.items():
+                p = (Path(c.results_folder_path)
+                     / "inferred_segmentations_nifti" / f"vs_gk_{n}"
+                     / label.name)
+                exports.append(p)
+                o = nifti.load(str(p))
+                if o.data.shape != ref.data.shape or not np.allclose(
+                        o.affine, ref.affine):
+                    raise AssertionError(
+                        f"vs_gk_{n} ({name}): export {o.data.shape} "
+                        f"{o.affine.tolist()} vs original "
+                        f"{ref.data.shape} {ref.affine.tolist()}")
+                if not set(np.unique(o.data)) <= {0.0, 1.0}:
+                    raise AssertionError(f"vs_gk_{n}: labels "
+                                         f"{np.unique(o.data)}")
+                outs.append(o.data)
+            if not np.array_equal(outs[0], outs[1]):
+                raise AssertionError(f"vs_gk_{n}: the two checkpoints' "
+                                     f"labelmaps differ")
+        log(f"  labelmaps exported on the original affine and shape "
+            f"{ref.data.shape}, equal from both checkpoints")
+
+        seconds[f"bids, {len(PIPE_BIDS_CASES)} cases beside the rest"] = (
+            finish("bids"))
+    finally:
+        for proc, *_ in procs.values():
+            proc.kill()
+            proc.wait()
+    if not (root / "bids" / "participants.tsv").is_file():
+        raise AssertionError("bids wrote no dataset")
+
+    written = (sorted((data / "input_data").rglob("*.nii.gz"))
+               + sorted((root / "bids").rglob("*.nii.gz")) + exports)
+    rate = timed("decode check", nifti_decode_check, written, card)
+    jax_mods = sorted(m for m in sys.modules
+                      if m.split(".")[0] in ("jax", "jaxlib", "vs_seg_tpu"))
+    if jax_mods:
+        raise AssertionError(f"the pipeline imported {jax_mods[:8]}")
+    wall = time.perf_counter() - wall0
+    log(f"pipeline stage seconds {seconds!r}; wall {wall:.1f} s on {card}")
+    return counts, seconds, rate
+
+
 def main() -> int:
     import torch
 
@@ -3881,9 +4268,15 @@ def main() -> int:
           "(gloo): the DP step vs one process, ms/step, the CLI under "
           "torchrun")
     dp_counts = dp_run(dev, card)
+    phase("phase 19: the reference pipeline from a synthetic TCIA DICOM "
+          "download to labelmaps (preprocessing CLI, cli.train, the "
+          "checkpoint converter, cli.inference)")
+    pipe_counts, _, _ = pipeline_run(dev, card)
+    phase("phases done")
     counts = {k: infer_counts[k] + train_counts[k] + route_counts[k]
               + cli_counts[k] + tcli_counts[k] + zoo_counts[k]
-              + shard_counts[k] + dp_counts[k] for k in infer_counts}
+              + shard_counts[k] + dp_counts[k] + pipe_counts[k]
+              for k in infer_counts}
     for k, r in rec.items():
         lib = "-" if r["library_ms"] is None else f"{r['library_ms']:.3f}"
         ms, by, moved, f16, f32 = r["bound"]

@@ -2,9 +2,11 @@
 
 The JAX package `vs_seg_tpu` stays the reference; this package mirrors its
 layout (`nn/`, `models/`, `ops/`, `infer/`, `train/`, `data/`, `eval/`,
-`core/`, `compat/`) so each counterpart sits under the same path, and
-`cli/inference.py` is the counterpart of VS_inference.py. It imports torch,
-numpy and scipy only, never jax, flax, msgpack or vs_seg_tpu.
+`core/`, `compat/`, `native/`, `preprocessing/`) so each counterpart sits
+under the same path; `cli/inference.py` and `cli/train.py` are the
+counterparts of VS_inference.py and VS_train.py, `cli/vs_pipeline.sh` of
+vs_pipeline.sh. It imports torch, numpy and scipy only, never jax, flax,
+msgpack or vs_seg_tpu.
 
 Conventions shared with the JAX package:
   - activations are (N, D, H, W, C), depth adjacent to batch;

@@ -10,9 +10,11 @@
                     (MONAI NiftiSaver), nearest-neighbour resampled with
                     scipy when reorientation alone does not reach it
 
-Bytes are read with gzip and numpy. The JAX package's C++ decoder
-(vs_seg_tpu/native/) computes the same values and is host-side work for a
-later change (ROADMAP, Queue 1 item 9).
+Reading a file, inflating it and converting its voxels to float32 with the
+scl scaling go through the native C++ decoder (native/decoder.py), with the
+GIL released, so that threaded loader workers decode in parallel. Where it
+cannot build, the decoder's plain gzip and numpy twins give the same bytes
+and values.
 """
 
 from __future__ import annotations
@@ -25,18 +27,10 @@ from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
-# NIFTI-1 datatype codes <-> numpy dtypes.
-_CODE_TO_DTYPE = {
-    2: np.dtype(np.uint8),
-    4: np.dtype(np.int16),
-    8: np.dtype(np.int32),
-    16: np.dtype(np.float32),
-    64: np.dtype(np.float64),
-    256: np.dtype(np.int8),
-    512: np.dtype(np.uint16),
-    768: np.dtype(np.uint32),
-    1024: np.dtype(np.int64),
-}
+from vs_seg_tpu_torch.native import decoder as _native
+
+# NIFTI-1 datatype codes <-> numpy dtypes (every one converted natively).
+_CODE_TO_DTYPE = _native.DTYPES
 _DTYPE_TO_CODE = {v: k for k, v in _CODE_TO_DTYPE.items()}
 
 _HDR_SIZE = 352  # 348-byte header + 4 pad; the vox_offset written
@@ -49,9 +43,8 @@ class NiftiImage:
 
 
 def _read_bytes(path: str) -> bytes:
-    opener = gzip.open if path.endswith(".gz") else open
-    with opener(path, "rb") as f:
-        return f.read()
+    raw = _native.read_file_bytes(path)
+    return raw if raw is not None else _native.read_file_bytes_plain(path)
 
 
 def _quaternion_affine(hdr: bytes) -> np.ndarray:
@@ -111,17 +104,20 @@ def load(path: str, dtype=np.float32) -> NiftiImage:
     disk_dtype = _CODE_TO_DTYPE[datatype]
     count = int(np.prod(shape)) if shape else 0
     payload = raw[int(vox_offset):int(vox_offset) + count * disk_dtype.itemsize]
-    flat = np.frombuffer(payload, dtype=disk_dtype, count=count)
 
     if dtype is None:
+        flat = np.frombuffer(payload, dtype=disk_dtype, count=count)
         return NiftiImage(flat.reshape(shape, order="F").copy(), affine)
 
     # nibabel semantics: a non-finite or zero scl_slope means "no scaling"
     use_scl = np.isfinite(slope) and slope != 0.0 and np.isfinite(inter)
     eff_slope = slope if use_scl else 1.0
     eff_inter = inter if use_scl else 0.0
-    flat = (flat.astype(np.float32) * np.float32(eff_slope)
-            + np.float32(eff_inter))
+    flat = _native.convert_to_float32(payload, count, datatype, eff_slope,
+                                      eff_inter)
+    if flat is None:
+        flat = _native.convert_to_float32_plain(payload, count, datatype,
+                                                eff_slope, eff_inter)
     arr = flat.reshape(shape, order="F").astype(dtype, copy=False)
     return NiftiImage(arr, affine)
 

@@ -12,6 +12,13 @@ one is reused. It is loaded with ctypes; every C launcher returns the value
 of cudaGetLastError() after its launch, and the Python wrappers raise on a
 non-zero value. Importing this module builds nothing; a failed build raises.
 
+Host code takes the same path: `load(name, src)` with a C++ source (`.cc`)
+compiles it with the host's g++ instead,
+
+    g++ -O3 -shared -fPIC <src> -lz -o build/vs_seg_tpu_torch/lib<name>_<hash>.so
+
+(native/decoder.py builds the NIFTI decoder so).
+
 The wrappers may be called from several threads at once (the shards of
 parallel/collectives.py:run_spmd): `load` builds and loads under one lock,
 `bind` sets a launcher's argument types under it, and `count` adds to the
@@ -27,12 +34,16 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "vs_seg_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
+# A host source's flags and libraries, those of vs_seg_tpu/native/decoder.py:
+# no -march=native and no -ffast-math, so that no multiply-add is contracted.
+GXX_FLAGS = ("-O3", "-shared", "-fPIC")
+GXX_LIBS = ("-lz",)
 
 _LOCK = threading.Lock()
 _COUNT_LOCK = threading.Lock()
@@ -59,50 +70,68 @@ def find_nvcc() -> str:
                        "built")
 
 
-def _sources(name: str):
-    src = CSRC / f"{name}.cu"
+def _source(name: str, src: Optional[Path]) -> Path:
+    return CSRC / f"{name}.cu" if src is None else Path(src)
+
+
+def _cuda(src: Path) -> bool:
+    return src.suffix == ".cu"
+
+
+def _sources(src: Path):
     if not src.is_file():
         raise FileNotFoundError(src)
-    return [src] + sorted(CSRC.glob("*.cuh"))
+    return [src] + sorted(src.parent.glob("*.cuh" if _cuda(src) else "*.h"))
 
 
-def library_path(name: str) -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in _sources(name):
+def _command(src: Path, out: Path):
+    if _cuda(src):
+        return [find_nvcc(), *NVCC_FLAGS, "-I", str(src.parent), "-o",
+                str(out), str(src)]
+    return ["g++", *GXX_FLAGS, str(src), *GXX_LIBS, "-o", str(out)]
+
+
+def library_path(name: str, src: Optional[Path] = None) -> Path:
+    src = _source(name, src)
+    flags = NVCC_FLAGS if _cuda(src) else GXX_FLAGS + GXX_LIBS
+    h = hashlib.sha256(" ".join(flags).encode())
+    for p in _sources(src):
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
-def build(name: str) -> Path:
-    """Compile csrc/<name>.cu unless the hashed library already exists."""
+def build(name: str, src: Optional[Path] = None) -> Path:
+    """Compile `src` (default csrc/<name>.cu) unless the hashed library
+    already exists; a failed compile raises RuntimeError with its output."""
     import time
 
-    out = library_path(name)
+    src = _source(name, src)
+    out = library_path(name, src)
     if out.is_file():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-           str(CSRC / f"{name}.cu")]
+    cmd = _command(src, tmp)
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     BUILD_SECONDS[name] = time.perf_counter() - t0
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed for {name}.cu (exit "
+        raise RuntimeError(f"{Path(cmd[0]).name} failed for {src.name} (exit "
                            f"{proc.returncode}):\n{' '.join(cmd)}\n"
                            f"{proc.stdout}\n{proc.stderr}")
     os.replace(tmp, out)
     return out
 
 
-def load(name: str) -> ctypes.CDLL:
-    """Build (if needed) and load csrc/<name>.cu; cached per process."""
+def load(name: str, src: Optional[Path] = None) -> ctypes.CDLL:
+    """Build (if needed) and load `src` (default csrc/<name>.cu); cached per
+    process under `name`."""
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
-            lib = ctypes.CDLL(str(build(name)))
+            lib = ctypes.CDLL(str(build(name, src)))
             _LIBS[name] = lib
         return lib
 

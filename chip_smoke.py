@@ -204,6 +204,15 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
      from both checkpoints; every NIFTI the pipeline wrote decoded by the
      native reader bit-equal to the gzip and numpy twin, with the decode
      MB/s of each; each stage's seconds.
+ 20. No timed run: the conv FLOP of a 384x384x64 window of UNet2d5_spvPA
+     (counted after phase 3 and again after phase 8's configurations A,
+     B and C, required equal), UNet2d5 and UNet
+     (vs_seg_tpu_torch/eval/flops.py, on a meta copy; each model's state
+     bit-equal on the card after it); TFLOP/s and MFU against
+     H100_PEAK_BF16 of every ms/volume phases 3, 8 and 16 measured (a
+     JSON line {"mfu": ...}); and the bf16 and f32 FLOP each kernel
+     record's bound received at its site beside the count of the conv
+     modules it covers (BOUND_SITES; the bf16 FLOP required equal).
 
 The kernels are built in parallel, one nvcc per source. Every kernel record
 carries its time, its plain twin's, the time of one library call computing
@@ -270,8 +279,8 @@ TRAIN_SITES = 25
 EVAL_CONV333 = 3
 EVAL_RU = {"ru_block": 4, "ru_unit": 4}
 EVAL_L2 = {"l2_block": 3, "att_map": 3, "conv333_gated": 3, "attgate": 0}
-# Published H100 SXM peaks (dense) for the kernels' bounds.
-PEAK_BF16 = 989e12       # FLOP/s, tensor cores
+# Published H100 SXM peaks (dense) for the kernels' bounds; the bf16 tensor
+# core peak is vs_seg_tpu_torch/eval/flops.py:H100_PEAK_BF16 (989 TFLOP/s).
 PEAK_F32 = 67e12         # FLOP/s, CUDA cores
 HBM_RATE = 3.35e12       # bytes/s
 SHARDS = (1, 2, 4)       # phase 17's meshes: (cuda:0,) * n
@@ -318,8 +327,9 @@ def bound(moved: int, bf16_flop: float = 0.0, f32_flop: float = 0.0):
     """(bound_ms, bound_by, bytes, bf16 FLOP, f32 FLOP): the larger of
     `moved` bytes over the HBM rate and the operations over the peak rate
     for their type."""
+    from vs_seg_tpu_torch.eval.flops import H100_PEAK_BF16
     t_bytes = moved / HBM_RATE
-    t_ops = bf16_flop / PEAK_BF16 + f32_flop / PEAK_F32
+    t_ops = bf16_flop / H100_PEAK_BF16 + f32_flop / PEAK_F32
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations", moved, bf16_flop,
             f32_flop)
@@ -592,7 +602,7 @@ def volume_paths(model, staged, routes, expect, card: str, tag: str):
     through the plain path (turns plain, kernel, kernel, plain; the
     counters reset just before the first kernel turn, read just after):
     logits in the bf16 band and by argmax agreement. Returns (counts, the
-    kernel path's logits)."""
+    kernel path's logits, (kernel ms/volume, plain ms/volume))."""
     import torch
 
     from vs_seg_tpu_torch.infer.engine import make_predictor
@@ -638,11 +648,13 @@ def volume_paths(model, staged, routes, expect, card: str, tag: str):
     p_ms = sum(times[False]) / 2
     log(f"  {tag}: kernel path {k_ms:.1f} ms/volume {times[True]}, plain "
         f"path {p_ms:.1f} ms/volume {times[False]} on {card}")
-    return counts, ko
+    return counts, ko, (k_ms, p_ms)
 
 
 def model_run(dev, gen, card: str):
-    """Phase 3-4: the flagship whole-volume path, kernels vs plain."""
+    """Phase 3-4: the flagship whole-volume path, kernels vs plain. Returns
+    (counts, model, staged volume, kernel path's logits, (kernel, plain)
+    ms/volume)."""
     import numpy as np
     import torch
 
@@ -664,12 +676,12 @@ def model_run(dev, gen, card: str):
     # bottom), 3 decoder levels (up_2, up_3, up_4), 1 window batch
     expect = {**EVAL_RU, **EVAL_L2, "conv333": EVAL_CONV333,
               "blend_scatter": 1, "conv333_dw": 0, **NO_KD1}
-    counts, ko = volume_paths(model, staged, Routes(), expect, card,
-                              "inference")
+    counts, ko, ms = volume_paths(model, staged, Routes(), expect, card,
+                                  "inference")
     log(f"staging (host prep + upload) {stage_ms:.1f} ms; card: {card}")
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
         f"GiB on {card}")
-    return counts, model, staged, ko
+    return counts, model, staged, ko, ms
 
 
 def train_kernel_checks(dev, gen, card: str):
@@ -1675,7 +1687,8 @@ def level_times(model, x, routes):
 
 
 def routes_run(dev, gen, card: str, model, staged, default_logits):
-    """Phase 8: the phase-3 volume under route configurations A, B and C."""
+    """Phase 8: the phase-3 volume under route configurations A, B and C.
+    Returns (summed launch counts, {name: (kernel, plain) ms/volume})."""
     import torch
 
     from vs_seg_tpu_torch.core.config import Routes
@@ -1702,7 +1715,7 @@ def routes_run(dev, gen, card: str, model, staged, default_logits):
                    fused_attention_gate=0, conv333=EVAL_CONV333,
                    ds_conv=3)),
     }
-    total = {}
+    total, vol_ms = {}, {}
     for name, (routes, expect) in configs.items():
         log(f"  configuration {name}: {routes}")
 
@@ -1749,6 +1762,8 @@ def routes_run(dev, gen, card: str, model, staged, default_logits):
             log(f"configuration {name}, "
                 f"{'kernel' if use_kernels else 'plain'} path: "
                 f"{sum(ts) / len(ts):.1f} ms/volume {ts} on {card}")
+        vol_ms[name] = tuple(sum(times[k]) / len(times[k])
+                             for k in (True, False))
         total = {k: total.get(k, 0) + n for k, n in counts.items()}
         del ko, po, outs
 
@@ -1761,7 +1776,7 @@ def routes_run(dev, gen, card: str, model, staged, default_logits):
         lv = level_times(model, x, routes)
         log(f"  per-level ms of one 8-window forward, routes {name}: "
             f"{lv} (sum {sum(lv.values())!r}) on {card}")
-    return total
+    return total, vol_ms
 
 
 def graph_ms(fn, reps: int = REPS) -> float:
@@ -3202,8 +3217,8 @@ def zoo_run(dev, card: str):
     """Phase 16: UNet2d5 and UNet on the phase-3 volume (default routes,
     and UNet under dsconv too), one full-width train step of each, the
     flagship's train step with and without --remat, and the blend's
-    constant map and sigma_scale. Returns the summed launch counts of
-    the counted runs."""
+    constant map and sigma_scale. Returns (the summed launch counts of
+    the counted runs, {tag: (kernel, plain) ms/volume})."""
     import numpy as np
     import torch
 
@@ -3215,7 +3230,7 @@ def zoo_run(dev, card: str):
         np.float32)
     staged = stage_volume(volume, ROI, device=dev, overlap=0.25,
                           sw_batch_size=SW_BATCH, quantize=True)
-    total = []
+    total, vol_ms = [], {}
     for name, routes in (("UNet2d5", [Routes()]),
                          ("UNet", [Routes(), Routes(dsconv=True)])):
         gen = torch.Generator().manual_seed(SEED)
@@ -3224,7 +3239,8 @@ def zoo_run(dev, card: str):
         for r in routes:
             expect = dict(ZOO_EVAL[name], ds_conv=3 if r.dsconv else 0)
             tag = f"{name} ({'dsconv' if r.dsconv else 'default routes'})"
-            counts, _ = volume_paths(model, staged, r, expect, card, tag)
+            counts, _, vol_ms[tag] = volume_paths(model, staged, r, expect,
+                                                  card, tag)
             total.append(counts)
         del model
         torch.cuda.empty_cache()
@@ -3236,7 +3252,7 @@ def zoo_run(dev, card: str):
     total.append(counts)
     torch.cuda.empty_cache()
     blend_options(dev, card)
-    return {k: sum(c[k] for c in total) for k in total[0]}
+    return {k: sum(c[k] for c in total) for k in total[0]}, vol_ms
 
 
 def shard_expect(forwards: int, blends: int, **extra) -> dict:
@@ -4185,6 +4201,129 @@ def pipeline_run(dev, card: str):
     return counts, seconds, rate
 
 
+def window_flops(model) -> int:
+    """eval/flops.py:forward_conv_flops of `model` at one ROI window; raises
+    unless the model's state is where it was and bit-equal after it."""
+    import torch
+
+    from vs_seg_tpu_torch.eval.flops import forward_conv_flops
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    t = time.perf_counter()
+    flop = forward_conv_flops(model, (1, ROI[2], ROI[0], ROI[1], 1))
+    secs = time.perf_counter() - t
+    after = model.state_dict()
+    if sorted(after) != sorted(before) or not all(
+            after[k].device == v.device and torch.equal(after[k], v)
+            for k, v in before.items()):
+        raise AssertionError("forward_conv_flops changed the model")
+    log(f"  {type(model).__name__}: {flop} conv FLOP a window, counted in "
+        f"{secs:.2f} s; the model's state bit-equal and on "
+        f"{next(model.parameters()).device}")
+    return flop
+
+
+# Phase 20: the flagship's conv modules behind each kernel record's bound
+# at its phase 2, 7 or 9 site: (the bound's bf16 FLOP, its f32 FLOP).
+# l2_block's, l2_block2d's and tail_block's bounds count the attention
+# conv2 (C -> 1) as f32 work, beside the gate's elementwise operations
+# (4 a gated channel and voxel).
+BOUND_SITES = {
+    "conv333": (("down_2.unit0.conv",), ()),
+    "ru_block": (("down_2.unit0.conv", "down_2.unit1.conv",
+                  "down_2.residual"), ()),
+    "l2_block": (("upatt_2.conv1.conv", "up_2.unit0.conv", "up_2.residual"),
+                 ("upatt_2.conv2.conv",)),
+    "ds_conv": (("downsample_2.conv",), ()),
+    "ru_block2d": (("down_0.unit0.conv", "down_0.unit1.conv",
+                    "down_0.residual"), ()),
+    "l2_block2d": (("upatt_0.conv1.conv", "up_0.unit0.conv",
+                    "up_0.residual"), ("upatt_0.conv2.conv",)),
+    "tail_block": (("up_1.unit0.conv", "up_1.residual"),
+                   ("upatt_1.conv2.conv",)),
+}
+# phase 20's whole-volume rows: ms/volume tag -> (label, model)
+MFU_ROWS = {
+    "inference": ("flagship, default routes", "UNet2d5_spvPA"),
+    "configuration A": ("flagship, configuration A", "UNet2d5_spvPA"),
+    "configuration B": ("flagship, configuration B", "UNet2d5_spvPA"),
+    "configuration C": ("flagship, configuration C", "UNet2d5_spvPA"),
+    "UNet2d5 (default routes)": ("UNet2d5, default routes", "UNet2d5"),
+    "UNet (default routes)": ("UNet, default routes", "UNet"),
+    "UNet (dsconv)": ("UNet, dsconv", "UNet"),
+}
+
+
+def flops_run(dev, card: str, rec, flagship, volume_ms):
+    """Phase 20 (no timed run): the conv FLOP count of a window of each
+    model (eval/flops.py); the flagship's again after configurations A, B
+    and C, required unchanged; TFLOP/s and MFU against H100_PEAK_BF16 of
+    every ms/volume phases 3, 8 and 16 measured (`volume_ms`: tag ->
+    (kernel, plain)); and the bf16 FLOP each kernel record's bound
+    received beside the conv modules it covers."""
+    import torch
+
+    from vs_seg_tpu_torch.core.config import Config
+    from vs_seg_tpu_torch.eval.flops import H100_PEAK_BF16
+    from vs_seg_tpu_torch.infer.sliding_window import dense_patch_starts
+    from vs_seg_tpu_torch.models import build_model
+
+    window = {"UNet2d5_spvPA": flagship["before"]}
+    for name in ("UNet2d5", "UNet"):
+        model = build_model(Config(model=name), device=dev,
+                            generator=torch.Generator().manual_seed(SEED))
+        window[name] = window_flops(model)
+        del model
+    for name, flop in window.items():
+        log(f"  {name}: {flop} conv FLOP a {ROI[0]}x{ROI[1]}x{ROI[2]} "
+            f"window on {card}")
+    if flagship["after"] != flagship["before"]:
+        raise AssertionError(
+            f"the flagship's count moved after configurations A, B and C: "
+            f"{flagship['before']} -> {flagship['after']}")
+    log(f"  UNet2d5_spvPA after configurations A, B and C: "
+        f"{flagship['after']} conv FLOP a window, unchanged")
+
+    n_win = len(dense_patch_starts((VOLUME[2], VOLUME[0], VOLUME[1]),
+                                   (ROI[2], ROI[0], ROI[1]), 0.25))
+    missing = sorted(set(MFU_ROWS) - set(volume_ms))
+    if missing:
+        raise AssertionError(f"no ms/volume recorded for {missing}")
+    rows = {}
+    for tag, (label, name) in MFU_ROWS.items():
+        flop = window[name] * n_win
+        row = {"model": name, "tflop_per_volume": flop / 1e12}
+        for path, ms in zip(("kernel", "plain"), volume_ms[tag]):
+            tflops = flop / ms / 1e9
+            row[path] = {"ms_per_volume": ms, "tflops": tflops,
+                         "mfu": tflops * 1e12 / H100_PEAK_BF16}
+        rows[label] = row
+        k, p = row["kernel"], row["plain"]
+        log(f"  {label}: {flop / 1e12:.4f} TFLOP a volume ({n_win} "
+            f"windows); kernel path {k['ms_per_volume']:.1f} ms/volume, "
+            f"{k['tflops']:.2f} TFLOP/s, MFU {k['mfu']:.4f}; plain path "
+            f"{p['ms_per_volume']:.1f} ms/volume, {p['tflops']:.2f} TFLOP/s, "
+            f"MFU {p['mfu']:.4f} (peak {H100_PEAK_BF16 / 1e12:.0f} TFLOP/s "
+            f"bf16) on {card}")
+    print(json.dumps({"mfu": rows, "card": card}), flush=True)
+
+    by_module = {}
+    for name, flop in flagship["by_module"]:
+        by_module[name] = by_module.get(name, 0) + flop
+    for k, (bf16_mods, f32_mods) in BOUND_SITES.items():
+        _, _, _, f16, f32 = rec[k]["bound"]
+        conv16 = sum(by_module[m] for m in bf16_mods)
+        conv32 = sum(by_module[m] for m in f32_mods)
+        log(f"  {k} bound at {rec[k]['shape']}: {f16:.0f} FLOP bf16, "
+            f"{f32:.0f} f32; eval/flops.py over {SW_BATCH} windows: "
+            f"{' + '.join(bf16_mods)} = {conv16}"
+            + (f", {' + '.join(f32_mods)} = {conv32} (in the bound's f32, "
+               f"the rest {f32 - conv32:.0f} the gate's)" if f32_mods
+               else ""))
+        if f16 != conv16 or f32 < conv32:
+            raise AssertionError(f"{k}: the bound's conv FLOP differ from "
+                                 f"the modules' count")
+
+
 def main() -> int:
     import torch
 
@@ -4198,6 +4337,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(REPO))
     from vs_seg_tpu_torch.core.device import resolve_device
+    from vs_seg_tpu_torch.eval.flops import conv_flops_by_module
     from vs_seg_tpu_torch.ops import _build
 
     # plain float32 convs/matmuls in full f32 (cuDNN would use TF32)
@@ -4226,7 +4366,10 @@ def main() -> int:
     phase("phase 2: kernels vs plain twins at flagship shapes")
     rec = kernel_checks(dev, gen, card)
     phase("phase 3: flagship whole-volume inference")
-    infer_counts, model, staged, default_logits = model_run(dev, gen, card)
+    infer_counts, model, staged, default_logits, ms = model_run(dev, gen,
+                                                                card)
+    volume_ms = {"inference": ms}
+    flagship = {"before": window_flops(model)}
     phase("phase 5: training kernels vs plain twins")
     rec.update(train_kernel_checks(dev, gen, card))
     phase("phase 6: flagship training at full width")
@@ -4235,7 +4378,12 @@ def main() -> int:
     rec.update(kd1_kernel_checks(dev, gen, card))
     phase("phase 8: flagship whole-volume inference under route "
           "configurations A, B and C")
-    route_counts = routes_run(dev, gen, card, model, staged, default_logits)
+    route_counts, ms = routes_run(dev, gen, card, model, staged,
+                                  default_logits)
+    volume_ms.update({f"configuration {k}": v for k, v in ms.items()})
+    flagship["after"] = window_flops(model)
+    flagship["by_module"] = conv_flops_by_module(
+        model, (SW_BATCH, ROI[2], ROI[0], ROI[1], 1))
     del staged
     default_logits = default_logits.cpu()    # held for phase 17
     phase("phase 9: ds_conv vs its plain twin at the flagship's downsample "
@@ -4258,7 +4406,8 @@ def main() -> int:
     tcli_counts = train_cli_run(dev, card)
     phase("phase 16: UNet2d5 and UNet (inference and a train step), the "
           "flagship with and without --remat, the blend's options")
-    zoo_counts = zoo_run(dev, card)
+    zoo_counts, ms = zoo_run(dev, card)
+    volume_ms.update(ms)
     phase("phase 17: window-sharded and H-sharded inference on meshes "
           "that repeat cuda:0, and the CLI's two flags")
     shard_counts = multi_shard_run(dev, card, model, default_logits,
@@ -4272,6 +4421,10 @@ def main() -> int:
           "download to labelmaps (preprocessing CLI, cli.train, the "
           "checkpoint converter, cli.inference)")
     pipe_counts, _, _ = pipeline_run(dev, card)
+    phase("phase 20: conv FLOP a window of each model, unchanged after "
+          "configurations A, B and C; TFLOP/s and MFU of phases 3, 8 and "
+          "16's ms/volume; the kernel bounds' FLOP beside the count")
+    flops_run(dev, card, rec, flagship, volume_ms)
     phase("phases done")
     counts = {k: infer_counts[k] + train_counts[k] + route_counts[k]
               + cli_counts[k] + tcli_counts[k] + zoo_counts[k]

@@ -271,7 +271,8 @@ PORT_MODULES = sorted(
                                    .with_suffix("").parts)
     for d in ("native", "preprocessing")
     for p in (REPO / "vs_seg_tpu_torch" / d).glob("*.py")
-) + ["vs_seg_tpu_torch.compat.convert_checkpoint"]
+) + ["vs_seg_tpu_torch.compat.convert_checkpoint",
+     "vs_seg_tpu_torch.core.observability", "vs_seg_tpu_torch.eval.flops"]
 
 
 @pytest.mark.parametrize("module", PORT_MODULES)

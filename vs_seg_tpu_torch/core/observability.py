@@ -1,15 +1,21 @@
-"""Observability: what the port uses of vs_seg_tpu/core/observability.py.
+"""Observability: the counterpart of vs_seg_tpu/core/observability.py.
 
   - `start_trace`: a torch.profiler trace (CPU and, on a card, CUDA
     activities) written into a directory as a Chrome trace that
     TensorBoard's profiler plugin and Perfetto read
+  - `profile_trace`: the same as a context manager (JAX's over
+    jax.profiler)
+  - `StepTimer`: per-step wall timing with EMA + ETA logging
   - `make_image_grid`: torchvision.make_grid equivalent (numpy) for the
     debug-mode TensorBoard image grid (reference params/VSparams.py:417-426)
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+import contextlib
+import logging
+import time
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -26,6 +32,58 @@ def start_trace(log_dir: str, device=None) -> torch.profiler.profile:
         on_trace_ready=torch.profiler.tensorboard_trace_handler(log_dir))
     prof.start()
     return prof
+
+
+@contextlib.contextmanager
+def profile_trace(log_dir: str, enabled: bool = True, device=None):
+    """Trace the body with start_trace into `log_dir`; the trace is written
+    on exit. Yields the profiler, or None (and traces nothing) when not
+    `enabled`."""
+    if not enabled:
+        yield None
+        return
+    prof = start_trace(log_dir, device)
+    try:
+        yield prof
+    finally:
+        prof.stop()
+
+
+class StepTimer:
+    """EMA step timer with ETA estimation."""
+
+    def __init__(self, total_steps: Optional[int] = None, ema: float = 0.9):
+        self.total_steps = total_steps
+        self.ema = ema
+        self.avg = None
+        self.count = 0
+        self._last = None
+
+    def start(self):
+        self._last = time.perf_counter()
+
+    def stop(self) -> float:
+        dt = time.perf_counter() - self._last
+        self.avg = (dt if self.avg is None
+                    else self.ema * self.avg + (1 - self.ema) * dt)
+        self.count += 1
+        return dt
+
+    @property
+    def steps_per_sec(self) -> float:
+        return 1.0 / self.avg if self.avg else 0.0
+
+    def eta_seconds(self) -> Optional[float]:
+        if self.total_steps is None or not self.avg:
+            return None
+        return (self.total_steps - self.count) * self.avg
+
+    def log(self, logger: logging.Logger, prefix: str = ""):
+        msg = f"{prefix}avg_step={self.avg:.3f}s ({self.steps_per_sec:.2f}/s)"
+        eta = self.eta_seconds()
+        if eta is not None:
+            msg += f" eta={eta / 3600:.2f}h"
+        logger.info(msg)
 
 
 def make_image_grid(images: Sequence[np.ndarray], ncols: int = 8,

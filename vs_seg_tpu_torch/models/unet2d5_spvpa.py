@@ -62,7 +62,8 @@ from vs_seg_tpu_torch.core.config import Routes
 from vs_seg_tpu_torch.nn.blocks import (
     AttentionBlock1, Convolution, ResidualUnit, folded_conv_affine,
 )
-from vs_seg_tpu_torch.nn.layers import _triple, block_halo, spatial_shards
+from vs_seg_tpu_torch.nn.layers import (_triple, block_halo, is_unfused,
+                                       spatial_shards)
 from vs_seg_tpu_torch.ops import block2d, halo, l2block, tail2d
 
 
@@ -217,9 +218,11 @@ class UNet2d5_spvPA(nn.Module):
         (3,3,3) levels i > 0 with attention whose output keeps the skip's
         width C (always taken); at the (3,3,1) levels with attention "tail"
         under routes.tail2d(i), else "l2block2d" under routes.l2block2d
-        (vs_seg_tpu/models/unet2d5_spvpa.py:l2block_fusable)."""
+        (vs_seg_tpu/models/unet2d5_spvpa.py:l2block_fusable); None under
+        nn/layers.py:unfused."""
         xa, xb = pair
-        if not self.attention_module or tuple(xa.shape) != tuple(xb.shape):
+        if (not self.attention_module or is_unfused()
+                or tuple(xa.shape) != tuple(xb.shape)):
             return None
         k = self.kernel_sizes[i]
         if k == (3, 3, 3):

@@ -31,7 +31,8 @@ Under nn/layers.py:spatial_sharding (H split over the shards of run_spmd)
 the opt-in routes are off, as JAX gates each of them off there (dsconv,
 rublock2d, att_fuse), and the (3,3,3) units of more than one shard run
 ru_block on the halo-extended block of ops/halo.py:halo_block_input,
-keeping the local rows (vs_seg_tpu/nn/blocks.py:_ru_spatial_halo).
+keeping the local rows (vs_seg_tpu/nn/blocks.py:_ru_spatial_halo). Under
+nn/layers.py:unfused no block takes a fused route or the headfold.
 """
 
 from __future__ import annotations
@@ -45,7 +46,7 @@ from torch import nn
 from vs_seg_tpu_torch.core.config import Routes
 from vs_seg_tpu_torch.nn.layers import (
     BatchNorm, Conv3d, ConvTranspose3d, Dropout, PReLU, _triple, block_halo,
-    conv3d, same_padding, spatial_shards,
+    conv3d, is_unfused, same_padding, spatial_shards,
 )
 from vs_seg_tpu_torch.ops import att as fused_att
 from vs_seg_tpu_torch.ops import block2d, dsconv, halo, rublock
@@ -94,7 +95,7 @@ class Convolution(nn.Module):
         shape gate is not copied)."""
         conv = self.conv
         return (routes.dsconv and not train and not self.conv_only
-                and not spatial_shards()
+                and not spatial_shards() and not is_unfused()
                 and isinstance(conv, Conv3d)
                 and not isinstance(x, (tuple, list))
                 and conv.kernel_size == (3, 3, 3)
@@ -205,10 +206,10 @@ class ResidualUnit(nn.Module):
                 generator: Optional[torch.Generator] = None,
                 routes: Routes = Routes()):
         pair = isinstance(x, (tuple, list))
-        if not train and self._headfold():
+        fused = not train and not is_unfused()
+        if fused and self._headfold():
             return self._headfold_apply(x)
-        if not train and self._rublock(pair, routes,
-                                       0 if pair else x.shape[2]):
+        if fused and self._rublock(pair, routes, 0 if pair else x.shape[2]):
             if self.kernel_size == (3, 3, 3):
                 fn = (rublock.ru_block if use_kernels
                       else rublock.ru_block_plain)
@@ -275,8 +276,8 @@ class AttentionBlock1(nn.Module):
     def forward(self, x, gate: bool = False, use_kernels: bool = True,
                 train: bool = False, routes: Routes = Routes()):
         a1 = self.conv1(x, use_kernels, train)
-        if (gate and not train and routes.att_fuse
-                and not spatial_shards() and isinstance(x, (tuple, list))):
+        if (gate and not train and routes.att_fuse and not spatial_shards()
+                and not is_unfused() and isinstance(x, (tuple, list))):
             # conv2 + sigmoid + gate in one pass (vs_seg_tpu/nn/blocks.py
             # :472-483) on the decoder's pair, each half as wide as a1; the
             # compact map is what the JAX caller keeps. A single input is

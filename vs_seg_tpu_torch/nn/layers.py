@@ -37,6 +37,10 @@ their H halo with the neighbour shards (ops/halo.py) instead of
 zero-padding H, as vs_seg_tpu/nn/layers.py's convs do under its
 spatial_sharding context. The result equals the dense conv's rows of the
 shard.
+
+Under `unfused` (thread-local too) the blocks take no fused route and no
+headfold: every Conv3d and ConvTranspose3d module runs its own conv, which
+is the algebra eval/flops.py counts.
 """
 
 from __future__ import annotations
@@ -81,6 +85,29 @@ def spatial_shards() -> int:
     """The number of shards H is split over in this thread's
     spatial_sharding context, 0 outside one."""
     return getattr(_SPATIAL, "n", 0)
+
+
+_UNFUSED = threading.local()
+
+
+class unfused:
+    """Within (this thread): every eval block computes its own modules one
+    by one, as at train: no fused block route (ru_block, l2_block, the
+    Routes ones) and no headfold, whatever the routes. eval/flops.py counts
+    the model's convs this way."""
+
+    def __enter__(self):
+        self._prev = is_unfused()
+        _UNFUSED.on = True
+        return self
+
+    def __exit__(self, *exc):
+        _UNFUSED.on = self._prev
+        return False
+
+
+def is_unfused() -> bool:
+    return getattr(_UNFUSED, "on", False)
 
 
 def block_halo(local_h: int, chain: int) -> int:

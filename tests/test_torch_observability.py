@@ -1,10 +1,6 @@
 """The port's core/observability.py against vs_seg_tpu/core/observability.py,
-on the CPU: StepTimer on the same step times (time.perf_counter patched,
-so both read one sequence), profile_trace disabled and enabled, and
-make_image_grid; the same cases as tests/test_observability.py."""
-
-import logging
-import time
+on the CPU: profile_trace disabled and enabled, and make_image_grid; the
+spans are tests/test_torch_spans.py's."""
 
 import numpy as np
 import pytest
@@ -12,57 +8,6 @@ import torch
 
 from vs_seg_tpu.core import observability as jobs
 from vs_seg_tpu_torch.core import observability as tobs
-
-# perf_counter readings, a (start, stop) pair per step
-CLOCKS = {
-    "even": [0.0, 0.5, 1.0, 1.5, 2.0, 2.5],
-    "uneven": [10.0, 10.25, 11.0, 13.0, 13.5, 13.625, 20.0, 20.001],
-}
-
-
-def _run(module, monkeypatch, readings, total_steps, caplog):
-    clock = iter(readings)
-    monkeypatch.setattr(time, "perf_counter", lambda: next(clock))
-    t = module.StepTimer(total_steps=total_steps)
-    dts = []
-    for _ in range(len(readings) // 2):
-        t.start()
-        dts.append(t.stop())
-    caplog.clear()
-    with caplog.at_level(logging.INFO, logger="steptimer"):
-        t.log(logging.getLogger("steptimer"), prefix="epoch 1 ")
-    return (dts, t.avg, t.count, t.steps_per_sec, t.eta_seconds(),
-            [r.getMessage() for r in caplog.records])
-
-
-@pytest.mark.parametrize("total_steps", [None, 12, 3])
-@pytest.mark.parametrize("clock", list(CLOCKS))
-def test_step_timer_matches_jax(monkeypatch, caplog, clock, total_steps):
-    got = _run(tobs, monkeypatch, CLOCKS[clock], total_steps, caplog)
-    ref = _run(jobs, monkeypatch, CLOCKS[clock], total_steps, caplog)
-    assert got == ref
-    assert len(got[5]) == 1 and got[5][0].startswith("epoch 1 avg_step=")
-    assert (got[4] is None) == (total_steps is None)
-
-
-def test_step_timer_eta():
-    t = tobs.StepTimer(total_steps=10)
-    for _ in range(3):
-        t.start()
-        time.sleep(0.01)
-        t.stop()
-    assert t.count == 3
-    assert t.avg >= 0.01
-    assert t.steps_per_sec > 0
-    eta = t.eta_seconds()
-    assert eta is not None and eta > 0
-    t.log(logging.getLogger(), prefix="test ")
-
-
-def test_step_timer_before_any_step():
-    for module in (tobs, jobs):
-        t = module.StepTimer(total_steps=5)
-        assert t.steps_per_sec == 0.0 and t.eta_seconds() is None
 
 
 def test_make_image_grid_matches_jax(rng):

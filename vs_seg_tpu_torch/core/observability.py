@@ -5,7 +5,11 @@
     TensorBoard's profiler plugin and Perfetto read
   - `profile_trace`: the same as a context manager (JAX's over
     jax.profiler)
-  - `StepTimer`: per-step wall timing with EMA + ETA logging
+  - `span`: a named range of the program's own work (a
+    torch.profiler.record_function range while a profiler runs, an NVTX
+    range under torch.autograd.profiler.emit_nvtx), counted and timed on
+    the host clock while `recording()`; `spans()` reads the counts and
+    times, `reset()` clears them
   - `make_image_grid`: torchvision.make_grid equivalent (numpy) for the
     debug-mode TensorBoard image grid (reference params/VSparams.py:417-426)
 """
@@ -13,9 +17,9 @@
 from __future__ import annotations
 
 import contextlib
-import logging
+import threading
 import time
-from typing import Optional, Sequence
+from typing import Dict, Sequence
 
 import numpy as np
 import torch
@@ -49,41 +53,103 @@ def profile_trace(log_dir: str, enabled: bool = True, device=None):
         prof.stop()
 
 
-class StepTimer:
-    """EMA step timer with ETA estimation."""
+# The span registry, filled while recording: {name: [count, total ns,
+# max ns]}. A reset starts a new generation; a span counts only in the
+# generation it opened in, so one open across a reset is left out.
+_recording = False
+_lock = threading.Lock()
+_registry: Dict[str, list] = {}
+_generation = 0
+_profiler_enabled = torch._C._autograd._profiler_enabled
 
-    def __init__(self, total_steps: Optional[int] = None, ema: float = 0.9):
-        self.total_steps = total_steps
-        self.ema = ema
-        self.avg = None
-        self.count = 0
-        self._last = None
 
-    def start(self):
-        self._last = time.perf_counter()
+class _NoSpan:
+    """The one context of every span that neither records nor traces."""
 
-    def stop(self) -> float:
-        dt = time.perf_counter() - self._last
-        self.avg = (dt if self.avg is None
-                    else self.ema * self.avg + (1 - self.ema) * dt)
-        self.count += 1
-        return dt
+    __slots__ = ()
 
-    @property
-    def steps_per_sec(self) -> float:
-        return 1.0 / self.avg if self.avg else 0.0
+    def __enter__(self):
+        return None
 
-    def eta_seconds(self) -> Optional[float]:
-        if self.total_steps is None or not self.avg:
-            return None
-        return (self.total_steps - self.count) * self.avg
+    def __exit__(self, *exc):
+        return False
 
-    def log(self, logger: logging.Logger, prefix: str = ""):
-        msg = f"{prefix}avg_step={self.avg:.3f}s ({self.steps_per_sec:.2f}/s)"
-        eta = self.eta_seconds()
-        if eta is not None:
-            msg += f" eta={eta / 3600:.2f}h"
-        logger.info(msg)
+
+_NO_SPAN = _NoSpan()
+
+
+class _Span:
+    __slots__ = ("name", "range", "generation", "t0")
+
+    def __init__(self, name: str):
+        self.name = name
+        self.range = None
+        self.generation = None
+
+    def __enter__(self):
+        if _profiler_enabled():
+            self.range = torch.profiler.record_function(self.name)
+            self.range.__enter__()
+        if _recording:
+            self.generation = _generation
+        self.t0 = time.perf_counter_ns()
+        return None
+
+    def __exit__(self, *exc):
+        ns = time.perf_counter_ns() - self.t0
+        if self.range is not None:
+            self.range.__exit__(*exc)
+        if self.generation is not None:
+            with _lock:
+                if self.generation == _generation:
+                    entry = _registry.get(self.name)
+                    if entry is None:
+                        _registry[self.name] = [1, ns, ns]
+                    else:
+                        entry[0] += 1
+                        entry[1] += ns
+                        entry[2] = max(entry[2], ns)
+        return False
+
+
+def span(name: str):
+    """A context manager around one piece of the program's work. While a
+    profiler runs (torch.profiler.profile, start_trace, emit_nvtx) it is
+    a record_function range named `name` on the device trace's clock;
+    while recording, its host time (time.perf_counter_ns) is added to
+    `name`'s count, total and maximum. Otherwise it is one shared no-op:
+    pass a precomputed name."""
+    if not _recording and not _profiler_enabled():
+        return _NO_SPAN
+    return _Span(name)
+
+
+@contextlib.contextmanager
+def recording():
+    """Add every span closed in the body to the registry (from any
+    thread); the registry is off outside."""
+    global _recording
+    was = _recording
+    _recording = True
+    try:
+        yield
+    finally:
+        _recording = was
+
+
+def spans() -> Dict[str, Dict[str, float]]:
+    """The registry now: {name: {"count", "total_ms", "max_ms"}}."""
+    with _lock:
+        return {name: {"count": c, "total_ms": t / 1e6, "max_ms": m / 1e6}
+                for name, (c, t, m) in _registry.items()}
+
+
+def reset() -> None:
+    """Clear the registry; spans open now are not counted."""
+    global _generation
+    with _lock:
+        _registry.clear()
+        _generation += 1
 
 
 def make_image_grid(images: Sequence[np.ndarray], ncols: int = 8,

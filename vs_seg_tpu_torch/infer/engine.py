@@ -12,6 +12,12 @@ or cfg.spatial_inference builds make_mesh()) each volume runs over all of
 its shards: under spatial_inference one window's H is split over them
 (infer/spatial.py, sw_batch 1), otherwise the windows are
 (infer/sharded.py). A one-device mesh takes the single-device path.
+
+Spans (core/observability.py:span): infer.stage around a case's staging on
+the staging thread; on the engine's thread infer.stage_wait (the wait for
+the staged case), infer.forward_blend (the windowed forward and blend up
+to its synchronise), infer.label_upload, infer.dice, infer.argmax_copy and
+infer.volumetry (both volumes), each once a case.
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ from torch import nn
 
 from vs_seg_tpu_torch.core.config import Routes
 from vs_seg_tpu_torch.core.device import DTYPES, resolve_device
+from vs_seg_tpu_torch.core.observability import span
 from vs_seg_tpu_torch.data import nifti
 from vs_seg_tpu_torch.eval import figures
 from vs_seg_tpu_torch.eval.metrics import dice_score, segmentation_volume_ml
@@ -102,22 +109,23 @@ def run_inference(cfg, model: nn.Module, test_loader, *, device,
     sw_batch = 1 if spatial else cfg.sw_batch_size
 
     def stage(data):
-        image = np.transpose(data["image"][0], (1, 2, 3, 0))  # (H, W, D, C)
-        label = np.transpose(data["label"][0], (1, 2, 3, 0))
-        per_shard = sw_batch
-        if sharded:
-            # the per-shard batch sized to this volume's windows: a fixed
-            # sw_batch_size per shard would fill most shards with masked
-            # padding windows
-            n_win = count_windows(image.shape[:3], roi, cfg.sw_overlap)
-            per_shard = max(1, min(sw_batch, -(-n_win // n_shards)))
-        staged = stage_volume(image, roi, device=device,
-                              overlap=cfg.sw_overlap,
-                              sw_batch_size=(n_shards * per_shard if sharded
-                                             else per_shard),
-                              bucket=cfg.sw_bucket,
-                              transfer_dtype=transfer_dtype,
-                              quantize=quantize)
+        with span("infer.stage"):
+            image = np.transpose(data["image"][0], (1, 2, 3, 0))  # HWDC
+            label = np.transpose(data["label"][0], (1, 2, 3, 0))
+            per_shard = sw_batch
+            if sharded:
+                # the per-shard batch sized to this volume's windows: a
+                # fixed sw_batch_size per shard would fill most shards with
+                # masked padding windows
+                n_win = count_windows(image.shape[:3], roi, cfg.sw_overlap)
+                per_shard = max(1, min(sw_batch, -(-n_win // n_shards)))
+            staged = stage_volume(image, roi, device=device,
+                                  overlap=cfg.sw_overlap,
+                                  sw_batch_size=(n_shards * per_shard
+                                                 if sharded else per_shard),
+                                  bucket=cfg.sw_bucket,
+                                  transfer_dtype=transfer_dtype,
+                                  quantize=quantize)
         return image, label, staged, data, per_shard
 
     pool = ThreadPoolExecutor(1)
@@ -138,34 +146,46 @@ def run_inference(cfg, model: nn.Module, test_loader, *, device,
             if data_next is not None:
                 futures.append(pool.submit(stage, data_next))
             logger.info("starting image %d", i)
-            image, label, staged, data, per_shard = futures.popleft().result()
+            with span("infer.stage_wait"):
+                (image, label, staged, data,
+                 per_shard) = futures.popleft().result()
 
-            t0 = time.perf_counter()
-            if sharded:
-                outputs = sliding_window_inference_sharded(
-                    staged, roi, predictors, mesh, overlap=cfg.sw_overlap,
-                    sw_batch_size=per_shard, use_kernels=use_kernels)
-            else:
-                outputs = sliding_window_inference(
-                    staged, roi, predictor, overlap=cfg.sw_overlap,
-                    sw_batch_size=per_shard, use_kernels=use_kernels)
-            if device.type == "cuda":
-                for dev in set(mesh or (device,)):
-                    torch.cuda.synchronize(dev)
-            times.append(time.perf_counter() - t0)
+            with span("infer.forward_blend"):
+                t0 = time.perf_counter()
+                if sharded:
+                    outputs = sliding_window_inference_sharded(
+                        staged, roi, predictors, mesh,
+                        overlap=cfg.sw_overlap, sw_batch_size=per_shard,
+                        use_kernels=use_kernels)
+                else:
+                    outputs = sliding_window_inference(
+                        staged, roi, predictor, overlap=cfg.sw_overlap,
+                        sw_batch_size=per_shard, use_kernels=use_kernels)
+                if device.type == "cuda":
+                    for dev in set(mesh or (device,)):
+                        torch.cuda.synchronize(dev)
+                times.append(time.perf_counter() - t0)
 
-            label_dev = torch.from_numpy(np.ascontiguousarray(label)).to(
-                device)
-            dice = float(dice_score(outputs[None].float(), label_dev[None]))
+            with span("infer.label_upload"):
+                label_dev = torch.from_numpy(
+                    np.ascontiguousarray(label)).to(device)
+            with span("infer.dice"):
+                dice = float(dice_score(outputs[None].float(),
+                                        label_dev[None]))
             dice_scores[i] = dice
             logger.info("dice_score = %s", dice)
 
             # argmax on the device, moved to the host as uint8
-            pred_argmax = outputs.argmax(-1).to(torch.uint8).cpu().numpy()
+            with span("infer.argmax_copy"):
+                pred_argmax = outputs.argmax(-1).to(
+                    torch.uint8).cpu().numpy()
 
             meta = data["label_meta"][0]
-            pred_ml = segmentation_volume_ml(pred_argmax, meta["affine"])
-            gt_ml = segmentation_volume_ml(label[..., 0], meta["affine"])
+            with span("infer.volumetry"):
+                pred_ml = segmentation_volume_ml(pred_argmax,
+                                                 meta["affine"])
+                gt_ml = segmentation_volume_ml(label[..., 0],
+                                               meta["affine"])
             logger.info("volumetry: predicted = %.3f ml, ground truth = "
                         "%.3f ml", pred_ml, gt_ml)
 

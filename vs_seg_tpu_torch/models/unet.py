@@ -14,10 +14,11 @@ Every kernel is `kernel_size` (3: (3,3,3) even at (2,2,1) strides) and
 `up_kernel_size` for the transpose convs; per-dimension stride tuples pass
 through unchanged. forward(x, use_kernels=True, train=False,
 generator=None, routes=Routes()) takes (N, D, H, W, C) and returns the
-logits (N, D, H, W, out_channels). The blocks dispatch to the kernels as
-nn/blocks.py says: the bottom unit (stride 1, channels changing) to
-ops/rublock.py, and under Routes(dsconv=True) every (3,3,3)
-stride-(2,2,2) unit0 or down Convolution to ops/dsconv.py.
+logits (N, D, H, W, out_channels); each call of a top-level child runs
+under the span model.<child> (core/observability.py:span). The blocks
+dispatch to the kernels as nn/blocks.py says: the bottom unit (stride 1,
+channels changing) to ops/rublock.py, and under Routes(dsconv=True) every
+(3,3,3) stride-(2,2,2) unit0 or down Convolution to ops/dsconv.py.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ import torch
 from torch import nn
 
 from vs_seg_tpu_torch.core.config import Routes
+from vs_seg_tpu_torch.core.observability import span
 from vs_seg_tpu_torch.nn.blocks import Convolution, ResidualUnit
 from vs_seg_tpu_torch.nn.layers import _triple
 
@@ -74,20 +76,27 @@ class UNet(nn.Module):
                     outc, outc, k, subunits=1, last_conv_only=top,
                     **common))
             x_ch = outc
+        self.span_names = {name: f"model.{name}" for name in self._modules}
 
     def forward(self, x, use_kernels: bool = True, train: bool = False,
                 generator: Optional[torch.Generator] = None,
                 routes: Routes = Routes()) -> torch.Tensor:
         kw = dict(use_kernels=use_kernels, train=train, generator=generator,
                   routes=routes)
+        names = self.span_names
+
+        def child(name: str, v):
+            with span(names[name]):
+                return getattr(self, name)(v, **kw)
+
         skips = []
         for i in range(self.n_levels):
-            x = getattr(self, f"down_{i}")(x, **kw)
+            x = child(f"down_{i}", x)
             skips.append(x)
-        x = self.bottom(x, **kw)
+        x = child("bottom", x)
         for i in reversed(range(self.n_levels)):
             x = torch.cat([skips[i], x.to(skips[i].dtype)], dim=-1)
-            x = getattr(self, f"up_{i}")(x, **kw)
+            x = child(f"up_{i}", x)
             if hasattr(self, f"upres_{i}"):
-                x = getattr(self, f"upres_{i}")(x, **kw)
+                x = child(f"upres_{i}", x)
         return x

@@ -3,10 +3,10 @@ alone; the counterpart of vs_seg_tpu/models/unet2d5.py.
 
 It holds UNet2d5_spvPA(attention_module=False) as the submodule `net`, so
 its parameter names carry the `net.` prefix that JAX's `name="net"` gives
-them. Without attention no decoder block route applies
-(UNet2d5_spvPA._block_route): the decoder is the plain pair chain with the
-up_0 headfold, while the encoder units still go to ops/rublock.py and the
-blend to ops/blend.py.
+them; its spans are `net`'s, model.<child> without the prefix. Without
+attention no decoder block route applies (UNet2d5_spvPA._block_route):
+the decoder is the plain pair chain with the up_0 headfold, while the
+encoder units still go to ops/rublock.py and the blend to ops/blend.py.
 """
 
 from __future__ import annotations

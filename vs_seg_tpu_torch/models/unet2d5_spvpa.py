@@ -14,17 +14,20 @@ supervision, mirroring vs_seg_tpu/models/unet2d5_spvpa.py.
 forward(x, use_kernels=True, train=False, generator=None, routes=Routes())
 takes (N, D, H, W, C) and returns (logits (N, D, H, W, out), att_maps), the
 maps coarsest first, each (N, d, h, w, 1); with attention_module=False the
-maps are empty. The constructor's `device` is a required keyword (no CPU
-default). With `remat`, the train forward rematerialises down_i,
-downsample_i, upsample_i and up_i at levels 0-1 in the backward
-(`remat_block`), the blocks vs_seg_tpu's nn.remat covers. Train or eval
-is the explicit `train` argument, as in the JAX package; torch's
-module-level train()/eval() state is not read. At train, BatchNorm uses
-batch statistics (and updates the running ones), Dropout draws from
-`generator` (a torch.Generator on x's device, required when dropout > 0),
-no l2block/rublock/headfold route is taken, and every (3,3,3) stride-1
-conv runs the hand-written backward of ops/train_conv.py (25 conv sites in
-the flagship, pair halves counted separately).
+maps are empty. Each call of a top-level child runs under the span
+model.<child> (core/observability.py:span; `span_names`), a routed
+decoder block under model.up_<i>. The constructor's `device` is a
+required keyword (no CPU default). With `remat`, the train forward
+rematerialises down_i, downsample_i, upsample_i and up_i at levels 0-1 in
+the backward (`remat_block`), the blocks vs_seg_tpu's nn.remat covers.
+Train or eval is the explicit `train` argument, as in the JAX package;
+torch's module-level train()/eval() state is not read. At train,
+BatchNorm uses batch statistics (and updates the running ones), Dropout
+draws from `generator` (a torch.Generator on x's device, required when
+dropout > 0), no l2block/rublock/headfold route is taken, and every
+(3,3,3) stride-1 conv runs the hand-written backward of
+ops/train_conv.py (25 conv sites in the flagship, pair halves counted
+separately).
 
 Eval dispatch to the hand-written kernels (ops/): the two-subunit (3,3,3)
 encoder units go to ops/rublock.py from ResidualUnit; every (3,3,3) decoder
@@ -59,6 +62,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from vs_seg_tpu_torch.core.config import Routes
+from vs_seg_tpu_torch.core.observability import span
 from vs_seg_tpu_torch.nn.blocks import (
     AttentionBlock1, Convolution, ResidualUnit, folded_conv_affine,
 )
@@ -174,18 +178,22 @@ class UNet2d5_spvPA(nn.Module):
             self.add_module(f"up_{i}", ResidualUnit(
                 2 * channels[i], outc, kernel_sizes[i], subunits=1,
                 last_conv_only=(i == 0), **common))
+        self.span_names = {name: f"model.{name}" for name in self._modules}
 
     def forward(self, x, use_kernels: bool = True, train: bool = False,
                 generator: Optional[torch.Generator] = None,
                 routes: Routes = Routes()):
         n = self.n_levels
         kw = dict(use_kernels=use_kernels, train=train, routes=routes)
+        names = self.span_names
 
         def block(name: str, i: int, v, **kwargs):
-            m = getattr(self, f"{name}_{i}")
-            if self.remat and train and i < REMAT_LEVELS:
-                return remat_block(m, v, generator, **kwargs)
-            return m(v, generator=generator, **kwargs)
+            child = f"{name}_{i}"
+            m = getattr(self, child)
+            with span(names[child]):
+                if self.remat and train and i < REMAT_LEVELS:
+                    return remat_block(m, v, generator, **kwargs)
+                return m(v, generator=generator, **kwargs)
 
         skips = []
         for i in range(n):
@@ -194,9 +202,11 @@ class UNet2d5_spvPA(nn.Module):
             x = block("downsample", i, x, **kw)
         att_maps = []
         if self.attention_module:
-            att, x = self.bottom_att(x, gate=True, **kw)
+            with span(names["bottom_att"]):
+                att, x = self.bottom_att(x, gate=True, **kw)
             att_maps.append(att)
-        x = self.bottom(x, generator=generator, **kw)
+        with span(names["bottom"]):
+            x = self.bottom(x, generator=generator, **kw)
         for i in reversed(range(n)):
             x = block("upsample", i, x, use_kernels=use_kernels, train=train)
             pair = (skips[i], x.to(skips[i].dtype))
@@ -204,11 +214,14 @@ class UNet2d5_spvPA(nn.Module):
             route = None if train else self._block_route(pair, i, outc,
                                                          routes)
             if route is not None:
-                x, att = self._block_apply(route, pair, i, use_kernels)
+                with span(names[f"up_{i}"]):
+                    x, att = self._block_apply(route, pair, i, use_kernels)
                 att_maps.append(att)
                 continue
             if self.attention_module:
-                att, pair = getattr(self, f"upatt_{i}")(pair, gate=True, **kw)
+                with span(names[f"upatt_{i}"]):
+                    att, pair = getattr(self, f"upatt_{i}")(pair, gate=True,
+                                                            **kw)
                 att_maps.append(att)
             x = block("up", i, pair, **kw)
         return x, tuple(att_maps)

@@ -58,7 +58,8 @@ from vs_seg_tpu_torch.compat.from_jax import (legacy_adam_moments,
                                                load_jax_train_state,
                                                load_jax_variables)
 from vs_seg_tpu_torch.core.device import DTYPES, resolve_device
-from vs_seg_tpu_torch.core.observability import make_image_grid, start_trace
+from vs_seg_tpu_torch.core.observability import (make_image_grid, span,
+                                                  start_trace)
 from vs_seg_tpu_torch.eval.metrics import center_of_mass_slice, dice_score
 from vs_seg_tpu_torch.losses.dice import dice_spvpa_loss
 from vs_seg_tpu_torch.parallel import distributed
@@ -96,18 +97,26 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer, *,
                     ) -> Callable:
     """(image, label, generator) -> loss (a device scalar, not synced).
     Updates the model's parameters, BatchNorm statistics and the optimizer in
-    place; `after_backward` runs between the backward and the update."""
+    place; `after_backward` runs between the backward and the update. The
+    phases run under the spans train.forward, train.loss, train.backward
+    (with `after_backward`) and train.optimizer (zero_grad and the
+    update)."""
 
     def step(image, label, generator):
         label = label.float()            # may arrive uint8
-        optimizer.zero_grad(set_to_none=True)
-        output = model(image, use_kernels=use_kernels, train=True,
-                       generator=generator)
-        loss = _loss(output, label, supervised_attention, hardness)
-        loss.backward()
-        if after_backward is not None:
-            after_backward()
-        optimizer.step()
+        with span("train.optimizer"):
+            optimizer.zero_grad(set_to_none=True)
+        with span("train.forward"):
+            output = model(image, use_kernels=use_kernels, train=True,
+                           generator=generator)
+        with span("train.loss"):
+            loss = _loss(output, label, supervised_attention, hardness)
+        with span("train.backward"):
+            loss.backward()
+            if after_backward is not None:
+                after_backward()
+        with span("train.optimizer"):
+            optimizer.step()
         return loss.detach()
 
     return step

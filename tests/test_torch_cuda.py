@@ -8,7 +8,9 @@ training cache (its loader makes no sync; its crops equal the host
 transforms' bit for bit), and the paths of UNet2d5 and UNet (ds_conv at
 UNet's strided units, Cin != Cout; the train kernels at 2 channels; each
 model's kernel path against its plain path), the flagship's train step
-with and without --remat, and the blend's constant map and sigma_scale.
+with and without --remat, the blend's constant map and sigma_scale, and
+the train-mode BatchNorm -> dropout -> PReLU passes (ops/bnorm_train.py)
+at the flagship's level-0 and level-1 shapes and in a train step.
 
 These tests need an NVIDIA GPU and nvcc: they carry the `gpu` marker and
 skip without CUDA. They import no JAX, so on the GPU machine they run
@@ -1050,3 +1052,213 @@ def test_sliding_window_blend_options_on_the_card(dev, mode, sigma_scale):
         for k in (True, False)]
     assert blend.blend_scatter.launches > n0
     assert torch.equal(outs[0], outs[1])
+
+
+# ---- bnorm_train: the train-mode BatchNorm -> dropout -> PReLU ------------
+
+# the flagship's level-0 and level-1 train activations at a 384x384x64 crop
+BNORM_SHAPES = [(1, 64, 384, 384, 16), (1, 64, 192, 192, 32)]
+# a sum of f32 terms in another order: within 1e-5 of the sum of |terms|
+SUM_TOL = 1e-5
+
+
+def _bnorm_case(dev, shape, seed=0):
+    """bf16 y (a conv output: mean 0.3, std 2), the dropout words of rate
+    0.1, f32 per-channel statistics and parameters, an upstream g."""
+    from vs_seg_tpu_torch.ops import bnorm_train as bt
+    c = shape[-1]
+    gen = torch.Generator(dev).manual_seed(seed)
+    y = (torch.randn(shape, generator=gen, device=dev) * 2 + 0.3).to(
+        torch.bfloat16)
+    g = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    words = torch.randint(0, bt.WORDS, shape, generator=gen, device=dev,
+                          dtype=torch.int32)
+    mean = torch.rand(c, generator=gen, device=dev) * 0.6
+    inv = torch.rand(c, generator=gen, device=dev) * 0.5 + 0.25
+    bias = torch.randn(c, generator=gen, device=dev) * 0.2
+    alpha = torch.full((1,), 0.25, device=dev)
+    return y, g, words, 58982, mean, inv, bias, alpha
+
+
+def _sum_check(got, terms):
+    """got (K,) against the float64 sums of terms (M, K) (or (M,) for one
+    sum), within SUM_TOL of the sums of |terms|."""
+    t = terms.double().reshape(terms.shape[0], -1)
+    err = (got.double() - t.sum(0)).abs()
+    assert bool((err <= SUM_TOL * t.abs().sum(0)).all()), err.max()
+
+
+@pytest.mark.parametrize("shape", BNORM_SHAPES)
+@pytest.mark.parametrize("drop", [True, False])
+def test_bnorm_train_kernels_match_twins(dev, shape, drop):
+    """Each pass at the flagship's level-0 and level-1 shapes: stats and
+    bwd_reduce within SUM_TOL of float64 sums of the twins' terms and
+    bit-equal over two runs (fixed-order sums); apply (output and mask
+    bits) and bwd_apply bit-equal to their twins given the same
+    statistics and coefficients (the same f32 ops in the same order,
+    rounded once)."""
+    from vs_seg_tpu_torch.ops import bnorm_train as bt
+    y, g, words, thresh, mean, inv, bias, alpha = _bnorm_case(dev, shape)
+    if not drop:
+        words = thresh = None
+    c = shape[-1]
+    n0 = bt.bn_dropout_prelu.launches
+    s1, s2 = bt.stats(y), bt.stats(y)
+    assert torch.equal(s1, s2)
+    yf = y.reshape(-1, c).float()
+    _sum_check(s1[:c], yf)
+    _sum_check(s1[c:], yf * yf)
+    out, bits = bt.apply(y, words, thresh, mean, inv, bias, alpha)
+    pout, pbits = bt.apply_plain(y, words, thresh, mean, inv, bias, alpha)
+    assert torch.equal(out, pout)
+    assert (bits is None and pbits is None) or torch.equal(bits, pbits)
+    r1 = bt.bwd_reduce(g, y, bits, thresh, mean, inv, bias, alpha)
+    r2 = bt.bwd_reduce(g, y, bits, thresh, mean, inv, bias, alpha)
+    assert torch.equal(r1, r2)
+    gf, d, zp, gh = bt._backward_terms(g, y, pbits, thresh, mean, inv, bias,
+                                       alpha)
+    _sum_check(r1[:c], gh)
+    _sum_check(r1[c:2 * c], gh * d)
+    _sum_check(r1[2 * c:], (gf * torch.clamp_max(zp, 0)).reshape(-1, 1))
+    del gf, d, zp, gh
+    c1 = -(inv * r1[:c]) / (y.numel() // c)
+    c2 = -(inv * r1[c:2 * c]) / (y.numel() // c)
+    dy = bt.bwd_apply(g, y, bits, thresh, mean, inv, bias, alpha, c1, c2)
+    assert torch.equal(dy, bt.bwd_apply_plain(g, y, pbits, thresh, mean, inv,
+                                              bias, alpha, c1, c2))
+    assert bt.bn_dropout_prelu.launches == n0 + 2 + 2 + 1 + 2 + 2 + 1
+
+
+@pytest.mark.parametrize("c", [16, 96, 7])
+@pytest.mark.parametrize("counted", [False, True])
+def test_bnorm_train_finishes_match_twins(dev, c, counted):
+    """The finish kernels bit-equal to their twins, the torch ops they
+    replace, on the card: the count from the host (one process) and on the
+    card (as a batch-stats group sums it); one launch each."""
+    from vs_seg_tpu_torch.ops import bnorm_train as bt
+    gen = torch.Generator(dev).manual_seed(c)
+    y = torch.randn(2 * 64 * 96, c, generator=gen, device=dev) * 1.5 + 0.3
+    sums = torch.cat([y.sum(0), (y * y).sum(0)])
+    n = float(y.shape[0])
+    count = torch.tensor(n, device=dev) if counted else n
+    run = [torch.rand(c, generator=gen, device=dev),
+           torch.rand(c, generator=gen, device=dev) + 0.5]
+    scale = torch.rand(c, generator=gen, device=dev) + 0.5
+    red = torch.randn(2 * c + 1, generator=gen, device=dev) * 300.0
+    total = red[:2 * c] * 3 if counted else red[:2 * c]
+    outs = []
+    for fn, bwd in ((bt.finish, bt.bwd_finish),
+                    (bt.finish_plain, bt.bwd_finish_plain)):
+        r = [t.clone() for t in run]
+        n0 = bt.bn_dropout_prelu.launches
+        fwd = fn(sums, count, *r, scale)
+        outs.append([*fwd, *r, *bwd(red, total, count, fwd[1], fwd[2])])
+        assert bt.bn_dropout_prelu.launches - n0 == (
+            2 if fn is bt.finish else 0)
+    for k, (a, b) in enumerate(zip(*outs)):
+        assert torch.equal(a, b), (k, float((a - b).abs().max()))
+
+
+@pytest.mark.parametrize("c", [16, 7])
+def test_bnorm_train_function_matches_the_eager_chain(dev, c):
+    """The Function on the card (bf16, dropout 0.1) against the eager
+    chain in float32 on the same bf16 input and words: output and
+    gradients within TOL of each tensor's largest, the running statistics
+    within 1e-5."""
+    from vs_seg_tpu_torch.nn.layers import BatchNorm, Dropout, PReLU
+    from vs_seg_tpu_torch.ops import bnorm_train as bt
+    x = _x(_g(), dev, 2, 8, 24, 40, c) * 2
+    w = _x(_g(), dev, 2, 8, 24, 40, c).float()
+    runs = []
+    for dtype, fused in ((torch.bfloat16, True), (torch.float32, False)):
+        bn, act = BatchNorm(c, device=dev), PReLU(device=dev)
+        gen = torch.Generator(dev).manual_seed(3)
+        xt = x.to(dtype).detach().clone().requires_grad_()
+        n0 = bt.bn_dropout_prelu.launches
+        if fused:
+            out = bt.bn_dropout_prelu(xt, bn, act.alpha,
+                                      Dropout(0.1).draw(xt, gen))
+        else:
+            out = act(Dropout(0.1)(bn(xt), True, gen))
+        (out.float() * w).sum().backward()
+        assert bt.bn_dropout_prelu.launches - n0 == (
+            bt.LAUNCHES_PER_SITE if fused else 0)
+        runs.append([out.float(), xt.grad.float(), bn.scale.grad,
+                     bn.bias.grad, act.alpha.grad, bn.mean, bn.var])
+    for k, (a, b) in enumerate(zip(*runs)):
+        _check(a, b, 1e-5 if k >= 5 else TOL)
+
+
+@pytest.mark.parametrize("c", [1, 3, 7, 12, 100, 130, 320, 1000])
+def test_bnorm_train_plan_takes_any_width(dev, c):
+    """csrc/bnorm_train.cu's plan (block_threads, bnorm_plan) at widths off
+    the flagship: rows for at least 4 blocks an SM, and every pass at a
+    small shape bit-equal to its twin (stats and bwd_reduce within
+    SUM_TOL of float64 sums)."""
+    from vs_seg_tpu_torch.ops import bnorm_train as bt
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert bt.rows(c, dev.index or 0) >= 4 * sms
+    y, g, words, thresh, mean, inv, bias, alpha = _bnorm_case(
+        dev, (3, 5, 7, c), seed=c)
+    yf = y.reshape(-1, c).float()
+    _sum_check(bt.stats(y)[c:], yf * yf)
+    out, bits = bt.apply(y, words, thresh, mean, inv, bias, alpha)
+    pout, pbits = bt.apply_plain(y, words, thresh, mean, inv, bias, alpha)
+    assert torch.equal(out, pout) and torch.equal(bits, pbits)
+    red = bt.bwd_reduce(g, y, bits, thresh, mean, inv, bias, alpha)
+    _, d, _, gh = bt._backward_terms(g, y, pbits, thresh, mean, inv, bias,
+                                     alpha)
+    _sum_check(red[c:2 * c], gh * d)
+    c1, c2 = -inv * 0.01, inv * 0.02
+    assert torch.equal(
+        bt.bwd_apply(g, y, bits, thresh, mean, inv, bias, alpha, c1, c2),
+        bt.bwd_apply_plain(g, y, pbits, thresh, mean, inv, bias, alpha, c1,
+                           c2))
+
+
+@pytest.mark.parametrize("c", [1031, 4000])
+def test_bnorm_train_plan_refuses_widths_past_the_kernels(dev, c):
+    """A C that needs blocks past 512 threads (1031) or more shared memory
+    than a block has (4000) raises before any launch."""
+    from vs_seg_tpu_torch.ops import bnorm_train as bt
+    n0 = bt.bn_dropout_prelu.launches
+    with pytest.raises(ValueError, match=f"C = {c}"):
+        bt.stats(torch.zeros(2, c, device=dev, dtype=torch.bfloat16))
+    assert bt.bn_dropout_prelu.launches == n0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16])
+def test_bnorm_train_refuses_what_it_cannot_take(dev, dtype):
+    """A CUDA tensor never falls back to a twin: another dtype raises, and
+    so do parameters of another length."""
+    from vs_seg_tpu_torch.ops import bnorm_train as bt
+    with pytest.raises(TypeError, match="bfloat16"):
+        bt.stats(torch.zeros(4, 8, device=dev, dtype=dtype))
+    y = torch.zeros(4, 8, device=dev, dtype=torch.bfloat16)
+    v = torch.zeros(8, device=dev)
+    with pytest.raises(ValueError, match="8 elements"):
+        bt.apply(y, None, None, v[:4], v, v, v[:1])
+
+
+def test_bnorm_train_launches_per_train_step(dev):
+    """One full-width flagship train step over a 16x64x64 crop:
+    bn_dropout_prelu launches LAUNCHES_PER_SITE kernels at every train
+    Convolution with BatchNorm and PReLU, counted from the model."""
+    from vs_seg_tpu_torch.nn.blocks import Convolution
+    from vs_seg_tpu_torch.ops import bnorm_train as bt
+    from vs_seg_tpu_torch.train import trainer as ttrainer
+    model = _zoo_model(dev, "UNet2d5_spvPA")
+    sites = sum(1 for m in model.modules() if isinstance(m, Convolution)
+                and m.norm is not None and m.act_name == "prelu")
+    opt = ttrainer.make_optimizer(model.parameters(), 1e-4, 1e-7)
+    step = ttrainer.make_train_step(model, opt, supervised_attention=True,
+                                    hardness=True)
+    x = _x(_g(), dev, 1, 16, 64, 64, 1)
+    y = (torch.rand((1, 16, 64, 64, 1), generator=_g()) > 0.8).float().to(
+        dev)
+    n0 = bt.bn_dropout_prelu.launches
+    loss = step(x, y, torch.Generator(dev).manual_seed(1))
+    torch.cuda.synchronize()
+    assert torch.isfinite(loss)
+    assert sites == 26
+    assert bt.bn_dropout_prelu.launches - n0 == bt.LAUNCHES_PER_SITE * sites

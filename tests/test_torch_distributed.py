@@ -34,6 +34,7 @@ from vs_seg_tpu_torch.data.device_pipeline import (DeviceCachedDataset,
                                                    DeviceLoader)
 from vs_seg_tpu_torch.models import build_model
 from vs_seg_tpu_torch.nn.layers import BatchNorm
+from vs_seg_tpu_torch.ops import bnorm_train
 from vs_seg_tpu_torch.parallel import distributed
 from vs_seg_tpu_torch.train import trainer as ttrainer
 
@@ -104,6 +105,14 @@ def _bn_inputs():
     return x, w, params
 
 
+def _bnorm_train_inputs():
+    """_bn_inputs with a PReLU slope and the global batch's dropout words."""
+    x, w, params = _bn_inputs()
+    rng = np.random.default_rng(4)
+    words = rng.integers(0, 65536, size=x.shape, dtype=np.int32)
+    return x, w, words, dict(params, alpha=np.array([0.2], np.float32))
+
+
 def _fit_inputs(tmp):
     rng = np.random.default_rng(5)
 
@@ -132,6 +141,7 @@ def two(ref, tmp_path_factory):
     tmp = tmp_path_factory.mktemp("dp_fit")
     kw, train, val, epochs = _fit_inputs(tmp)
     jobs = [("batchnorm", _bn_inputs()),
+            ("bnorm_train_tail", _bnorm_train_inputs()),
             ("dp_step", (PORT_KW, ref["weights"], ref["image"],
                          ref["label"], True)),
             ("replicated_steps", (PORT_KW, ref["weights"],
@@ -139,17 +149,19 @@ def two(ref, tmp_path_factory):
             ("fit", (dict(kw, results_folder_name="dp"), ref["weights"],
                      train, val, epochs))]
     out = _launch(2, jobs)
-    return {"bn": [r[0] for r in out], "step": [r[1] for r in out],
-            "replicated": [r[2] for r in out], "fit": [r[3] for r in out],
-            "fit_inputs": (kw, train, val, epochs)}
+    return {"bn": [r[0] for r in out], "tail": [r[1] for r in out],
+            "step": [r[2] for r in out], "replicated": [r[3] for r in out],
+            "fit": [r[4] for r in out], "fit_inputs": (kw, train, val, epochs)}
 
 
 @pytest.fixture(scope="module")
 def four(ref):
     out = _launch(4, [("batchnorm", _bn_inputs()),
+                      ("bnorm_train_tail", _bnorm_train_inputs()),
                       ("dp_step", (PORT_KW, ref["weights"], ref["image"],
                                    ref["label"]))])
-    return {"bn": [r[0] for r in out], "step": [r[1] for r in out]}
+    return {"bn": [r[0] for r in out], "tail": [r[1] for r in out],
+            "step": [r[2] for r in out]}
 
 
 @pytest.fixture(scope="module")
@@ -287,6 +299,41 @@ def test_batchnorm_global_statistics_match_one_process(request, runs,
                 ) <= tol
     assert _rel(np.concatenate([r["gx"] for r in res]), xt.grad.float()
                 ) <= tol
+    for r in res:
+        assert _rel(r["mean"], bn.mean) <= 1e-6
+        assert _rel(r["var"], bn.var) <= 1e-6
+        np.testing.assert_array_equal(r["mean"], res[0]["mean"])
+        np.testing.assert_array_equal(r["var"], res[0]["var"])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("runs", ["two", "four"])
+def test_bnorm_train_tail_global_statistics_match_one_process(request, runs,
+                                                              dtype):
+    """ops/bnorm_train.py's Function (its twins) on N ranks against one
+    process on the concatenated batch with the same dropout words: outputs
+    and input gradients (the global batch's statistics and their gradient)
+    as the BatchNorm test above, and the ranks' gradients of scale, bias
+    and slope summed over the ranks, float32 within 1e-5 of the largest
+    (sums in other orders), bf16 in the bf16 band."""
+    res = [r[f"torch.{dtype}"] for r in _runs(request, runs)["tail"]]
+    x, w, words, params = _bnorm_train_inputs()
+    bn = BatchNorm(4, device="cpu")
+    bn.load_state_dict({k: torch.from_numpy(v) for k, v in params.items()
+                        if k != "alpha"})
+    alpha = torch.nn.Parameter(torch.from_numpy(params["alpha"]))
+    xt = torch.from_numpy(x).to(getattr(torch, dtype)).requires_grad_()
+    y = bnorm_train.bn_dropout_prelu(
+        xt, bn, alpha, (torch.from_numpy(words), W.BNORM_THRESH))
+    (y.float() * torch.from_numpy(w)).sum().backward()
+    tol = 1e-6 if dtype == "float32" else BF16_TOL
+    assert _rel(np.concatenate([r["y"] for r in res]), y.float().detach()
+                ) <= tol
+    assert _rel(np.concatenate([r["gx"] for r in res]), xt.grad.float()
+                ) <= tol
+    for key, ref in (("gscale", bn.scale.grad), ("gbias", bn.bias.grad),
+                     ("galpha", alpha.grad)):
+        assert _rel(sum(r[key] for r in res), ref) <= max(tol, 1e-5), key
     for r in res:
         assert _rel(r["mean"], bn.mean) <= 1e-6
         assert _rel(r["var"], bn.var) <= 1e-6

@@ -4,13 +4,14 @@ the port (vs_seg_tpu_torch/nn/layers.py:PReLU) against the JAX package
 
 Both units get the same weights (the JAX ones, loaded into the port), the
 same bf16 input and the same bf16 upstream gradient. A slope's gradient is
-sum(g * min(y, 0)) over the whole activation y, one bf16 value in each
-package. Each is held to two float64 sums over the same bf16-rounded
-tensors: (a) over its own bf16 pre-activation y, which isolates the
+sum(g * min(y, 0)) over the whole activation y. Each is held to two
+float64 sums: (a) over its own pre-activation y, which isolates the
 reduction's rounding, and (b) over the pre-activation of the whole unit
-computed in float64 from the bf16-rounded input and weights. The port's
-error may exceed JAX's by at most one bf16 ulp of the result; and, as the
-port rounds each product to bf16 and sums in float32, its error against
+computed in float64 from the bf16-rounded input and weights. JAX's y is
+bf16 and its gradient one bf16 value; the port's train unit
+(ops/bnorm_train.py) forms y = (conv - mean) * inv + bias in float32 and
+never rounds it, and sums the products in float32. The port's error may
+exceed JAX's by at most one bf16 ulp of the result, and its error against
 (a) stays within 2^-8 of sum(|g * min(y, 0)|). `pytest -s` prints each
 case's values and errors.
 """
@@ -27,6 +28,7 @@ from vs_seg_tpu.nn.layers import BatchNorm as JBatchNorm
 from vs_seg_tpu_torch.compat import load_jax_variables
 from vs_seg_tpu_torch.nn.blocks import Convolution
 from vs_seg_tpu_torch.nn.layers import BN_EPS
+from vs_seg_tpu_torch.ops import bnorm_train
 
 SHAPE = (2, 8, 16, 16)       # (N, D, H, W)
 CIN, COUT = 4, 8
@@ -75,11 +77,19 @@ def _jax_slope_grad(x, g, jm, v):
             np.asarray(pre.astype(jnp.float32), np.float64))
 
 
-def _port_slope_grad(x, g, tm):
-    """(slope gradient, bf16 pre-activation) of the port's unit at train."""
+def _port_slope_grad(x, g, tm, monkeypatch):
+    """(slope gradient, float32 pre-activation) of the port's unit at
+    train: its apply pass's z, recomputed by the twin from the pass's own
+    inputs."""
     pre = {}
-    tm.act.register_forward_pre_hook(
-        lambda m, args: pre.setdefault("y", args[0].detach()))
+    real = bnorm_train.apply
+
+    def apply(y, words, thresh, mean, inv, bias, alpha):
+        pre.setdefault("y", bnorm_train._centred(y, mean, inv, bias)[1]
+                       .view(y.shape))
+        return real(y, words, thresh, mean, inv, bias, alpha)
+
+    monkeypatch.setattr(bnorm_train, "apply", apply)
     out = tm(torch.from_numpy(x).to(torch.bfloat16), train=True)
     out.backward(torch.from_numpy(g).to(torch.bfloat16))
     return float(tm.act.alpha.grad[0]), pre["y"].double().numpy()
@@ -104,13 +114,13 @@ def _float64_preactivation(x, kernel, tm):
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
 @pytest.mark.parametrize("kernel", [(3, 3, 1), (3, 3, 3)])
-def test_slope_gradient_rounds_no_worse_than_jax(kernel, seed):
+def test_slope_gradient_rounds_no_worse_than_jax(kernel, seed, monkeypatch):
     x, g, jm, v = _case(kernel, seed)
     j_grad, j_pre = _jax_slope_grad(x, g, jm, v)
     tm = Convolution(CIN, COUT, kernel, act="prelu", norm="batch",
                      dtype=torch.bfloat16, device="cpu")
     load_jax_variables(tm, v)
-    t_grad, t_pre = _port_slope_grad(x, g, tm)
+    t_grad, t_pre = _port_slope_grad(x, g, tm, monkeypatch)
     g64 = g.astype(np.float64)
 
     def exact(pre):

@@ -15,10 +15,13 @@ from vs_seg_tpu_torch.core.config import Config
 from vs_seg_tpu_torch.data.dataset import DataLoader
 from vs_seg_tpu_torch.models import build_model
 from vs_seg_tpu_torch.nn.layers import BatchNorm
+from vs_seg_tpu_torch.ops import bnorm_train
 from vs_seg_tpu_torch.parallel import distributed
 from vs_seg_tpu_torch.train import trainer as ttrainer
 
 TIMEOUT_S = 60.0
+# the dropout threshold of bnorm_train_tail (rate 0.1, nn/layers.py:Dropout)
+BNORM_THRESH = 58982
 
 
 def init():
@@ -61,6 +64,33 @@ def batchnorm(x, w, params):
                            "gx": xt.grad.float().numpy(),
                            "mean": bn.mean.numpy().copy(),
                            "var": bn.var.numpy().copy()}
+    return out
+
+
+def bnorm_train_tail(x, w, words, params):
+    """The train-mode BatchNorm -> dropout -> PReLU Function
+    (ops/bnorm_train.py) on this rank's rows of x and of the dropout words,
+    in float32 and bf16: output, running statistics, input gradient of
+    sum(out * w) and this rank's gradients of scale, bias and the slope."""
+    ranks = init()
+    rows, _ = ranks.rows(len(x))
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        bn = BatchNorm(x.shape[-1], device="cpu")
+        bn.load_state_dict({k: torch.from_numpy(v) for k, v in
+                            params.items() if k != "alpha"})
+        alpha = torch.nn.Parameter(torch.from_numpy(params["alpha"]))
+        xt = torch.from_numpy(x[rows]).to(dtype).requires_grad_()
+        y = bnorm_train.bn_dropout_prelu(
+            xt, bn, alpha, (torch.from_numpy(words[rows]), BNORM_THRESH))
+        (y.float() * torch.from_numpy(w[rows])).sum().backward()
+        out[str(dtype)] = {"y": y.detach().float().numpy(),
+                           "gx": xt.grad.float().numpy(),
+                           "mean": bn.mean.numpy().copy(),
+                           "var": bn.var.numpy().copy(),
+                           "gscale": bn.scale.grad.numpy().copy(),
+                           "gbias": bn.bias.grad.numpy().copy(),
+                           "galpha": alpha.grad.numpy().copy()}
     return out
 
 

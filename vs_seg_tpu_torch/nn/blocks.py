@@ -1,9 +1,11 @@
 """Composite blocks mirroring vs_seg_tpu/nn/blocks.py.
 
   Convolution     eval: conv (or transpose conv) -> folded BatchNorm -> act;
-                  train: conv -> BatchNorm (batch stats) -> Dropout -> act;
-                  or conv_only; with Routes.dsconv the eval (3,3,3)
-                  stride-(2,2,2) ones run as ops/dsconv.py:ds_conv
+                  train: conv -> BatchNorm (batch stats) -> Dropout -> act,
+                  with BatchNorm and PReLU on the kernel path as one
+                  Function (ops/bnorm_train.py); or conv_only; with
+                  Routes.dsconv the eval (3,3,3) stride-(2,2,2) ones run as
+                  ops/dsconv.py:ds_conv
   ResidualUnit    `subunits` Convolutions + residual (1x1 conv when the
                   channels change); the conv-only logit head folds its
                   residual into the conv (the JAX `_headfold_apply` algebra);
@@ -49,7 +51,7 @@ from vs_seg_tpu_torch.nn.layers import (
     conv3d, is_unfused, same_padding, spatial_shards,
 )
 from vs_seg_tpu_torch.ops import att as fused_att
-from vs_seg_tpu_torch.ops import block2d, dsconv, halo, rublock
+from vs_seg_tpu_torch.ops import block2d, bnorm_train, dsconv, halo, rublock
 
 # the conv chain depth in H of ru_block (unit0 then unit1, each 3 rows; the
 # 1x1 residual adds none): the halo that keeps its local rows exact
@@ -102,6 +104,12 @@ class Convolution(nn.Module):
                 and conv.strides == (2, 2, 2) and conv.padding == (1, 1, 1)
                 and self.act_name in ("prelu", "relu", None))
 
+    def _fused_train(self, use_kernels: bool) -> bool:
+        """The train-mode tails ops/bnorm_train.py takes: BatchNorm, any
+        dropout (none included) and PReLU, on the kernel path."""
+        return (use_kernels and self.norm is not None
+                and self.act_name == "prelu")
+
     def forward(self, x, use_kernels: bool = True, train: bool = False,
                 generator: Optional[torch.Generator] = None,
                 routes: Routes = Routes()):
@@ -121,6 +129,11 @@ class Convolution(nn.Module):
                       alpha)
         if train:
             y = self.conv(x, **kw)
+            if self._fused_train(use_kernels):
+                drawn = (None if self.dropout is None
+                         else self.dropout.draw(y, generator))
+                return bnorm_train.bn_dropout_prelu(y, self.norm,
+                                                    self.act.alpha, drawn)
             if self.norm is not None:
                 y = self.norm(y)
         else:

@@ -408,17 +408,28 @@ class Dropout(nn.Module):
         super().__init__()
         self.rate = rate
 
-    def forward(self, x, train: bool = False,
-                generator: Optional[torch.Generator] = None):
-        if not train or self.rate == 0.0:
-            return x
+    def draw(self, x, generator: Optional[torch.Generator]
+             ) -> Optional[Tuple[torch.Tensor, int]]:
+        """The train-mode words of x, one int32 in [0, 65536) per element
+        drawn from `generator`, and the threshold below which an element is
+        kept; None where the rate keeps every element (nothing is drawn)."""
+        if self.rate == 0.0:
+            return None
         thresh = int(round((1.0 - self.rate) * 65536.0))
         if thresh >= 65536:
-            return x
+            return None
         if generator is None:
             raise ValueError("train-mode dropout needs an explicit "
                              "torch.Generator")
-        keep = thresh / 65536.0
         bits = torch.randint(0, 65536, x.shape, generator=generator,
                              device=x.device, dtype=torch.int32)
+        return bits, thresh
+
+    def forward(self, x, train: bool = False,
+                generator: Optional[torch.Generator] = None):
+        drawn = self.draw(x, generator) if train else None
+        if drawn is None:
+            return x
+        bits, thresh = drawn
+        keep = thresh / 65536.0
         return (x / keep).masked_fill(bits >= thresh, 0.0)

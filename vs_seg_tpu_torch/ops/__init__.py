@@ -29,6 +29,11 @@ and their plain PyTorch twins:
                                 conv333_dw)
   ring_probe.py  ring_probe  <- tools/ring_probe.py:_kernel (the Mosaic ring
                                 probe; csrc/ring.cuh's first user)
+  bnorm_train.py bn_dropout_prelu
+                             <- no Pallas kernel (XLA fuses the chain in
+                                JAX): a train-mode Convolution's BatchNorm
+                                -> dropout -> PReLU, a statistics pass and
+                                an apply pass each way (csrc/bnorm_train.cu)
 
 Importing these modules builds nothing.
 """
